@@ -1,0 +1,269 @@
+"""Host-side event store and SampleModel construction (port of
+``mach3_tpu/samples/events.py`` for rectangular binnings).
+
+The reference's sample-init pipeline (``Samples/SampleHandlerFD.cpp:169-202``):
+MC into a struct-of-arrays, norm parameters matched to events once
+(``CalcNormsBins``, ``:637-747``), oscillation channels wired
+(``:1047-1122``), then the static tensors of a :class:`SampleModel`.
+The shared route's event sort and plans (JAX ``events.py:428-598``) wait
+with their kernel (K2, ROADMAP).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..core.exceptions import ConfigError
+from ..core.logging import get_logger
+from ..core.precision import ATYPE, FTYPE
+from ..params.parameterset import ParamMeta
+from ..splines.reweight import SHIFT_KINDS
+from .binning import SampleBinning
+from .routing import choose_kernel_route
+from .sample import OscConfig, SampleModel, ShiftSpec
+from .teststats import TestStatistic
+
+_log = get_logger("samples")
+
+#: PDG -> flavour index (e, mu, tau); sign = antineutrino.
+_FLAVOUR = {12: 0, 14: 1, 16: 2}
+
+
+@dataclasses.dataclass
+class EventData:
+    """Struct-of-arrays MC event record (``EventInfo``,
+    ``Samples/FarDetectorCoreInfoStruct.h:82-126`` — minus the pointers)."""
+
+    kinematics: dict[str, np.ndarray]  # e.g. {"e_true": ..., "e_reco": ...}
+    mode: np.ndarray  # [E] generator interaction mode
+    target: np.ndarray  # [E] target nucleus Z
+    pdg: np.ndarray  # [E] post-oscillation neutrino PDG (±12/±14/±16)
+    preosc_pdg: np.ndarray  # [E] flux (pre-oscillation) PDG
+    mc_weight: np.ndarray  # [E] nominal MC weight
+
+    @property
+    def n_events(self) -> int:
+        return len(self.mode)
+
+
+def match_event_mask(events: EventData, meta: ParamMeta, sample_name: str) -> np.ndarray:
+    """[E] bool mask of the events a parameter applies to (the matching rules
+    of ``CalcNormsBins``, ``SampleHandlerFD.cpp:667-747``): empty selection
+    lists match everything; kinematic cuts test the nominal kinematics."""
+    mask = np.ones(events.n_events, dtype=bool)
+    if meta.modes:
+        mask &= np.isin(events.mode, meta.modes)
+    if meta.pdgs:
+        mask &= np.isin(events.pdg, meta.pdgs)
+    if meta.preosc_pdgs:
+        mask &= np.isin(events.preosc_pdg, meta.preosc_pdgs)
+    if meta.targets:
+        mask &= np.isin(events.target, meta.targets)
+    for cut in meta.kinematic_cuts:
+        if cut.variable not in events.kinematics:
+            raise ConfigError(
+                f"Kinematic cut variable '{cut.variable}' unknown to sample {sample_name}"
+            )
+        v = events.kinematics[cut.variable]
+        mask &= (v >= cut.low) & (v < cut.high)
+    return mask
+
+
+def match_norm_params(
+    events: EventData, metas: Sequence[tuple[ParamMeta, int]], sample_name: str
+) -> np.ndarray:
+    """Padded norm-index matrix [E, W] of global parameter indices (-1 pads).
+
+    metas: (meta, global_index) pairs for norm-type parameters."""
+    e = events.n_events
+    masks: list[np.ndarray] = []
+    gidxs: list[int] = []
+    for meta, gidx in metas:
+        if not meta.applies_to_sample(sample_name):
+            continue
+        masks.append(match_event_mask(events, meta, sample_name))
+        gidxs.append(gidx)
+    pad = -1  # replaced by the unit slot downstream
+    if not masks:
+        return np.full((e, 1), pad, np.int64)
+    # Row-packing: np.nonzero of the [E, M] mask is row-major, so within an
+    # event the meta order is kept; a hit's position is its rank in its row.
+    m = np.stack(masks, axis=1)
+    width = max(1, int(m.sum(axis=1).max(initial=0)))
+    out = np.full((e, width), pad, np.int64)
+    rows, cols = np.nonzero(m)
+    pos = np.arange(len(rows)) - np.searchsorted(rows, rows)
+    out[rows, pos] = np.asarray(gidxs, np.int64)[cols]
+    _log.info("%s: matched %d norm-param/event associations (width %d)",
+              sample_name, len(rows), width)
+    return out
+
+
+def build_osc_config(
+    events: EventData,
+    e_grid: np.ndarray,
+    osc_param_gidx: Sequence[int],
+    baseline: float,
+    density: float,
+    electron_fraction: float = 0.5,
+    nc_modes: Sequence[int] = (),
+    e_true_var: str = "e_true",
+    dtype=FTYPE,
+    phase_dtype=ATYPE,
+) -> OscConfig:
+    """Per-event oscillation-channel and energy-grid gather indices.
+
+    Channels are the unique (preosc_pdg, pdg) pairs (``OscChannelInfo``,
+    ``FarDetectorCoreInfoStruct.h:8-37``); both PDGs must share the sign.
+    Each event snaps to the nearest grid energy."""
+    pairs = np.stack([events.preosc_pdg, events.pdg], axis=1)
+    uniq, inverse = np.unique(pairs, axis=0, return_inverse=True)
+    alpha, beta, anti = [], [], []
+    for gen, det in uniq:
+        if (gen > 0) != (det > 0):
+            raise ConfigError(f"Oscillation channel mixes nu and nubar: {gen} -> {det}")
+        alpha.append(_FLAVOUR[abs(int(gen))])
+        beta.append(_FLAVOUR[abs(int(det))])
+        anti.append(gen < 0)
+
+    e_true = np.asarray(events.kinematics[e_true_var], np.float64)
+    grid = np.asarray(e_grid, np.float64)
+    gidx = np.clip(np.searchsorted(grid, e_true), 0, len(grid) - 1)
+    left = np.clip(gidx - 1, 0, len(grid) - 1)
+    use_left = np.abs(grid[left] - e_true) < np.abs(grid[gidx] - e_true)
+    gidx = np.where(use_left, left, gidx)
+
+    return OscConfig(
+        e_grid=grid,
+        event_grid_idx=gidx,
+        event_channel=inverse.reshape(-1),
+        chan_alpha=alpha,
+        chan_beta=beta,
+        chan_anti=anti,
+        nc_mask=np.isin(events.mode, list(nc_modes)),
+        osc_param_idx=list(osc_param_gidx),
+        baseline=baseline,
+        density=density,
+        electron_fraction=electron_fraction,
+        dtype=dtype,
+        phase_dtype=phase_dtype,
+    )
+
+
+def build_sample_model(
+    name: str,
+    events: EventData,
+    var_order: Sequence[str],
+    binning_edges: Sequence[np.ndarray],
+    binning_vars: Sequence[str],
+    n_total_params: int,
+    norm_idx: np.ndarray | None = None,
+    spline_table=None,
+    osc: OscConfig | None = None,
+    shifts: Sequence[ShiftSpec] = (),
+    data: np.ndarray | None = None,
+    test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
+    use_kernel: bool | str = "auto",
+    stat_dtype=None,
+) -> SampleModel:
+    """Assemble the static SampleModel tensors (on the CPU; move the result
+    with ``.to(device)``).
+
+    var_order fixes the row layout of the kinematics matrix; binning_vars
+    and ``ShiftSpec.var_row`` refer to its rows. use_kernel: ``"auto"`` /
+    ``True`` route to a kernel where one fits, ``False`` forces the plain
+    route (``routing.choose_kernel_route``)."""
+    var_index = {v: i for i, v in enumerate(var_order)}
+    kin = np.stack([np.asarray(events.kinematics[v], np.float32) for v in var_order])
+    binned_rows = [int(var_index[v]) for v in binning_vars]
+    binning = SampleBinning.build(binning_edges, binned_rows)
+
+    if norm_idx is None:
+        norm_idx = np.full((events.n_events, 1), -1, np.int64)
+    # Map pad (-1) to the unit slot (= n_total_params, appended 1.0).
+    norm_idx = np.where(norm_idx < 0, n_total_params, norm_idx)
+
+    # Compress the extended-vector axis to the norm params that match THIS
+    # sample: [*, NP+1] norm structures become [*, NA+1], and norm_applied
+    # keeps their global indices for the per-chain take.
+    applied = np.unique(norm_idx)
+    applied = applied[applied < n_total_params]
+    norm_applied = None
+    if len(applied) + 1 < n_total_params + 1:
+        remap = np.full(n_total_params + 1, len(applied), np.int64)
+        remap[applied] = np.arange(len(applied))
+        norm_idx = remap[norm_idx]
+        norm_applied = applied
+    na1 = (len(applied) + 1) if norm_applied is not None else n_total_params + 1
+
+    # Match-count matrix S [NA+1, E] for the in-kernel norm product, when it
+    # is cheap (S[na, e] = #slots of event e matched to applied param na).
+    norm_s = None
+    if na1 * events.n_events * 4 <= 512 << 20:
+        norm_s = np.zeros((na1, events.n_events), np.float32)
+        for w_col in range(norm_idx.shape[1]):
+            np.add.at(norm_s, (norm_idx[:, w_col], np.arange(events.n_events)), 1.0)
+
+    if data is None:
+        data = np.zeros(binning.n_bins)
+
+    # Bin map: with no shift on a binned axis the event->bin map is static;
+    # with exactly one shift of a kind the kernel knows on one binned axis,
+    # the binning of that axis moves into the kernel and the static axes'
+    # summed contribution is precomputed here.
+    static_bins = None
+    kernel_shift = None
+    shift_static_base = None
+    shift_edges = None
+    shifted_binned = [s for s in shifts if s.var_row in binned_rows]
+    if not shifted_binned:
+        static_bins = binning.find_bins(torch.from_numpy(kin))
+    elif len(shifts) == 1 and len(shifted_binned) == 1 and shifts[0].kind in SHIFT_KINDS:
+        s = shifts[0]
+        axis_j = binned_rows.index(s.var_row)
+        static_base = np.zeros(events.n_events, np.int64)
+        valid = np.ones(events.n_events, bool)
+        for a, r in enumerate(binned_rows):
+            if a == axis_j:
+                continue
+            n_a = binning.n_bins_axis[a]
+            real_edges = np.asarray(binning_edges[a], np.float64)[: n_a + 1]
+            idx = np.searchsorted(real_edges, kin[r], side="right") - 1
+            valid &= (idx >= 0) & (idx < n_a)
+            static_base += np.clip(idx, 0, n_a - 1) * binning.strides[a]
+        shift_static_base = np.where(valid, static_base, -1).astype(np.int32)
+        shift_edges = binning.axis_edges(axis_j)
+        kernel_shift = (
+            s.kind, int(s.param_index), binning.strides[axis_j], binning.n_bins_axis[axis_j]
+        )
+
+    route = choose_kernel_route(
+        binning.n_bins,
+        spline_table,
+        has_static_bins=static_bins is not None,
+        has_kernel_shift=kernel_shift is not None,
+        requested=use_kernel,
+    )
+    return SampleModel(
+        name,
+        kin=kin,
+        mc_weight=np.asarray(events.mc_weight, np.float32),
+        norm_idx=norm_idx,
+        binning=binning,
+        data=data,
+        norm_s=norm_s,
+        norm_applied=norm_applied,
+        spline_table=spline_table,
+        osc=osc,
+        shifts=tuple(shifts),
+        test_statistic=test_statistic,
+        stat_dtype=stat_dtype,
+        kernel_route=route,
+        static_bins=static_bins,
+        kernel_shift=kernel_shift,
+        shift_static_base=shift_static_base,
+        shift_edges=shift_edges,
+    )

@@ -1,0 +1,96 @@
+"""Kernel-variant routing (port of the variant decision of
+``mach3_tpu/samples/routing.py``).
+
+The JAX package sizes tiles against the TPU's VMEM; none of that carries
+over. What carries over is the decision, made once at build time from static
+properties: which reweight variant a sample takes.
+
+* ``shifted`` — one elementwise shift on one binned axis, dense table:
+  the CUDA kernel of ``splines/reweight.py`` (K1).
+* ``xla``     — plain torch ops (the JAX package computes that route
+  outside Pallas too).
+* ``shared`` (static bins; K2/K4), ``generic`` (per-chain bins; K5) and the
+  param-blocked shifted form (P > 16; K3) are routed as in the JAX package
+  but not ported yet: ``SampleModel.reweight_batch`` raises for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..core.logging import get_logger
+from ..splines.monolith import DenseSplineTable
+from ..splines.reweight import MAX_BINS
+
+_log = get_logger("routing")
+
+#: Beyond this many bins the JAX package takes the XLA path.
+MAX_KERNEL_BINS = 4096
+#: Per-chain-bins variants keep one shared-memory histogram per chain tile.
+MAX_PERCHAIN_BINS = MAX_BINS
+#: Past this many spline params the JAX package switches to param-blocked
+#: kernels (K2/K3) with PARAM_TILE-sized coefficient blocks.
+MAX_UNROLL_PARAMS = 16
+PARAM_TILE = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelRoute:
+    """The routing decision recorded on the SampleModel."""
+
+    use_kernel: bool
+    variant: str  # "shared" | "shifted" | "generic" | "xla"
+    # Param-blocked formulation (P > MAX_UNROLL_PARAMS); None = unblocked.
+    param_tile: int | None = None
+    reason: str = ""
+    # The caller's original request, kept so a rebuild can re-route.
+    requested: object = "auto"
+
+
+def choose_kernel_route(
+    n_bins: int,
+    spline_table,
+    has_static_bins: bool,
+    has_kernel_shift: bool,
+    requested: bool | str = "auto",
+) -> KernelRoute:
+    """Pick the kernel variant, or the plain route.
+
+    requested: ``"auto"`` or ``True`` route to a kernel where one fits;
+    ``False`` forces the plain route. Unlike the JAX package the decision
+    does not depend on the backend: a kernel wrapper runs its plain version
+    on CPU tensors."""
+    if requested is False:
+        return KernelRoute(False, "xla", reason="disabled by caller", requested=requested)
+    if not isinstance(spline_table, DenseSplineTable):
+        return KernelRoute(False, "xla", reason="no dense spline table", requested=requested)
+    if n_bins > MAX_KERNEL_BINS:
+        return _fallback(requested, f"n_bins={n_bins} > {MAX_KERNEL_BINS}")
+    p = spline_table.n_spline_params
+    pt = PARAM_TILE if p > MAX_UNROLL_PARAMS else None
+    if has_static_bins:
+        variant = "shared"
+    elif has_kernel_shift:
+        variant = "shifted"
+        if n_bins > MAX_PERCHAIN_BINS:
+            return _fallback(requested, f"n_bins={n_bins} > {MAX_PERCHAIN_BINS} (shifted)")
+    else:
+        variant = "generic"
+        if n_bins > MAX_PERCHAIN_BINS:
+            return _fallback(requested, f"n_bins={n_bins} > {MAX_PERCHAIN_BINS} (generic)")
+        if pt is not None:
+            return _fallback(requested, f"P={p} > {MAX_UNROLL_PARAMS} (generic, no blocked form)")
+    route = KernelRoute(
+        True, variant, param_tile=pt,
+        reason=f"P={p}, bins={n_bins}" + (f", param_tile={pt}" if pt else ""),
+        requested=requested,
+    )
+    _log.info("kernel route: %s — %s", route.variant, route.reason)
+    return route
+
+
+def _fallback(requested: bool | str, why: str) -> KernelRoute:
+    if requested is True:
+        _log.warning("kernel requested but statically infeasible: %s — plain route", why)
+    else:
+        _log.info("kernel route: xla — %s", why)
+    return KernelRoute(False, "xla", reason=why, requested=requested)

@@ -1,0 +1,324 @@
+"""The binned-sample likelihood (port of ``mach3_tpu/samples/sample.py``).
+
+``SampleHandlerFD`` (``Samples/SampleHandlerFD.cpp:316-448,1284-1300``) as
+one function of a chain batch of proposed parameter vectors [C, NP]:
+
+    base weight = MC weight x oscillation weight (x norm product)
+    -> spline response product, shifted-axis binning, Σw/Σw² histogram
+    -> per-bin test statistic summed in f64.
+
+On the ``shifted`` route the middle line is the fused CUDA kernel
+(``splines/reweight.py``); the ``xla`` route and the unbatched ``reweight``
+run it as plain torch ops. Static arrays are registered buffers, so
+``SampleModel.to(device)`` moves a sample.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from ..core.precision import ATYPE, FTYPE
+from ..osc.prob import OscParams, probabilities_const_density
+from ..splines.eval import eval_dense, find_segments
+from ..splines.reweight import fused_reweight_histogram_shifted
+from .binning import SampleBinning, histogram
+from .routing import KernelRoute
+from .teststats import TestStatistic, get_test_stat_fn
+
+#: A functional shift: (param_value [C, 1], var_values [..., E], kin [..., V, E])
+#: -> new var values.
+ShiftFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftSpec:
+    """One functional parameter applied to one kinematic variable.
+
+    ``kind`` names the shift for the kernels (``"scale"``: ``x * (1 + v)``,
+    see ``splines/reweight.SHIFT_KINDS``); ``fn`` is its plain torch form,
+    used on the plain route. A kind the kernel does not know keeps the
+    sample on the plain route."""
+
+    kind: str
+    fn: ShiftFn
+    param_index: int
+    var_row: int
+
+    @classmethod
+    def scale(cls, param_index: int, var_row: int) -> "ShiftSpec":
+        """The energy-scale shift ``x * (1 + v)``."""
+        return cls("scale", lambda value, x, kin: x * (1.0 + value), param_index, var_row)
+
+
+class OscConfig(nn.Module):
+    """Per-sample beam oscillation setup (constant density).
+
+    Buffers: e_grid [NE] f64, event_grid_idx / event_channel [E], chan_alpha /
+    chan_beta [NC] (flavour 0=e, 1=mu, 2=tau), chan_anti [NC] bool, nc_mask
+    [E] bool (NC events get unit weight), osc_param_idx [6] into θ."""
+
+    def __init__(self, e_grid, event_grid_idx, event_channel, chan_alpha, chan_beta,
+                 chan_anti, nc_mask, osc_param_idx, *, baseline: float, density: float,
+                 electron_fraction: float = 0.5, dtype=FTYPE, phase_dtype=ATYPE):
+        super().__init__()
+        long = torch.long
+        self.register_buffer("e_grid", torch.as_tensor(e_grid, dtype=ATYPE))
+        self.register_buffer("event_grid_idx", torch.as_tensor(event_grid_idx, dtype=long))
+        self.register_buffer("event_channel", torch.as_tensor(event_channel, dtype=long))
+        self.register_buffer("chan_alpha", torch.as_tensor(chan_alpha, dtype=long))
+        self.register_buffer("chan_beta", torch.as_tensor(chan_beta, dtype=long))
+        self.register_buffer("chan_anti", torch.as_tensor(chan_anti, dtype=torch.bool))
+        self.register_buffer("nc_mask", torch.as_tensor(nc_mask, dtype=torch.bool))
+        self.register_buffer("osc_param_idx", torch.as_tensor(osc_param_idx, dtype=long))
+        # One flat gather index into the [NC * NE] channel table.
+        self.register_buffer(
+            "flat_idx", self.event_channel * self.e_grid.shape[0] + self.event_grid_idx,
+            persistent=False,
+        )
+        self.baseline = float(baseline)
+        self.density = float(density)
+        self.electron_fraction = float(electron_fraction)
+        self.dtype = dtype
+        self.phase_dtype = phase_dtype
+
+    def prob_grids(self, thetas: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(nu, antinu) probability grids [C, NE, 3, 3] — shareable between
+        samples with equal (grid, baseline, density) (``share_signature``)."""
+        pars = OscParams.from_array(thetas[:, self.osc_param_idx].to(ATYPE))
+        kw = dict(length=self.baseline, rho=self.density, ye=self.electron_fraction,
+                  dtype=self.dtype, phase_dtype=self.phase_dtype)
+        p_nu = probabilities_const_density(pars, self.e_grid, antineutrino=False, **kw)
+        p_bar = probabilities_const_density(pars, self.e_grid, antineutrino=True, **kw)
+        return p_nu, p_bar
+
+    def chan_table(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
+        """Per-channel probability rows [C, NC, NE]."""
+        p_nu, p_bar = self.prob_grids(thetas) if grids is None else grids
+        chan_nu = p_nu[..., self.chan_alpha, self.chan_beta].transpose(-1, -2)
+        chan_bar = p_bar[..., self.chan_alpha, self.chan_beta].transpose(-1, -2)
+        return torch.where(self.chan_anti[:, None], chan_bar, chan_nu)
+
+    def weights(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
+        """Per-event oscillation weights [C, E] f32 (one flat gather)."""
+        chan = self.chan_table(thetas, grids)
+        w = chan.reshape(chan.shape[0], -1)[:, self.flat_idx].to(FTYPE)
+        return torch.where(self.nc_mask, 1.0, w)
+
+    def share_signature(self) -> tuple:
+        """Host-side key: configs with equal keys produce identical grids."""
+        return (
+            "beam",
+            self.e_grid.cpu().numpy().tobytes(),
+            self.osc_param_idx.cpu().numpy().tobytes(),
+            self.baseline,
+            self.density,
+            self.electron_fraction,
+            str(self.dtype),
+            str(self.phase_dtype),
+        )
+
+
+def _buffer(x, dtype):
+    return None if x is None else torch.as_tensor(x, dtype=dtype)
+
+
+class SampleModel(nn.Module):
+    """Static arrays + config of one binned sample.
+
+    Buffers: kin [V, E] f32, mc_weight [E] f32, norm_idx [E, Wn] into the
+    (compressed) extended norm vector, data [B] f64, and optionally norm_s
+    [NA+1, E] f32 (match counts of the in-kernel norm product), norm_applied
+    [NA] (global indices of the sample's norm params), static_bins [E]
+    (bins that no shift moves), shift_static_base [E] i32 and shift_edges
+    [n_axis + 1] f32 (the shifted route's static-axis bins and shifted-axis
+    edges). ``kernel_shift`` = (kind, param_index, stride, n_axis)."""
+
+    def __init__(
+        self,
+        name: str,
+        kin,
+        mc_weight,
+        norm_idx,
+        binning: SampleBinning,
+        data,
+        *,
+        norm_s=None,
+        norm_applied=None,
+        spline_table=None,
+        osc: OscConfig | None = None,
+        shifts: tuple[ShiftSpec, ...] = (),
+        test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
+        stat_dtype: Any = None,
+        kernel_route: KernelRoute | None = None,
+        static_bins=None,
+        kernel_shift: tuple | None = None,
+        shift_static_base=None,
+        shift_edges=None,
+        tf1_table=None,
+        weight_fns: tuple = (),
+    ):
+        super().__init__()
+        if tf1_table is not None or weight_fns:
+            raise NotImplementedError(
+                "TF1 tables and weight-valued functional parameters are not "
+                "ported yet (ROADMAP Queue 1, item 4)"
+            )
+        self.name = name
+        self.register_buffer("kin", _buffer(kin, FTYPE))
+        self.register_buffer("mc_weight", _buffer(mc_weight, FTYPE))
+        self.register_buffer("norm_idx", _buffer(norm_idx, torch.long))
+        self.register_buffer("data", _buffer(data, ATYPE))
+        self.register_buffer("norm_s", _buffer(norm_s, FTYPE))
+        self.register_buffer("norm_applied", _buffer(norm_applied, torch.long))
+        self.register_buffer("static_bins", _buffer(static_bins, torch.long))
+        self.register_buffer("shift_static_base", _buffer(shift_static_base, torch.int32))
+        self.register_buffer("shift_edges", _buffer(shift_edges, FTYPE))
+        self.binning = binning
+        self.spline_table = spline_table
+        self.osc = osc
+        self.shifts = tuple(shifts)
+        self.test_statistic = test_statistic
+        self.stat_dtype = stat_dtype
+        self.kernel_route = kernel_route or KernelRoute(False, "xla", reason="no route")
+        self.kernel_shift = kernel_shift
+
+    @property
+    def n_events(self) -> int:
+        return self.kin.shape[1]
+
+    @property
+    def n_bins(self) -> int:
+        return self.binning.n_bins
+
+    # ------------------------------------------------------------ weights
+    def _norm_ext_batch(self, thetas: torch.Tensor) -> torch.Tensor:
+        """[C, NP] -> [C, NA+1] f32: the sample's applied norm params plus
+        the literal 1.0 unit slot that padding indexes."""
+        t = thetas if self.norm_applied is None else thetas[:, self.norm_applied]
+        ones = torch.ones((t.shape[0], 1), dtype=FTYPE, device=t.device)
+        return torch.cat([t.to(FTYPE), ones], dim=1)
+
+    def _norm_weights(self, thetas: torch.Tensor) -> torch.Tensor:
+        """[C, E] product of each event's matched norm values (exact zero for
+        a zero norm; the reference's ``norm_pointers`` product)."""
+        return self._norm_ext_batch(thetas)[:, self.norm_idx].prod(-1)
+
+    def _osc_weights(self, thetas: torch.Tensor, osc_grids: tuple | None = None) -> torch.Tensor:
+        """[C, E] f32; ``osc_grids`` injects (nu, antinu) grids shared across
+        samples (``OscillationHandler.cpp:18-35``)."""
+        if self.osc is None:
+            return torch.ones((thetas.shape[0], self.n_events), dtype=FTYPE, device=thetas.device)
+        return self.osc.weights(thetas, osc_grids)
+
+    def _shifted_kinematics(self, thetas: torch.Tensor) -> torch.Tensor:
+        """[C, V, E] kinematics after the functional shifts. The parameter
+        value is rounded to f32 first, as the kernel takes it, so both routes
+        put an event near an edge in the same bin (the JAX XLA route shifts
+        with the f64 value and can differ from its kernel by one ulp)."""
+        kin = self.kin.expand((thetas.shape[0],) + self.kin.shape)
+        if self.shifts:
+            kin = kin.clone()
+            for s in self.shifts:
+                value = thetas[:, s.param_index, None].to(FTYPE)
+                shifted = s.fn(value, kin[:, s.var_row], kin)
+                kin[:, s.var_row] = shifted.to(FTYPE)
+        return kin
+
+    def event_weights(
+        self, thetas: torch.Tensor, osc_grids: tuple | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-event (weight [C, E], bin [C, E]) before the histogram fill."""
+        w = self.mc_weight * self._norm_weights(thetas)
+        if self.spline_table is not None:
+            w = w * eval_dense(self.spline_table, thetas)
+        w = w * self._osc_weights(thetas, osc_grids)
+        if self.static_bins is not None:
+            return w, self.static_bins.expand(w.shape)
+        return w, self.binning.find_bins(self._shifted_kinematics(thetas))
+
+    # ---------------------------------------------------------- reweight
+    def reweight(self, params: torch.Tensor, osc_grids: tuple | None = None):
+        """Unbatched plain reweight: params [NP] -> (mc [B], w2 [B])."""
+        grids = None if osc_grids is None else tuple(g[None] for g in osc_grids)
+        mc, w2 = self.reweight_batch_plain(params[None], grids)
+        return mc[0], w2[0]
+
+    def reweight_batch_plain(self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None):
+        """Plain-torch batched reweight (the JAX package's XLA route): [C, NP]
+        -> (mc [C, B], w2 [C, B]); the reference the kernel route is checked
+        against."""
+        w, bins = self.event_weights(thetas, osc_grids_batch)
+        return histogram(w, bins, self.n_bins)
+
+    def shifted_kernel_args(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> tuple[tuple, dict]:
+        """Arguments of the shifted-route kernel call for a chain batch."""
+        norm_in_kernel = self.norm_s is not None
+        base_w = self.mc_weight * self._osc_weights(thetas, osc_grids_batch)
+        if not norm_in_kernel:
+            base_w = base_w * self._norm_weights(thetas)
+        table = self.spline_table
+        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        kind, param_index, stride_j, n_axis_j = self.kernel_shift
+        args = (
+            seg.contiguous(), t.contiguous(), table.coeffs, base_w.contiguous(),
+            thetas[:, param_index].to(FTYPE).contiguous(),
+            self.kin[self.shifts[0].var_row], self.shift_static_base, self.shift_edges,
+        )
+        kwargs = dict(n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j)
+        if norm_in_kernel:
+            kwargs.update(norm_ext=self._norm_ext_batch(thetas), norm_s=self.norm_s)
+        return args, kwargs
+
+    def reweight_batch(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Chain-batched reweight on the sample's route: [C, NP] ->
+        (mc [C, B], w2 [C, B])."""
+        route = self.kernel_route
+        if not route.use_kernel:
+            return self.reweight_batch_plain(thetas, osc_grids_batch)
+        if route.variant == "shifted" and route.param_tile is None:
+            args, kwargs = self.shifted_kernel_args(thetas, osc_grids_batch)
+            return fused_reweight_histogram_shifted(*args, **kwargs)
+        item = {
+            "shared": "K2/K4 (ROADMAP Queue 2, reference scale)",
+            "shifted": "K3, the param-blocked shifted kernel (ROADMAP Queue 2)",
+            "generic": "K5 (ROADMAP Queue 2)",
+        }[route.variant]
+        raise NotImplementedError(
+            f"{self.name}: the {route.variant!r} kernel route is not ported yet: {item}"
+        )
+
+    def _stat_sum(self, mc: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+        """Per-bin test statistic (in ``stat_dtype``, default f64) summed over
+        bins in f64 (``SampleHandlerFD.cpp:1284-1300``): [..., B] -> [...]."""
+        sd = self.stat_dtype or ATYPE
+        stat_fn = get_test_stat_fn(self.test_statistic)
+        per_bin = stat_fn(self.data.to(sd), mc.to(sd), w2.to(sd))
+        return per_bin.sum(-1, dtype=ATYPE)
+
+    def log_likelihood_batch(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> torch.Tensor:
+        """[C, NP] -> [C] -logL on the sample's route."""
+        return self._stat_sum(*self.reweight_batch(thetas, osc_grids_batch))
+
+    def osc_prob_grids(self, thetas: torch.Tensor) -> tuple | None:
+        return None if self.osc is None else self.osc.prob_grids(thetas)
+
+    def osc_share_signature(self) -> tuple | None:
+        return None if self.osc is None else self.osc.share_signature()
+
+    def set_data(self, data) -> None:
+        """Replace the observed histogram [B] in place."""
+        self.data = torch.as_tensor(data, dtype=ATYPE, device=self.kin.device)
+
+    def asimov_data(self, params: torch.Tensor) -> torch.Tensor:
+        """MC prediction at ``params`` [NP] (the reference's Asimov default,
+        ``MaCh3Factory.h:134-157``), f64 [B]."""
+        return self.reweight(params)[0].to(ATYPE)
