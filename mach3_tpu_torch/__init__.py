@@ -5,12 +5,14 @@ module names so each module's counterpart is easy to find:
 
 * ``core``      — precision policy, config (YAML), logging, special functions
 * ``params``    — parameter sets, prior model, correlated proposals
-* ``splines``   — spline coefficients, dense monolith, eval, the fused
-  reweight-histogram kernel wrapper (``splines/reweight.py``)
-* ``osc``       — beam (constant-density) 3-flavour oscillation probabilities
+* ``splines``   — spline coefficients, dense monolith, eval, the shared
+  route's event layout (``splines/plan.py``), the fused reweight-histogram
+  kernel wrappers (``splines/reweight.py``)
+* ``osc``       — 3-flavour oscillation probabilities: beam (constant
+  density) and atmospheric (layered PREM earth)
 * ``samples``   — event store, binning, routing, reweighting, test statistics
 * ``fitters``   — the fit model and the fixed-proposal MR2T2 sampler
-* ``tutorial``  — the two-sample toy experiment
+* ``tutorial``  — the two-sample toy and the reference-scale fixture
 * ``kernels``   — builds the hand-written CUDA kernels in ``csrc/``
 * ``bridge``    — turns a JAX ``FitModel`` into this package's ``FitModel``
 

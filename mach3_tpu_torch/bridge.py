@@ -5,6 +5,11 @@ jax: array leaves are read with ``np.asarray`` and static fields by
 attribute. JAX shift callables cannot cross: each shift becomes the port's
 ``"scale"`` kind (``x * (1 + v)``, the toy's energy scale), after the JAX
 callable is evaluated on a few numpy values to check that it is that shift.
+
+A shared-route sample arrives sorted and padded for JAX's own event tile
+(its pad events carry zero weight); the port lays it out again for its own
+kernel (``samples/events.apply_shared_layout``) and reads none of JAX's
+``hist_*`` plan, which was sized for the TPU's VMEM.
 """
 from __future__ import annotations
 
@@ -15,8 +20,9 @@ from .core.precision import FTYPE
 from .fitters.model import FitModel
 from .params.state import _FIELDS, PriorModel
 from .samples.binning import SampleBinning
+from .samples.events import apply_shared_layout
 from .samples.routing import choose_kernel_route
-from .samples.sample import OscConfig, SampleModel, ShiftSpec
+from .samples.sample import AtmoOscConfig, OscConfig, SampleModel, ShiftSpec
 from .samples.teststats import TestStatistic
 from .splines.monolith import DenseSplineTable
 from .splines.reweight import SHIFT_KINDS
@@ -57,11 +63,17 @@ def _shift(js) -> ShiftSpec:
     return ShiftSpec.scale(js.param_index, js.var_row)
 
 
-def _osc(jo) -> OscConfig | None:
+def _osc(jo) -> OscConfig | AtmoOscConfig | None:
     if jo is None:
         return None
-    if not hasattr(jo, "event_grid_idx"):
-        raise NotImplementedError("atmospheric oscillation is not ported yet (ROADMAP)")
+    if hasattr(jo, "event_flat_idx"):
+        return AtmoOscConfig(
+            _np(jo.e_grid), _np(jo.layer_lengths), _np(jo.layer_rho), _np(jo.event_flat_idx),
+            _np(jo.chan_alpha), _np(jo.chan_beta), _np(jo.chan_anti), _np(jo.nc_mask),
+            _np(jo.osc_param_idx), rho_unique=_np(jo.rho_unique), rho_idx=_np(jo.rho_idx),
+            height_weights=_np(jo.height_weights), z_groups=jo.z_groups,
+            dtype=_dtype(jo.dtype),
+        )
     return OscConfig(
         _np(jo.e_grid), _np(jo.event_grid_idx), _np(jo.event_channel),
         _np(jo.chan_alpha), _np(jo.chan_beta), _np(jo.chan_anti), _np(jo.nc_mask),
@@ -103,27 +115,26 @@ def _sample(js) -> SampleModel:
         has_kernel_shift=kernel_shift is not None,
         requested=requested,
     )
+    arrays = dict(kin=_np(js.kin), mc_weight=_np(js.mc_weight), norm_idx=_np(js.norm_idx),
+                  norm_s=_np(js.norm_s), static_bins=_np(js.static_bins),
+                  spline_table=table, osc=_osc(js.osc))
+    if route.use_kernel and route.variant == "shared":
+        arrays = apply_shared_layout(js.name, arrays, table, arrays["osc"], jb.n_bins)
     return SampleModel(
         js.name,
-        kin=_np(js.kin),
-        mc_weight=_np(js.mc_weight),
-        norm_idx=_np(js.norm_idx),
         binning=binning,
         data=_np(js.data),
-        norm_s=_np(js.norm_s),
         norm_applied=_np(js.norm_applied),
-        spline_table=table,
-        osc=_osc(js.osc),
         shifts=shifts,
         test_statistic=TestStatistic(js.test_statistic.value),
         stat_dtype=_dtype(js.stat_dtype),
         kernel_route=route,
-        static_bins=_np(js.static_bins),
         kernel_shift=kernel_shift,
         shift_static_base=_np(js.shift_static_base),
         shift_edges=shift_edges,
         tf1_table=js.tf1_table,
         weight_fns=tuple(js.weight_fns),
+        **arrays,
     )
 
 

@@ -1,9 +1,11 @@
 // Fused spline-reweight + shifted-axis binning + Σw/Σw² histogram for Hopper.
 //
-// Replaces the TPU kernel K1, mach3_tpu/splines/pallas_reweight.py
+// Replaces the TPU kernels K1, mach3_tpu/splines/pallas_reweight.py
 // _kernel_maskreduce_shifted (with _resp_dot, _norm_weight and
-// _shifted_bin_histogram), reached through fused_reweight_histogram_shifted.
-// It computes what K1 computes, per (chain c, event e):
+// _shifted_bin_histogram), reached through fused_reweight_histogram_shifted,
+// and K3, _kernel_shifted_blocked (the same function with P streamed through
+// VMEM in blocks of 8; here the run-time loop over P, up to kMaxParams, takes
+// the place of the blocks). It computes, per (chain c, event e):
 //
 //   w   = base[c,e] · Π_p resp_p · exp(Σ_k log|ext[c,k]|·S[k,e]) · (−1)^(Σ_k neg[c,k]·S[k,e])
 //   x   = x_nom[e] · (1 + v[c])                      (shift kind "scale")
@@ -28,9 +30,17 @@
 // What bounds it on this card, and what the design does about each:
 //  * the [C, E] base_w read from device memory (~C·E·4 bytes a call): threads
 //    run over events, so every read is coalesced and read once;
-//  * the coefficient reads, 4 rows per (chain, param, event): the toy's dense
-//    tables (~10-20 MB a sample) stay resident in the 50 MB L2, and chains of
-//    a tile that share a segment hit L1; loads are coalesced along E;
+//  * the coefficient reads, 4 rows per (chain, param, event), coalesced along
+//    E; chains of a tile that share a segment hit L1. The toy's dense tables
+//    (~10-20 MB a sample) stay resident in the 50 MB L2, but the
+//    reference-scale nue_beam table (43 params, 60k events, 103 MB in bf16)
+//    does not: each of the C / kChainTile chain tiles reads the rows of its
+//    event block again, and only blocks of one event block that run at the
+//    same time share them in L2. At 128 chains x 60k events the grid is 30 x
+//    16 blocks, few enough to be resident together, so device memory sees
+//    each row about once a call; at many more events or chains the re-reads
+//    reach device memory. All P params are read for every event (the shifted
+//    route has no per-tile activity plan);
 //  * the shared-memory atomics of the histogram: one [CT][2][B+1] histogram
 //    per block, one shared atomicAdd per (chain, event) for each of Σw and
 //    Σw², then one global atomicAdd per non-empty (chain, bin) per block.

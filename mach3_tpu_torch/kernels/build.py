@@ -70,35 +70,55 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}_{_digest(source)}.so"
 
 
-def build(stem: str) -> tuple[Path, float, str]:
-    """Compile ``csrc/<stem>.cu`` unless its library exists already.
+def build_all(stems) -> dict[str, tuple[Path, float, str]]:
+    """Compile ``csrc/<stem>.cu`` for every stem whose library does not exist
+    yet, one ``nvcc`` per source, all started together.
 
-    Returns (library path, build seconds (0.0 when it existed), nvcc's
-    output, which with ``-Xptxas -v`` lists registers and shared memory)."""
-    lib = library_path(stem)
-    log = lib.with_suffix(".log")
-    if lib.is_file():
-        return lib, 0.0, log.read_text() if log.is_file() else ""
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{lib.name}.", suffix=".tmp")
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{stem}.cu")]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}) on {stem}.cu:\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    seconds = time.perf_counter() - t0
-    output = proc.stdout + proc.stderr
-    log.write_text(output)
-    return lib, seconds, output
+    Returns {stem: (library path, build seconds (0.0 when it existed),
+    nvcc's output, which with ``-Xptxas -v`` lists registers and shared
+    memory)}. Raises ``KernelBuildError`` if any source fails."""
+    out: dict[str, tuple[Path, float, str]] = {}
+    running = []
+    for stem in stems:
+        lib = library_path(stem)
+        log = lib.with_suffix(".log")
+        if lib.is_file():
+            out[stem] = (lib, 0.0, log.read_text() if log.is_file() else "")
+            continue
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{lib.name}.", suffix=".tmp")
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{stem}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((stem, lib, tmp, proc, time.perf_counter()))
+    failed = []
+    for stem, lib, tmp, proc, t0 in running:
+        try:
+            output, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on {stem}.cu:\n{output}")
+                continue
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        lib.with_suffix(".log").write_text(output)
+        out[stem] = (lib, time.perf_counter() - t0, output)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return out
+
+
+def build(stem: str) -> tuple[Path, float, str]:
+    """Compile ``csrc/<stem>.cu`` unless its library exists already (see
+    :func:`build_all`)."""
+    return build_all([stem])[stem]
+
+
+def kernel_stems() -> list[str]:
+    """The stems of every CUDA source of this package."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
 def load_library(stem: str) -> ctypes.CDLL:

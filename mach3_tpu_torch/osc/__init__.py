@@ -1,5 +1,5 @@
 from .pmns import MATTER_A, OSC_PHASE, hamiltonian_real, pmns_matrix_real
-from .prob import OscParams, probabilities_const_density
+from .prob import OscParams, probabilities_const_density, probabilities_layered
 
 __all__ = [
     "MATTER_A",
@@ -8,4 +8,5 @@ __all__ = [
     "pmns_matrix_real",
     "OscParams",
     "probabilities_const_density",
+    "probabilities_layered",
 ]

@@ -3,10 +3,10 @@
 
 The reference's sample-init pipeline (``Samples/SampleHandlerFD.cpp:169-202``):
 MC into a struct-of-arrays, norm parameters matched to events once
-(``CalcNormsBins``, ``:637-747``), oscillation channels wired
-(``:1047-1122``), then the static tensors of a :class:`SampleModel`.
-The shared route's event sort and plans (JAX ``events.py:428-598``) wait
-with their kernel (K2, ROADMAP).
+(``CalcNormsBins``, ``:637-747``), oscillation channels wired — beam
+(``:1047-1122``) or atmospheric through PREM — then the static tensors of a
+:class:`SampleModel`. A sample on the shared route gets its events laid out
+for the shared kernel (``splines/plan.py``; JAX ``events.py:428-598``).
 """
 from __future__ import annotations
 
@@ -19,11 +19,14 @@ import torch
 from ..core.exceptions import ConfigError
 from ..core.logging import get_logger
 from ..core.precision import ATYPE, FTYPE
+from ..osc.prem import PRODUCTION_HEIGHT_KM, path_through_earth
 from ..params.parameterset import ParamMeta
+from ..splines.monolith import DenseSplineTable, dense_table_activity
+from ..splines.plan import shared_layout
 from ..splines.reweight import SHIFT_KINDS
 from .binning import SampleBinning
 from .routing import choose_kernel_route
-from .sample import OscConfig, SampleModel, ShiftSpec
+from .sample import AtmoOscConfig, OscConfig, SampleModel, ShiftSpec
 from .teststats import TestStatistic
 
 _log = get_logger("samples")
@@ -102,6 +105,30 @@ def match_norm_params(
     return out
 
 
+def _channels(events: EventData):
+    """Oscillation channels, the unique (preosc_pdg, pdg) pairs
+    (``OscChannelInfo``, ``FarDetectorCoreInfoStruct.h:8-37``): (channel per
+    event [E], alpha, beta, anti per channel); both PDGs must share the sign."""
+    pairs = np.stack([events.preosc_pdg, events.pdg], axis=1)
+    uniq, inverse = np.unique(pairs, axis=0, return_inverse=True)
+    alpha, beta, anti = [], [], []
+    for gen, det in uniq:
+        if (gen > 0) != (det > 0):
+            raise ConfigError(f"Oscillation channel mixes nu and nubar: {gen} -> {det}")
+        alpha.append(_FLAVOUR[abs(int(gen))])
+        beta.append(_FLAVOUR[abs(int(det))])
+        anti.append(gen < 0)
+    return inverse.reshape(-1), alpha, beta, anti
+
+
+def _nearest(grid, vals) -> np.ndarray:
+    """Index of the nearest grid point (ties to the upper one)."""
+    g = np.asarray(grid, np.float64)
+    idx = np.clip(np.searchsorted(g, vals), 0, len(g) - 1)
+    left = np.clip(idx - 1, 0, len(g) - 1)
+    return np.where(np.abs(g[left] - vals) < np.abs(g[idx] - vals), left, idx)
+
+
 def build_osc_config(
     events: EventData,
     e_grid: np.ndarray,
@@ -119,27 +146,12 @@ def build_osc_config(
     Channels are the unique (preosc_pdg, pdg) pairs (``OscChannelInfo``,
     ``FarDetectorCoreInfoStruct.h:8-37``); both PDGs must share the sign.
     Each event snaps to the nearest grid energy."""
-    pairs = np.stack([events.preosc_pdg, events.pdg], axis=1)
-    uniq, inverse = np.unique(pairs, axis=0, return_inverse=True)
-    alpha, beta, anti = [], [], []
-    for gen, det in uniq:
-        if (gen > 0) != (det > 0):
-            raise ConfigError(f"Oscillation channel mixes nu and nubar: {gen} -> {det}")
-        alpha.append(_FLAVOUR[abs(int(gen))])
-        beta.append(_FLAVOUR[abs(int(det))])
-        anti.append(gen < 0)
-
-    e_true = np.asarray(events.kinematics[e_true_var], np.float64)
-    grid = np.asarray(e_grid, np.float64)
-    gidx = np.clip(np.searchsorted(grid, e_true), 0, len(grid) - 1)
-    left = np.clip(gidx - 1, 0, len(grid) - 1)
-    use_left = np.abs(grid[left] - e_true) < np.abs(grid[gidx] - e_true)
-    gidx = np.where(use_left, left, gidx)
+    inverse, alpha, beta, anti = _channels(events)
 
     return OscConfig(
-        e_grid=grid,
-        event_grid_idx=gidx,
-        event_channel=inverse.reshape(-1),
+        e_grid=np.asarray(e_grid, np.float64),
+        event_grid_idx=_nearest(e_grid, np.asarray(events.kinematics[e_true_var], np.float64)),
+        event_channel=inverse,
         chan_alpha=alpha,
         chan_beta=beta,
         chan_anti=anti,
@@ -153,6 +165,132 @@ def build_osc_config(
     )
 
 
+def build_atmo_osc_config(
+    events: EventData,
+    e_grid: np.ndarray,
+    cosz_grid: np.ndarray,
+    osc_param_gidx: Sequence[int],
+    nc_modes: Sequence[int] = (),
+    e_true_var: str = "e_true",
+    cosz_var: str = "cos_zenith",
+    production_height_km: float = PRODUCTION_HEIGHT_KM,
+    production_heights: Sequence[float] | None = None,
+    height_weights: Sequence[float] | None = None,
+    dtype=FTYPE,
+) -> AtmoOscConfig:
+    """Atmospheric wiring: PREM layered paths per zenith bin and per-event
+    (channel, cosZ, E) gather indices (CUDAProb3-equivalent setup).
+
+    production_heights / height_weights: quadrature nodes and weights of the
+    production-height average (CUDAProb3's averaged-height mode): the grids
+    become Σ_h w_h P(h). Omit for one fixed height (``production_height_km``).
+    Each event snaps to the nearest grid energy and zenith; densities are
+    deduplicated for the eigensolve, and zenith bins are grouped by their
+    segment count (``z_groups``)."""
+    inverse, alpha, beta, anti = _channels(events)
+
+    hw = None
+    if production_heights is not None:
+        if height_weights is None:
+            height_weights = np.full(len(production_heights), 1.0 / len(production_heights))
+        hw = np.asarray(height_weights, np.float64)
+        hw = hw / hw.sum()
+        per_h = [path_through_earth(np.asarray(cosz_grid), production_height_km=float(h))
+                 for h in production_heights]
+        nl = max(p[0].shape[1] for p in per_h)  # pad every height to the common maximum
+
+        def padl(a, value=0.0):
+            return np.pad(a, ((0, 0), (0, nl - a.shape[1])), constant_values=value)
+
+        lengths = np.stack([padl(p[0]) for p in per_h])  # [H, NZ, NL]
+        rho = np.stack([padl(p[1]) for p in per_h])
+        ye = np.stack([padl(p[2], 0.5) for p in per_h])
+    else:
+        lengths, rho, ye = path_through_earth(
+            np.asarray(cosz_grid), production_height_km=production_height_km
+        )
+    rho_eff = rho * (ye / 0.5)
+
+    e_idx = _nearest(e_grid, np.asarray(events.kinematics[e_true_var], np.float64))
+    z_idx = _nearest(cosz_grid, np.asarray(events.kinematics[cosz_var], np.float64))
+    nz, ne = len(cosz_grid), len(e_grid)
+    flat = (inverse * nz + z_idx) * ne + e_idx
+    rho_u, rho_inv = np.unique(rho_eff.ravel(), return_inverse=True)
+
+    # Zenith bins grouped by segment count: down-going bins have one air
+    # segment and skip the padded identity layers of the full PREM chain.
+    nseg = (lengths > 0).sum(axis=-1)
+    if nseg.ndim == 2:
+        nseg = nseg.max(axis=0)
+    nseg = np.maximum(nseg, 1)
+    groups = []
+    for nl in sorted(set(int(v) for v in nseg)):
+        idxs = tuple(int(i) for i in np.nonzero(nseg == nl)[0])
+        assert np.all(lengths[..., list(idxs), nl:] == 0.0)
+        groups.append((idxs, nl))
+
+    return AtmoOscConfig(
+        e_grid=np.asarray(e_grid, np.float64),
+        layer_lengths=lengths,
+        layer_rho=rho_eff,
+        event_flat_idx=flat,
+        chan_alpha=alpha,
+        chan_beta=beta,
+        chan_anti=anti,
+        nc_mask=np.isin(events.mode, list(nc_modes)),
+        osc_param_idx=list(osc_param_gidx),
+        rho_unique=rho_u,
+        rho_idx=rho_inv.reshape(rho_eff.shape),
+        height_weights=hw,
+        z_groups=tuple(groups) if len(groups) > 1 else None,
+        dtype=dtype,
+    )
+
+
+def apply_shared_layout(name: str, arrays: dict, table: DenseSplineTable, osc,
+                        n_bins: int) -> dict:
+    """Lay a shared-route sample's events out for the shared kernel
+    (``splines/plan.py``): parameters regrouped, events sorted and padded
+    with zero-weight copies, and the per-tile plan.
+
+    arrays: numpy ``kin`` [V, E], ``mc_weight`` [E], ``norm_idx`` [E, W],
+    ``norm_s`` [NA1, E] or None, ``static_bins`` [E]. Returns them permuted,
+    with ``spline_table``, ``osc`` and the ``hist_*`` plan, as keyword
+    arguments of :class:`SampleModel`."""
+    act = dense_table_activity(table)
+    bins = np.asarray(arrays["static_bins"], np.int64)
+    key = None if osc is None else osc.event_sort_key().cpu().numpy()
+    lay = shared_layout(act, bins, n_bins, key)
+    perm, pad = lay.event_perm, lay.pad_mask
+    tperm, pperm = torch.from_numpy(perm), torch.from_numpy(lay.param_perm)
+    mc_weight = np.asarray(arrays["mc_weight"])[perm].copy()
+    mc_weight[pad] = 0.0  # pads carry no weight
+    out = dict(
+        kin=np.asarray(arrays["kin"])[:, perm],
+        mc_weight=mc_weight,
+        norm_idx=np.asarray(arrays["norm_idx"])[perm],
+        norm_s=None if arrays["norm_s"] is None else np.asarray(arrays["norm_s"])[:, perm],
+        static_bins=bins[perm],
+        spline_table=DenseSplineTable(
+            table.coeffs.index_select(0, pperm).index_select(2, tperm),
+            table.knots_x[pperm], table.n_knots[pperm], table.param_index[pperm],
+        ),
+        osc=None if osc is None else osc.take_events(perm),
+        hist_tile_start=lay.tile_start,
+        hist_tile_width=lay.tile_width,
+        hist_plan_ptr=lay.plan_ptr,
+        hist_plan_idx=lay.plan_idx,
+        hist_nbl=lay.nbl,
+    )
+    _log.info(
+        "%s: shared layout — %d activity groups, %d pad events (%.1f%%), %d tiles of "
+        "window %d bins, %.2f of %d params active per tile",
+        name, lay.n_groups, int(pad.sum()), 100.0 * pad.sum() / max(len(perm), 1),
+        lay.n_tiles, lay.nbl, lay.mean_active(), act.shape[0],
+    )
+    return out
+
+
 def build_sample_model(
     name: str,
     events: EventData,
@@ -162,7 +300,7 @@ def build_sample_model(
     n_total_params: int,
     norm_idx: np.ndarray | None = None,
     spline_table=None,
-    osc: OscConfig | None = None,
+    osc: OscConfig | AtmoOscConfig | None = None,
     shifts: Sequence[ShiftSpec] = (),
     data: np.ndarray | None = None,
     test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
@@ -220,7 +358,7 @@ def build_sample_model(
     shift_edges = None
     shifted_binned = [s for s in shifts if s.var_row in binned_rows]
     if not shifted_binned:
-        static_bins = binning.find_bins(torch.from_numpy(kin))
+        static_bins = binning.find_bins(torch.from_numpy(kin)).numpy()
     elif len(shifts) == 1 and len(shifted_binned) == 1 and shifts[0].kind in SHIFT_KINDS:
         s = shifts[0]
         axis_j = binned_rows.index(s.var_row)
@@ -247,23 +385,22 @@ def build_sample_model(
         has_kernel_shift=kernel_shift is not None,
         requested=use_kernel,
     )
+    arrays = dict(kin=kin, mc_weight=np.asarray(events.mc_weight, np.float32),
+                  norm_idx=norm_idx, norm_s=norm_s, static_bins=static_bins,
+                  spline_table=spline_table, osc=osc)
+    if route.use_kernel and route.variant == "shared":
+        arrays = apply_shared_layout(name, arrays, spline_table, osc, binning.n_bins)
     return SampleModel(
         name,
-        kin=kin,
-        mc_weight=np.asarray(events.mc_weight, np.float32),
-        norm_idx=norm_idx,
         binning=binning,
         data=data,
-        norm_s=norm_s,
         norm_applied=norm_applied,
-        spline_table=spline_table,
-        osc=osc,
         shifts=tuple(shifts),
         test_statistic=test_statistic,
         stat_dtype=stat_dtype,
         kernel_route=route,
-        static_bins=static_bins,
         kernel_shift=kernel_shift,
         shift_static_base=shift_static_base,
         shift_edges=shift_edges,
+        **arrays,
     )

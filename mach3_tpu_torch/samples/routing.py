@@ -5,13 +5,16 @@ The JAX package sizes tiles against the TPU's VMEM; none of that carries
 over. What carries over is the decision, made once at build time from static
 properties: which reweight variant a sample takes.
 
-* ``shifted`` — one elementwise shift on one binned axis, dense table:
-  the CUDA kernel of ``splines/reweight.py`` (K1).
+* ``shifted`` — one elementwise shift on one binned axis, dense table, up to
+  ``MAX_PERCHAIN_BINS`` bins: the shifted CUDA kernel of
+  ``splines/reweight.py`` (K1; with P > 16 it stands for K3, whose P blocks
+  the CUDA kernel's run-time loop over P replaces).
+* ``shared``  — static bins, dense table, up to ``MAX_KERNEL_BINS`` bins: the
+  shared CUDA kernel (K2), over the event layout of ``splines/plan.py``.
+* ``generic`` — per-chain bins given as input (K5): routed as in the JAX
+  package but not ported yet, so ``SampleModel.reweight_batch`` raises.
 * ``xla``     — plain torch ops (the JAX package computes that route
   outside Pallas too).
-* ``shared`` (static bins; K2/K4), ``generic`` (per-chain bins; K5) and the
-  param-blocked shifted form (P > 16; K3) are routed as in the JAX package
-  but not ported yet: ``SampleModel.reweight_batch`` raises for them.
 """
 from __future__ import annotations
 
@@ -19,16 +22,18 @@ import dataclasses
 
 from ..core.logging import get_logger
 from ..splines.monolith import DenseSplineTable
-from ..splines.reweight import MAX_BINS
+from ..splines.reweight import MAX_BINS, MAX_PARAMS, MAX_SHARED_BINS
 
 _log = get_logger("routing")
 
-#: Beyond this many bins the JAX package takes the XLA path.
-MAX_KERNEL_BINS = 4096
+#: Beyond this many bins the JAX package takes the XLA path; the shared
+#: kernel takes the same limit.
+MAX_KERNEL_BINS = MAX_SHARED_BINS
 #: Per-chain-bins variants keep one shared-memory histogram per chain tile.
 MAX_PERCHAIN_BINS = MAX_BINS
 #: Past this many spline params the JAX package switches to param-blocked
-#: kernels (K2/K3) with PARAM_TILE-sized coefficient blocks.
+#: kernels (K2/K3) with PARAM_TILE-sized coefficient blocks; the route keeps
+#: the mark (``param_tile``), the CUDA kernels loop over any P.
 MAX_UNROLL_PARAMS = 16
 PARAM_TILE = 8
 
@@ -66,6 +71,8 @@ def choose_kernel_route(
     if n_bins > MAX_KERNEL_BINS:
         return _fallback(requested, f"n_bins={n_bins} > {MAX_KERNEL_BINS}")
     p = spline_table.n_spline_params
+    if p > MAX_PARAMS:
+        return _fallback(requested, f"P={p} > {MAX_PARAMS}")
     pt = PARAM_TILE if p > MAX_UNROLL_PARAMS else None
     if has_static_bins:
         variant = "shared"

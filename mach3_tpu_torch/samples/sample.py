@@ -7,10 +7,10 @@ one function of a chain batch of proposed parameter vectors [C, NP]:
     -> spline response product, shifted-axis binning, Σw/Σw² histogram
     -> per-bin test statistic summed in f64.
 
-On the ``shifted`` route the middle line is the fused CUDA kernel
-(``splines/reweight.py``); the ``xla`` route and the unbatched ``reweight``
-run it as plain torch ops. Static arrays are registered buffers, so
-``SampleModel.to(device)`` moves a sample.
+On the ``shifted`` and ``shared`` routes the middle line is a fused CUDA
+kernel (``splines/reweight.py``); the ``xla`` route and the unbatched
+``reweight`` run it as plain torch ops. Static arrays are registered buffers,
+so ``SampleModel.to(device)`` moves a sample.
 """
 from __future__ import annotations
 
@@ -21,9 +21,9 @@ import torch
 from torch import nn
 
 from ..core.precision import ATYPE, FTYPE
-from ..osc.prob import OscParams, probabilities_const_density
+from ..osc.prob import OscParams, probabilities_const_density, probabilities_layered
 from ..splines.eval import eval_dense, find_segments
-from ..splines.reweight import fused_reweight_histogram_shifted
+from ..splines.reweight import fused_reweight_histogram_shared, fused_reweight_histogram_shifted
 from .binning import SampleBinning, histogram
 from .routing import KernelRoute
 from .teststats import TestStatistic, get_test_stat_fn
@@ -107,6 +107,22 @@ class OscConfig(nn.Module):
         w = chan.reshape(chan.shape[0], -1)[:, self.flat_idx].to(FTYPE)
         return torch.where(self.nc_mask, 1.0, w)
 
+    def event_sort_key(self) -> torch.Tensor:
+        """[E] flat (channel, energy) gather index: the secondary sort key of
+        the shared route's event layout (``splines/plan.py``)."""
+        return self.flat_idx
+
+    def take_events(self, perm) -> "OscConfig":
+        """The same config for the events ``perm`` (a reorder and/or copies)."""
+        perm = torch.as_tensor(perm, dtype=torch.long)
+        return OscConfig(
+            self.e_grid, self.event_grid_idx[perm], self.event_channel[perm],
+            self.chan_alpha, self.chan_beta, self.chan_anti, self.nc_mask[perm],
+            self.osc_param_idx, baseline=self.baseline, density=self.density,
+            electron_fraction=self.electron_fraction, dtype=self.dtype,
+            phase_dtype=self.phase_dtype,
+        )
+
     def share_signature(self) -> tuple:
         """Host-side key: configs with equal keys produce identical grids."""
         return (
@@ -121,8 +137,102 @@ class OscConfig(nn.Module):
         )
 
 
+class AtmoOscConfig(nn.Module):
+    """Atmospheric oscillation: probabilities on an (E, cosZ) grid through a
+    layered earth (the reference's CUDAProb3 road; paths from ``osc/prem.py``).
+    Events gather by the flat (channel, zenith, energy) index.
+
+    Buffers: e_grid [NE], layer_lengths / layer_rho [NZ, NL] f64 (a leading
+    [H] axis with production-height averaging; rho is the Ye-folded
+    effective density), rho_unique [NR] and rho_idx (the eigensystem runs
+    once per unique density), event_flat_idx [E] = (chan * NZ + z) * NE + e,
+    chan_alpha / chan_beta / chan_anti [NC], nc_mask [E], osc_param_idx [6],
+    height_weights [H] or None. ``z_groups`` is the static zenith partition
+    of :func:`~mach3_tpu_torch.osc.prob.probabilities_layered`."""
+
+    def __init__(self, e_grid, layer_lengths, layer_rho, event_flat_idx, chan_alpha,
+                 chan_beta, chan_anti, nc_mask, osc_param_idx, *, rho_unique, rho_idx,
+                 height_weights=None, z_groups: tuple | None = None, dtype=FTYPE):
+        super().__init__()
+        long = torch.long
+        self.register_buffer("e_grid", torch.as_tensor(e_grid, dtype=ATYPE))
+        self.register_buffer("layer_lengths", torch.as_tensor(layer_lengths, dtype=ATYPE))
+        self.register_buffer("layer_rho", torch.as_tensor(layer_rho, dtype=ATYPE))
+        self.register_buffer("rho_unique", torch.as_tensor(rho_unique, dtype=ATYPE))
+        self.register_buffer("rho_idx", torch.as_tensor(rho_idx, dtype=long))
+        self.register_buffer("event_flat_idx", torch.as_tensor(event_flat_idx, dtype=long))
+        self.register_buffer("chan_alpha", torch.as_tensor(chan_alpha, dtype=long))
+        self.register_buffer("chan_beta", torch.as_tensor(chan_beta, dtype=long))
+        self.register_buffer("chan_anti", torch.as_tensor(chan_anti, dtype=torch.bool))
+        self.register_buffer("nc_mask", torch.as_tensor(nc_mask, dtype=torch.bool))
+        self.register_buffer("osc_param_idx", torch.as_tensor(osc_param_idx, dtype=long))
+        self.register_buffer("height_weights", _buffer(height_weights, ATYPE))
+        self.z_groups = None if z_groups is None else tuple(
+            (tuple(int(i) for i in idxs), int(nl)) for idxs, nl in z_groups
+        )
+        self.dtype = dtype
+
+    def prob_grids(self, thetas: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(nu, antinu) probability grids [C, NZ, NE, 3, 3], averaged over
+        the production heights when there are several; shareable between
+        samples with equal ``share_signature``."""
+        pars = OscParams.from_array(thetas[:, self.osc_param_idx].to(ATYPE))
+
+        def one(antineutrino):
+            p = probabilities_layered(
+                pars, self.e_grid, self.layer_lengths, self.layer_rho,
+                antineutrino=antineutrino, dtype=self.dtype,
+                rho_unique=self.rho_unique, rho_idx=self.rho_idx, z_groups=self.z_groups,
+            )
+            if self.height_weights is not None:  # p [C, H, NZ, NE, 3, 3]
+                w = self.height_weights.to(p.dtype)
+                p = (w[:, None, None, None, None] * p).sum(1)
+            return p
+
+        return one(False), one(True)
+
+    def chan_table(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
+        """Flat per-channel table [C, NC * NZ * NE]."""
+        p_nu, p_bar = self.prob_grids(thetas) if grids is None else grids
+        chan_nu = p_nu[..., self.chan_alpha, self.chan_beta]  # [C, NZ, NE, NC]
+        chan_bar = p_bar[..., self.chan_alpha, self.chan_beta]
+        chan = torch.where(self.chan_anti, chan_bar, chan_nu)
+        return chan.movedim(-1, 1).reshape(chan.shape[0], -1)
+
+    def weights(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
+        """Per-event oscillation weights [C, E] f32 (one flat gather)."""
+        w = self.chan_table(thetas, grids)[:, self.event_flat_idx].to(FTYPE)
+        return torch.where(self.nc_mask, 1.0, w)
+
+    def event_sort_key(self) -> torch.Tensor:
+        return self.event_flat_idx
+
+    def take_events(self, perm) -> "AtmoOscConfig":
+        """The same config for the events ``perm`` (a reorder and/or copies)."""
+        perm = torch.as_tensor(perm, dtype=torch.long)
+        return AtmoOscConfig(
+            self.e_grid, self.layer_lengths, self.layer_rho, self.event_flat_idx[perm],
+            self.chan_alpha, self.chan_beta, self.chan_anti, self.nc_mask[perm],
+            self.osc_param_idx, rho_unique=self.rho_unique, rho_idx=self.rho_idx,
+            height_weights=self.height_weights, z_groups=self.z_groups, dtype=self.dtype,
+        )
+
+    def share_signature(self) -> tuple:
+        """Host-side key: configs with equal keys produce identical grids."""
+        return (
+            "atmo",
+            self.e_grid.cpu().numpy().tobytes(),
+            self.layer_lengths.cpu().numpy().tobytes(),
+            self.layer_rho.cpu().numpy().tobytes(),
+            self.osc_param_idx.cpu().numpy().tobytes(),
+            None if self.height_weights is None else self.height_weights.cpu().numpy().tobytes(),
+            self.z_groups,
+            str(self.dtype),
+        )
+
+
 def _buffer(x, dtype):
-    return None if x is None else torch.as_tensor(x, dtype=dtype)
+    return None if x is None else torch.as_tensor(x, dtype=dtype).contiguous()
 
 
 class SampleModel(nn.Module):
@@ -134,7 +244,13 @@ class SampleModel(nn.Module):
     [NA] (global indices of the sample's norm params), static_bins [E]
     (bins that no shift moves), shift_static_base [E] i32 and shift_edges
     [n_axis + 1] f32 (the shifted route's static-axis bins and shifted-axis
-    edges). ``kernel_shift`` = (kind, param_index, stride, n_axis)."""
+    edges). ``kernel_shift`` = (kind, param_index, stride, n_axis).
+
+    On the shared route the events are laid out by ``splines/plan.py`` and
+    the kernel's per-tile plan is kept as hist_tile_start / hist_tile_width
+    [T] i32 (the histogram window of each event tile), hist_plan_ptr [T + 1]
+    / hist_plan_idx [nnz] i32 (CSR lists of each tile's active spline
+    params) and ``hist_nbl`` (the widest window, in bins)."""
 
     def __init__(
         self,
@@ -148,7 +264,7 @@ class SampleModel(nn.Module):
         norm_s=None,
         norm_applied=None,
         spline_table=None,
-        osc: OscConfig | None = None,
+        osc: OscConfig | AtmoOscConfig | None = None,
         shifts: tuple[ShiftSpec, ...] = (),
         test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
         stat_dtype: Any = None,
@@ -159,6 +275,11 @@ class SampleModel(nn.Module):
         shift_edges=None,
         tf1_table=None,
         weight_fns: tuple = (),
+        hist_tile_start=None,
+        hist_tile_width=None,
+        hist_plan_ptr=None,
+        hist_plan_idx=None,
+        hist_nbl: int | None = None,
     ):
         super().__init__()
         if tf1_table is not None or weight_fns:
@@ -173,9 +294,14 @@ class SampleModel(nn.Module):
         self.register_buffer("data", _buffer(data, ATYPE))
         self.register_buffer("norm_s", _buffer(norm_s, FTYPE))
         self.register_buffer("norm_applied", _buffer(norm_applied, torch.long))
-        self.register_buffer("static_bins", _buffer(static_bins, torch.long))
+        self.register_buffer("static_bins", _buffer(static_bins, torch.int32))
         self.register_buffer("shift_static_base", _buffer(shift_static_base, torch.int32))
         self.register_buffer("shift_edges", _buffer(shift_edges, FTYPE))
+        self.register_buffer("hist_tile_start", _buffer(hist_tile_start, torch.int32))
+        self.register_buffer("hist_tile_width", _buffer(hist_tile_width, torch.int32))
+        self.register_buffer("hist_plan_ptr", _buffer(hist_plan_ptr, torch.int32))
+        self.register_buffer("hist_plan_idx", _buffer(hist_plan_idx, torch.int32))
+        self.hist_nbl = hist_nbl
         self.binning = binning
         self.spline_table = spline_table
         self.osc = osc
@@ -274,6 +400,24 @@ class SampleModel(nn.Module):
             kwargs.update(norm_ext=self._norm_ext_batch(thetas), norm_s=self.norm_s)
         return args, kwargs
 
+    def shared_kernel_args(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> tuple[tuple, dict]:
+        """Arguments of the shared-route kernel call for a chain batch."""
+        base_w = self.mc_weight * self._osc_weights(thetas, osc_grids_batch)
+        if self.norm_s is None:
+            base_w = base_w * self._norm_weights(thetas)
+        table = self.spline_table
+        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        args = (seg.contiguous(), t.contiguous(), table.coeffs, base_w.contiguous(),
+                self.static_bins)
+        kwargs = dict(n_bins=self.n_bins, tile_start=self.hist_tile_start,
+                      tile_width=self.hist_tile_width, plan_ptr=self.hist_plan_ptr,
+                      plan_idx=self.hist_plan_idx, nbl=self.hist_nbl)
+        if self.norm_s is not None:
+            kwargs.update(norm_ext=self._norm_ext_batch(thetas), norm_s=self.norm_s)
+        return args, kwargs
+
     def reweight_batch(
         self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -282,16 +426,15 @@ class SampleModel(nn.Module):
         route = self.kernel_route
         if not route.use_kernel:
             return self.reweight_batch_plain(thetas, osc_grids_batch)
-        if route.variant == "shifted" and route.param_tile is None:
+        if route.variant == "shifted":
             args, kwargs = self.shifted_kernel_args(thetas, osc_grids_batch)
             return fused_reweight_histogram_shifted(*args, **kwargs)
-        item = {
-            "shared": "K2/K4 (ROADMAP Queue 2, reference scale)",
-            "shifted": "K3, the param-blocked shifted kernel (ROADMAP Queue 2)",
-            "generic": "K5 (ROADMAP Queue 2)",
-        }[route.variant]
+        if route.variant == "shared":
+            args, kwargs = self.shared_kernel_args(thetas, osc_grids_batch)
+            return fused_reweight_histogram_shared(*args, **kwargs)
         raise NotImplementedError(
-            f"{self.name}: the {route.variant!r} kernel route is not ported yet: {item}"
+            f"{self.name}: the {route.variant!r} kernel route is not ported yet: "
+            "K5 (ROADMAP Queue 2)"
         )
 
     def _stat_sum(self, mc: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

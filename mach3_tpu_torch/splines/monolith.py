@@ -5,7 +5,9 @@ per-event response splines into SoA arrays. The dense layout stores every
 (parameter, knot, event) coefficient: ``coeffs [P, K*4, E]`` with rows
 ``k*4 + (0, 1, 2, 3)`` = (y, b, c, d) of segment k. Missing (event, param)
 splines hold identity coefficients (y=1, b=c=d=0), so the per-event product
-over parameters needs no index map. The sparse table waits (ROADMAP).
+over parameters needs no index map. ``dense_table_activity`` gives the
+table's sparsity pattern, which the shared route's layout exploits
+(``splines/plan.py``). The sparse table waits (ROADMAP).
 """
 from __future__ import annotations
 
@@ -123,3 +125,18 @@ def build_dense_table(
         n_knots=n_knots,
         param_index=[s.param_index for s in specs],
     )
+
+
+def dense_table_activity(table: DenseSplineTable) -> np.ndarray:
+    """[P, E] bool: True where the response is NOT the identity (some y row
+    != 1 or some b/c/d row != 0). Skipping an inactive (param, event) pair is
+    exact: identity rows give ``resp == 1.0`` in f32 for any finite t.
+
+    The monolith's sparsity pattern (the reference keeps it as per-event
+    spline lists, ``SplineCommon.h:30-50``); the shared route's layout turns
+    it into per-tile lists of active parameters."""
+    c = table.coeffs
+    c4 = c.reshape(c.shape[0], -1, 4, c.shape[2])
+    non_y = (c4[:, :, 1:, :] != 0).any(dim=2).any(dim=1)
+    y_not1 = (c4[:, :, 0, :] != 1).any(dim=1)
+    return (non_y | y_not1).cpu().numpy()

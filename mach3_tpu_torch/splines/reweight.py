@@ -1,12 +1,20 @@
-"""Fused spline reweight + shifted-axis binning + Σw/Σw² histogram.
+"""The fused spline-reweight + Σw/Σw² histogram kernels and their plain
+versions.
 
-Port of the TPU kernel K1, ``mach3_tpu/splines/pallas_reweight.py``
-``_kernel_maskreduce_shifted`` (reached through its
-``fused_reweight_histogram_shifted``). On a CUDA tensor the wrapper launches
-the hand-written kernel ``csrc/reweight_shifted.cu`` (built at first use by
-``kernels/build.py``); on a CPU tensor it runs the plain PyTorch version
-``fused_reweight_histogram_shifted_ref`` beside it. There is no fallback: a
-CUDA call that cannot build or launch the kernel raises.
+* ``fused_reweight_histogram_shifted``: per-chain shifted-axis binning.
+  Port of the TPU kernels K1 ``_kernel_maskreduce_shifted`` and K3
+  ``_kernel_shifted_blocked`` (``mach3_tpu/splines/pallas_reweight.py``; K3
+  is K1 with P streamed in VMEM blocks, which the CUDA kernel's run-time loop
+  over P makes unnecessary). CUDA source ``csrc/reweight_shifted.cu``.
+* ``fused_reweight_histogram_shared``: static bins, events laid out in tiles
+  by ``splines/plan.py``, a histogram window and a list of active parameters
+  per tile. Port of K2 ``_kernel_shared_blocked_sorted``. CUDA source
+  ``csrc/reweight_shared.cu``.
+
+On a CUDA tensor a wrapper launches its hand-written kernel (built at first
+use by ``kernels/build.py``); on a CPU tensor it runs the plain PyTorch
+version beside it (``*_ref``). There is no fallback: a CUDA call that cannot
+build or launch the kernel raises.
 
 Differences from the JAX production route, by design:
 * spline responses are evaluated in f32 from ``(seg, t)`` — four coefficient
@@ -24,21 +32,28 @@ import torch
 from ..core.precision import FTYPE
 from ..samples.binning import count_edges_le, histogram
 from .eval import spline_product
+from .plan import EVENT_TILE
 
 #: Shift kinds the kernel knows: name -> (code in the kernel, torch function
 #: of (value [C, 1], x [1, E])). Formed in f32 (1 + v first, then the
 #: product), as the kernel forms it.
 SHIFT_KINDS = {"scale": (0, lambda v, x: x * (1.0 + v))}
 
-#: Bin-count limit of the kernel's shared-memory histogram (``routing.py``).
+#: Bin-count limit of the shifted kernel's shared-memory histogram (``routing.py``).
 MAX_BINS = 512
 MAX_EDGES = 1025
 MAX_PARAMS = 256
 MAX_NORM = 256
+#: Bin-count limit of the shared kernel, and the shared memory of one of its
+#: blocks: a [16 chains][2][nbl] window histogram plus the chain tile's
+#: (seg, t) and norm values (``csrc/reweight_shared.cu``).
+MAX_SHARED_BINS = 4096
+SHARED_CHAIN_TILE = 16
+MAX_SHARED_SMEM = 232448
 
-#: Launches of the CUDA kernel since the count was last set to 0. Only the
-#: CUDA launch adds to it; the plain version does not.
-LAUNCHES = 0
+#: Launches of each CUDA kernel since its count was last set to 0. Only a
+#: CUDA launch adds to a count; the plain versions do not.
+LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0}
 
 _C_VOIDP = ctypes.c_void_p
 _C_INT = ctypes.c_int
@@ -70,15 +85,16 @@ def fused_reweight_histogram_shifted_ref(
     return histogram(w, bins, n_bins)
 
 
-def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
-           n_bins, shift_kind, n_axis_j, norm_ext, norm_s):
-    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, shift_vals=shift_vals,
-                 x_nom=x_nom, static_base=static_base, edges=edges)
+_INT_ARGS = ("seg", "static_base", "bins", "tile_start", "tile_width", "plan_ptr", "plan_idx")
+
+
+def _check_tensors(named: dict, norm_ext, norm_s) -> None:
+    """Type, device, contiguity and dtype of every tensor argument."""
     if (norm_ext is None) != (norm_s is None):
         raise ValueError("norm_ext and norm_s come together or not at all")
     if norm_ext is not None:
         named.update(norm_ext=norm_ext, norm_s=norm_s)
-    dev = seg.device
+    dev = named["seg"].device if isinstance(named["seg"], torch.Tensor) else None
     for name, x in named.items():
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
@@ -86,17 +102,21 @@ def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
             raise ValueError(f"{name} is on {x.device}, seg on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        want = (torch.int32,) if name in ("seg", "static_base") else (FTYPE,)
+        want = (torch.int32,) if name in _INT_ARGS else (FTYPE,)
         if name == "coeffs":
             want = (FTYPE, torch.bfloat16)
         if x.dtype not in want:
             raise TypeError(f"{name} has dtype {x.dtype}, the kernel takes {want}")
+
+
+def _check_shapes(named: dict, shapes: dict, coeffs, base_w, norm_ext, norm_s) -> tuple[int, int, int]:
+    """Shapes against the table's (P, K4, E) and base_w's C; returns (C, P, E)."""
     if coeffs.dim() != 3 or coeffs.shape[1] % 4:
         raise ValueError(f"coeffs must be [P, K*4, E], got {tuple(coeffs.shape)}")
     p, _, e = coeffs.shape
     c = base_w.shape[0] if base_w.dim() == 2 else -1
-    shapes = dict(seg=(c, p), t=(c, p), base_w=(c, e), shift_vals=(c,), x_nom=(e,),
-                  static_base=(e,), edges=(n_axis_j + 1,))
+    shapes = {k: tuple(c if d == "C" else p if d == "P" else e if d == "E" else d for d in v)
+              for k, v in shapes.items()}
     if norm_ext is not None:
         na1 = norm_s.shape[0]
         shapes.update(norm_ext=(c, na1), norm_s=(na1, e))
@@ -107,30 +127,54 @@ def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
             raise ValueError(f"{name} has shape {tuple(named[name].shape)}, expected {shape}")
     if c < 1 or e < 1:
         raise ValueError(f"empty batch: C={c}, E={e}")
+    if not 1 <= p <= MAX_PARAMS:
+        raise ValueError(f"P={p} spline params outside [1, {MAX_PARAMS}]")
+    return c, p, e
+
+
+def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
+           n_bins, shift_kind, n_axis_j, norm_ext, norm_s):
+    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, shift_vals=shift_vals,
+                 x_nom=x_nom, static_base=static_base, edges=edges)
+    _check_tensors(named, norm_ext, norm_s)
+    shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"), shift_vals=("C",),
+                  x_nom=("E",), static_base=("E",), edges=(n_axis_j + 1,))
+    _check_shapes(named, shapes, coeffs, base_w, norm_ext, norm_s)
     if not 1 <= n_bins <= MAX_BINS:
         raise ValueError(f"n_bins={n_bins} outside [1, {MAX_BINS}]")
     if not 2 <= n_axis_j + 1 <= MAX_EDGES:
         raise ValueError(f"{n_axis_j + 1} edges outside [2, {MAX_EDGES}]")
-    if p > MAX_PARAMS:
-        raise ValueError(f"P={p} spline params > {MAX_PARAMS}")
     if shift_kind not in SHIFT_KINDS:
         raise ValueError(f"shift kind {shift_kind!r} unknown to the kernel ({sorted(SHIFT_KINDS)})")
 
 
-def _library():
+def _library(stem: str, argtypes: list):
     from ..kernels.build import load_library
 
-    lib = load_library("reweight_shifted")
-    fn = lib.m3_reweight_shifted
+    lib = load_library(stem)
+    fn = getattr(lib, f"m3_{stem}")
     if fn.argtypes is None:
-        fn.argtypes = (
-            [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] + [_C_VOIDP] * 2
-            + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 8 + [_C_VOIDP]
-        )
+        fn.argtypes = argtypes
         fn.restype = _C_INT
         lib.m3_error_string.argtypes = [_C_INT]
         lib.m3_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_SHIFTED_ARGTYPES = (
+    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] + [_C_VOIDP] * 2
+    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 8 + [_C_VOIDP]
+)
+_SHARED_ARGTYPES = (
+    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 6 + [_C_INT] + [_C_VOIDP] * 2
+    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 6 + [_C_VOIDP]
+)
+
+
+def _raise_on(lib, rc: int, stem: str) -> None:
+    if rc != 0:
+        msg = lib.m3_error_string(rc).decode()
+        raise RuntimeError(f"{stem} kernel launch failed: {msg} ({rc})")
 
 
 def fused_reweight_histogram_shifted(
@@ -163,7 +207,7 @@ def fused_reweight_histogram_shifted(
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    lib = _library()
+    lib = _library("reweight_shifted", _SHIFTED_ARGTYPES)
     c, p = seg.shape
     k4, e = coeffs.shape[1], coeffs.shape[2]
     mc = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
@@ -183,9 +227,95 @@ def fused_reweight_histogram_shifted(
             c, p, k4, e, n_bins, stride_j, n_axis_j,
             SHIFT_KINDS[shift_kind][0], stream,
         )
-    if rc != 0:
-        msg = lib.m3_error_string(rc).decode()
-        raise RuntimeError(f"reweight_shifted kernel launch failed: {msg} ({rc})")
-    global LAUNCHES
-    LAUNCHES += 1
+    _raise_on(lib, rc, "reweight_shifted")
+    LAUNCHES["reweight_shifted"] += 1
+    return mc, w2
+
+
+def fused_reweight_histogram_shared_ref(
+    seg, t, coeffs, base_w, bins, *, n_bins, tile_start=None, tile_width=None,
+    plan_ptr=None, plan_idx=None, nbl=None, norm_ext=None, norm_s=None,
+):
+    """Plain PyTorch version of the shared kernel, on any device: every
+    parameter, no window (the plan only skips exact identities). Same
+    arguments and results as :func:`fused_reweight_histogram_shared`."""
+    w = spline_product(coeffs, seg, t, base_w)
+    if norm_ext is not None:
+        w = w * norm_weight(norm_ext, norm_s)
+    return histogram(w, bins.expand(w.shape), n_bins)
+
+
+def _check_shared(seg, t, coeffs, base_w, bins, n_bins, tile_start, tile_width, plan_ptr,
+                  plan_idx, nbl, norm_ext, norm_s):
+    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, bins=bins, tile_start=tile_start,
+                 tile_width=tile_width, plan_ptr=plan_ptr, plan_idx=plan_idx)
+    _check_tensors(named, norm_ext, norm_s)
+    n_tiles = -(-base_w.shape[-1] // EVENT_TILE)
+    shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"), bins=("E",),
+                  tile_start=(n_tiles,), tile_width=(n_tiles,), plan_ptr=(n_tiles + 1,))
+    _check_shapes(named, shapes, coeffs, base_w, norm_ext, norm_s)
+    if plan_idx.dim() != 1:
+        raise ValueError(f"plan_idx must be 1-D, got {tuple(plan_idx.shape)}")
+    if not 1 <= n_bins <= MAX_SHARED_BINS:
+        raise ValueError(f"n_bins={n_bins} outside [1, {MAX_SHARED_BINS}]")
+    if not isinstance(nbl, int) or not 1 <= nbl <= n_bins:
+        raise ValueError(f"window nbl={nbl!r} outside [1, n_bins={n_bins}]")
+    na1 = 0 if norm_s is None else norm_s.shape[0]
+    words = SHARED_CHAIN_TILE * (2 * nbl + 2 * seg.shape[1] + 2 * na1) + seg.shape[1]
+    if 4 * words > MAX_SHARED_SMEM:
+        raise ValueError(f"window nbl={nbl} needs {4 * words} bytes of shared memory "
+                         f"> {MAX_SHARED_SMEM}")
+
+
+def fused_reweight_histogram_shared(
+    seg: torch.Tensor,  # [C, P] i32 — spline segment per (chain, param)
+    t: torch.Tensor,  # [C, P] f32 — local coordinate in that segment
+    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16, events in plan order
+    base_w: torch.Tensor,  # [C, E] f32 — mc_weight x osc (x norm when not in-kernel)
+    bins: torch.Tensor,  # [E] i32 — static bins (outside [0, n_bins) dropped)
+    *,
+    n_bins: int,
+    tile_start: torch.Tensor,  # [T] i32 — window start of each tile of EVENT_TILE events
+    tile_width: torch.Tensor,  # [T] i32 — window width of each tile (<= nbl)
+    plan_ptr: torch.Tensor,  # [T + 1] i32 — CSR offsets into plan_idx
+    plan_idx: torch.Tensor,  # [nnz] i32 — each tile's active spline params
+    nbl: int,  # widest window in bins (sizes the shared-memory histogram)
+    norm_ext: torch.Tensor | None = None,  # [C, NA1] f32 extended norm values
+    norm_s: torch.Tensor | None = None,  # [NA1, E] f32 match counts
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mc [C, n_bins], w2 [C, n_bins]) f32. Launches the CUDA kernel for
+    CUDA tensors, runs the plain version for CPU tensors, raises otherwise.
+    The plan (``splines/plan.py``) must list every parameter that is not the
+    identity on some event of a tile; a tile's window only decides which
+    bins the kernel sums in shared memory."""
+    _check_shared(seg, t, coeffs, base_w, bins, n_bins, tile_start, tile_width, plan_ptr,
+                  plan_idx, nbl, norm_ext, norm_s)
+    dev = seg.device
+    if dev.type == "cpu":
+        return fused_reweight_histogram_shared_ref(
+            seg, t, coeffs, base_w, bins, n_bins=n_bins, norm_ext=norm_ext, norm_s=norm_s
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    lib = _library("reweight_shared", _SHARED_ARGTYPES)
+    c, p = seg.shape
+    k4, e = coeffs.shape[1], coeffs.shape[2]
+    mc = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
+    w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
+    has_norm = norm_ext is not None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.m3_reweight_shared(
+            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(),
+            int(coeffs.dtype == torch.bfloat16),
+            base_w.data_ptr(), bins.data_ptr(), tile_start.data_ptr(),
+            tile_width.data_ptr(), plan_ptr.data_ptr(), plan_idx.data_ptr(), nbl,
+            norm_ext.data_ptr() if has_norm else None,
+            norm_s.data_ptr() if has_norm else None,
+            norm_s.shape[0] if has_norm else 0,
+            mc.data_ptr(), w2.data_ptr(),
+            c, p, k4, e, n_bins, EVENT_TILE, stream,
+        )
+    _raise_on(lib, rc, "reweight_shared")
+    LAUNCHES["reweight_shared"] += 1
     return mc, w2

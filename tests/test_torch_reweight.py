@@ -229,7 +229,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         reweight.fused_reweight_histogram_shifted(*args, **{**kwargs, "n_bins": 513})
     with pytest.raises(ValueError):
         reweight.fused_reweight_histogram_shifted(*args, **{**kwargs, "norm_s": None})
-    before = reweight.LAUNCHES
+    before = dict(reweight.LAUNCHES)
     reweight.fused_reweight_histogram_shifted(*args, **kwargs)
     assert reweight.LAUNCHES == before  # the plain version is not a launch
 
@@ -248,10 +248,10 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
     if case == "nan_shift":
         d.shift[3] = np.nan  # every event of chain 3 lands in the garbage bin
     args, kwargs = _port_args(d, cuda_device)
-    before = reweight.LAUNCHES
+    before = reweight.LAUNCHES["reweight_shifted"]
     mc, w2 = reweight.fused_reweight_histogram_shifted(*args, **kwargs)
     torch.cuda.synchronize()
-    assert reweight.LAUNCHES == before + 1
+    assert reweight.LAUNCHES["reweight_shifted"] == before + 1
     mc_p, w2_p = reweight.fused_reweight_histogram_shifted_ref(*args, **kwargs)
     _close(mc.cpu().numpy(), mc_p.cpu().numpy(), ORACLE_RTOL)
     _close(w2.cpu().numpy(), w2_p.cpu().numpy(), ORACLE_RTOL)
