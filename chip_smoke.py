@@ -1,32 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mach3_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's two paths through its hand-written CUDA kernels
-(``splines/reweight.py``) and checks each kernel against its plain PyTorch
-version. Run from the repository root:
+Drives the port's paths through its hand-written CUDA kernels
+(``splines/reweight.py`` forward, ``splines/grad.py`` backward) and checks
+each kernel against its plain PyTorch version. Run from the repository root:
 
     python3 chip_smoke.py        # needs one CUDA GPU and nvcc
 
 * The toy path: the toy MR2T2 fit at the bench's full width, 100,000 events
   x 256 chains, energy grid 200; both samples on the shifted kernel (K1).
+  Its gradient path: the backward kernels (K6a, K6b; per-chain bins) on both
+  samples, the gradient of ``log_posterior_batch`` through the kernels vs the
+  plain route, and the L-BFGS fit (``run_minimizer``) from a jittered start.
 * The large path: the reference-scale fixture ``build_large(low_memory=True)``
   (101 parameters, 3 samples, 2,182 bins, bf16 tables, f32 statistic) at 128
-  chains; numu_beam and atmo on the shared kernel (K2), nue_beam on the
-  shifted kernel with P = 43 (K3), atmo through layered-PREM oscillation.
+  chains; numu_beam and atmo on the shared kernel (K2; K4b is its trivial
+  plan), nue_beam on the shifted kernel with P = 43 (K3), atmo through
+  layered-PREM oscillation. Its gradient path at the JAX bench's 64 chains:
+  K6a/K6b on shared bins (numu_beam, atmo) and per-chain bins (nue_beam),
+  the differentiable NLL vs the sampling NLL, the gradient vs the plain
+  route, the gradient budget (``hmc_large_grad_budget``) and ChEES-HMC
+  (``chees_hmc_large``).
 
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2, a profile of 10
-steps, kernel timing. Any failed phase raises and the exit code is not 0.
-The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is the card's name and power limit, and the one before that
-lists each kernel with its launches on its path, its largest error against
-the plain version and both times.
+steps, kernel timing; then the gradient phases. Any failed phase raises and
+the exit code is not 0. The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it is the card's name and
+power limit, and the one before that lists each kernel with its launches on
+its path (K1 and K3: the toy and large MR2T2 runs; K2: the large MR2T2 run;
+K4b, K6a, K6b: the ChEES run), its largest error against the plain version
+and both times.
 
 Imports nothing of JAX. Exits non-zero when no CUDA device is visible.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -63,11 +74,51 @@ ASIMOV_ATOL = 1e-3
 # are all but never accepted, and its run checks the NLLs and the launches.
 ACC_MIN = 1e-4
 
+# The gradient path at the JAX bench's gradient configurations: 64 chains
+# (bench.py:541, :944), 20 timed iterations (bench.py:547), ChEES with 80
+# warm-up/adaptation and 60 timed steps (bench.py:947-963).
+GRAD_CHAINS = 64
+BUDGET_ITERS = 20
+CHEES_WARM = 80
+CHEES_STEPS = 60
+# Backward kernels vs their plain versions on the same inputs: pass A's
+# [C, E] fields elementwise (a product of P f32 responses, FMA-contracted
+# Horner steps: rtol 1e-5 x P, atol 1e-6 x max), nz exactly; pass B's ḡ_t
+# within 1e-5 x P of Σ_e |term| per (chain, param): a reduction over up to
+# 200k events in another order, whose terms cancel.
+GRAD_RTOL = 1e-5  # x P
+# The gradient of log_posterior_batch through the kernels vs autograd of the
+# plain route, as a fraction of each chain's largest component. On the CPU
+# at test size (the kernels' plain versions: the same f32 terms multiplied
+# in another order) the gap is at most 7.6e-5 (tests/test_torch_grad.py).
+# The card adds the atomic order of the histograms (rtol 2e-5), which the
+# statistic's slope amplifies in bins where mc is close to the data: a first
+# card run (H100, 700 W) gave 8.4e-4 on the toy at 256 chains and 6.3e-4 on
+# the large fixture at 64 chains against a bound of 1e-3 (13x the CPU gap).
+# That order changes from run to run, so the bound is 5e-3: 66x the CPU
+# gap, 6x the card's.
+GRAD_E2E = 5e-3
+# Kernel launches per gradient evaluation (one forward, one backward).
+TOY_GRAD_LAUNCHES = {"reweight_shifted": 2, "grad_a": 2, "grad_b": 2}
+LARGE_GRAD_LAUNCHES = {"reweight_shared": 2, "reweight_shifted": 1, "grad_a": 3, "grad_b": 3}
+# ChEES gates on the timed steps: mean acceptance inside (0.3, 0.99).
+CHEES_ACC = (0.3, 0.99)
+# The toy fit ends at the Asimov minimum, χ² = 0 at the prefit point: on an
+# H100 (700 W) 13 starts (0.5 and 1 prior widths) ended at χ² 4.7e-8 to
+# 5.8e-7 with every free parameter within 5.6e-4 of its error of the truth.
+MIN_CHI2 = 1e-4
+MIN_PULL = 1e-2
+
 TPU_KERNELS = {
     "K1": "mach3_tpu/splines/pallas_reweight.py:339",
     "K3": "mach3_tpu/splines/pallas_reweight.py:414",
     "K2": "mach3_tpu/splines/pallas_reweight.py:912",
+    "K4b": "mach3_tpu/splines/pallas_reweight.py:723",
+    "K6a": "mach3_tpu/splines/pallas_grad.py:68",
+    "K6b": "mach3_tpu/splines/pallas_grad.py:123",
 }
+SOURCES = {"K1": "reweight_shifted", "K3": "reweight_shifted", "K2": "reweight_shared",
+           "K4b": "reweight_shared", "K6a": "reweight_grad", "K6b": "reweight_grad"}
 
 
 def phase(msg: str) -> None:
@@ -184,11 +235,12 @@ def kernels_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
     return out
 
 
-def wide_form_vs_plain(sample, checked, smi: str) -> None:
+def wide_form_vs_plain(sample, checked, smi: str) -> dict:
     """The shared kernel with a trivial plan — every parameter in every
     tile, the whole bin axis as the window: the function of the TPU's wide
     shared kernel K4b (P > 16) — on a real sample, against the plain
-    version. These launches are comparisons, not the path's."""
+    version. These launches are comparisons, not the path's. Returns K4b's
+    max abs error and times."""
     import torch
 
     from mach3_tpu_torch.splines import plan, reweight
@@ -205,10 +257,12 @@ def wide_form_vs_plain(sample, checked, smi: str) -> None:
     mc_p, w2_p = reweight.fused_reweight_histogram_shared_ref(*args, **kw)
     e1, q1, r1 = compare(mc_k, mc_p, K_RTOL, K_ATOL_FRAC, f"{sample.name} wide mc")
     e2, q2, r2 = compare(w2_k, w2_p, K_RTOL, K_ATOL_FRAC, f"{sample.name} wide w2")
-    ms = cuda_ms(lambda: reweight.fused_reweight_histogram_shared(*args, **kw), 10)
+    km, pm = time_pair(lambda: reweight.fused_reweight_histogram_shared(*args, **kw),
+                       lambda: reweight.fused_reweight_histogram_shared_ref(*args, **kw))
     phase(f"[large:wide-form-vs-plain] {sample.name} (reweight_shared, trivial plan, window "
           f"{nbl} bins): max|dmc|={e1:.3e} max|dw2|={e2:.3e} max rel err {max(q1, q2):.3e} "
-          f"(worst {max(r1, r2):.3f} of tol); kernel {ms:.4f} ms | {smi}")
+          f"(worst {max(r1, r2):.3f} of tol); kernel {km:.4f} ms, plain {pm:.4f} ms | {smi}")
+    return dict(max_abs_err=max(e1, e2), ms=km, plain_ms=pm)
 
 
 def nll_vs_plain(tag: str, model, thetas, tables, smi: str) -> None:
@@ -234,6 +288,13 @@ def nll_vs_plain(tag: str, model, thetas, tables, smi: str) -> None:
           f"{float(tols.median()):.3e}); median total {float(total.median()):.3f} | {smi}")
 
 
+def check_launches(tag: str, got: dict, want: dict) -> None:
+    """Every kernel's launches equal ``want`` (0 for a kernel not named)."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{tag}: kernel launches {got} != {full}")
+
+
 def run_mr2t2(tag: str, model, thetas, warm: int, steps: int, chunk: int,
               launches_per_step: dict, smi: str, acc_min: float | None):
     """Fixed-proposal MR2T2: a warm chunk, then ``steps`` timed steps whose
@@ -257,9 +318,8 @@ def run_mr2t2(tag: str, model, thetas, warm: int, steps: int, chunk: int,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(reweight.LAUNCHES)
-    want = {k: v * steps for k, v in launches_per_step.items()}
-    if {k: launches[k] for k in want} != want or sum(launches.values()) != sum(want.values()):
-        raise AssertionError(f"{tag}: kernel launches {launches} != {want} for {steps} steps")
+    check_launches(f"{tag} ({steps} steps)", launches,
+                   {k: v * steps for k, v in launches_per_step.items()})
     if not bool(torch.isfinite(fitter.state.nll).all()):
         raise AssertionError(f"{tag}: non-finite chain NLL after MR2T2")
     acc = float((fitter.state.n_accepted - acc0).sum()) / (n_chains * steps)
@@ -296,17 +356,286 @@ def profile_steps(tag: str, fitter, step_ms: float, names, smi: str) -> None:
           + f" | {smi}")
 
 
+def time_pair(kern, ref, reps: int = 30, ref_reps: int = 5) -> tuple[float, float]:
+    """(kernel ms, plain ms) per call with CUDA events, in turns plain,
+    kernel, kernel, plain."""
+    kern(), ref()
+    t = [cuda_ms(ref, ref_reps), cuda_ms(kern, reps), cuda_ms(kern, reps), cuda_ms(ref, ref_reps)]
+    return 0.5 * (t[1] + t[2]), 0.5 * (t[0] + t[3])
+
+
 def time_kernel(tag: str, sample, args, kwargs, smi: str) -> tuple[float, float]:
-    """(kernel ms, plain ms) with CUDA events, in turns plain, kernel,
-    kernel, plain."""
+    """(kernel ms, plain ms) of a sample's forward kernel."""
     _, kern, ref, _ = kernel_of(sample)
-    kern(*args, **kwargs), ref(*args, **kwargs)
-    t = [cuda_ms(lambda: ref(*args, **kwargs), 5), cuda_ms(lambda: kern(*args, **kwargs), 30),
-         cuda_ms(lambda: kern(*args, **kwargs), 30), cuda_ms(lambda: ref(*args, **kwargs), 5)]
-    km, pm = 0.5 * (t[1] + t[2]), 0.5 * (t[0] + t[3])
+    km, pm = time_pair(lambda: kern(*args, **kwargs), lambda: ref(*args, **kwargs))
     phase(f"[{tag}:kernel-time] {sample.name}: kernel {km:.4f} ms, plain {pm:.4f} ms "
           f"(C={args[3].shape[0]}, E={sample.n_events}, B={sample.n_bins}) | {smi}")
     return km, pm
+
+
+def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
+    """K6a and K6b against their plain versions on each sample's inputs at
+    these chains: the forward's arguments of the differentiable route and
+    the cotangents of the sample's statistic. Pass B is fed pass A's kernel
+    outputs on both sides. Returns {sample name: (A err, B err, A ms, A
+    plain ms, B ms, B plain ms)}."""
+    import torch
+
+    from mach3_tpu_torch.splines import grad
+
+    out = {}
+    for i, s in enumerate(model.samples):
+        route = s._diff_route()
+        args, kw = s.diff_kernel_args(thetas, tables[i])
+        t, base_w, seg, coeffs = args[:4]
+        fwd = grad.fused_reweight_diff if route == "shared" else grad.fused_reweight_diff_shifted
+        plan = {}
+        if route == "shared":
+            bins, plan = args[4], dict(plan_ptr=kw["plan_ptr"], plan_idx=kw["plan_idx"])
+        else:
+            bins = args[-1]
+        mc, w2 = (v.detach().requires_grad_(True) for v in fwd(*args, **kw))
+        gmc, gw2 = (g.float().contiguous() for g in
+                    torch.autograd.grad(s._stat_sum(mc, w2).sum(), (mc, w2)))
+        a_in = (seg, t, coeffs, base_w, bins, gmc, gw2)
+        got_a = grad.grad_pass_a(*a_in, n_bins=s.n_bins, **plan)
+        ref_a = grad.grad_pass_a_ref(*a_in, n_bins=s.n_bins, **plan)
+        n_par = coeffs.shape[0]
+        err_a, worst_a = 0.0, 0.0
+        for got, ref, name in zip(got_a[:3], ref_a[:3], ("g_base", "sev", "pnz")):
+            e, _, r = compare(got, ref, GRAD_RTOL * n_par, K_ATOL_FRAC, f"{s.name} pass A {name}")
+            err_a, worst_a = max(err_a, e), max(worst_a, r)
+        if not torch.equal(got_a[3], ref_a[3]):
+            raise AssertionError(f"{s.name} pass A: zero counts differ from the plain version")
+        b_in = (seg, t, coeffs) + got_a[1:]
+        got_b = grad.grad_pass_b(*b_in, **plan)
+        ref_b = grad.grad_pass_b_ref(*b_in, **plan)
+        if not bool(torch.isfinite(got_b).all()):
+            raise AssertionError(f"{s.name} pass B: non-finite values")
+        err_b = (got_b - ref_b).abs().double()
+        worst_b = float((err_b / (GRAD_RTOL * n_par * grad.pass_b_term_scale(*b_in) + 1e-30))
+                        .max())
+        if worst_b > 1.0:
+            raise AssertionError(f"{s.name} pass B: error {float(err_b.max()):.3e} is "
+                                 f"{worst_b:.2f}x the tolerance")
+        a_ms = time_pair(lambda: grad.grad_pass_a(*a_in, n_bins=s.n_bins, **plan),
+                         lambda: grad.grad_pass_a_ref(*a_in, n_bins=s.n_bins, **plan))
+        b_ms = time_pair(lambda: grad.grad_pass_b(*b_in, **plan),
+                         lambda: grad.grad_pass_b_ref(*b_in, **plan))
+        out[s.name] = (err_a, float(err_b.max())) + a_ms + b_ms
+        form = "shared bins, plan" if route == "shared" else "per-chain bins"
+        phase(f"[{tag}:grad-kernels] {s.name} ({form}): C={thetas.shape[0]} E={s.n_events} "
+              f"P={n_par}; pass A max abs err {err_a:.3e} (worst {worst_a:.3f} of tol), nz "
+              f"equal; pass B max abs err {float(err_b.max()):.3e} (worst {worst_b:.3f} of "
+              f"tol); grad_a {a_ms[0]:.4f} ms vs plain {a_ms[1]:.4f} ms, grad_b {b_ms[0]:.4f} "
+              f"ms vs plain {b_ms[1]:.4f} ms | {smi}")
+    return out
+
+
+def diff_nll_vs_sampling(tag: str, model, thetas, tables, smi: str) -> None:
+    """Each sample's differentiable NLL (norm in the base weight) against its
+    sampling NLL (norm in the kernel): each within its NLL tolerance of the
+    plain route, so within twice that of each other."""
+    import torch
+
+    worst, d_max = 0.0, 0.0
+    for i, s in enumerate(model.samples):
+        diff = s.log_likelihood_batch_diff(thetas, tables[i])
+        samp = s.log_likelihood_batch(thetas, tables[i])
+        tol = 2.0 * nll_tolerance(s, *s.reweight_batch_plain(thetas, tables[i]))
+        if not bool(torch.isfinite(diff).all()):
+            raise AssertionError(f"{tag}: {s.name} non-finite differentiable NLL")
+        d = (diff - samp).abs()
+        worst, d_max = max(worst, float((d / tol).max())), max(d_max, float(d.max()))
+    if worst > 1.0:
+        raise AssertionError(f"{tag}: differentiable vs sampling NLL {d_max:.3e} is "
+                             f"{worst:.2f}x the tolerance")
+    phase(f"[{tag}:diff-nll] log_likelihood_batch_diff vs log_likelihood_batch: max |d| "
+          f"{d_max:.3e} ({worst:.3f} of tol) | {smi}")
+
+
+def posterior_grad_vs_plain(tag: str, model, thetas, per_eval: dict, smi: str) -> float:
+    """The gradient of log_posterior_batch through the kernels (one forward,
+    one backward: ``per_eval`` launches) against autograd of the plain
+    route; returns the gap as a fraction of each chain's largest
+    component."""
+    import torch
+
+    from mach3_tpu_torch.splines import reweight
+
+    t = thetas.detach().clone().requires_grad_(True)
+    reset_launches()
+    lp = model.log_posterior_batch(t)
+    (g,) = torch.autograd.grad(lp.sum(), t)
+    torch.cuda.synchronize()
+    check_launches(f"{tag} gradient", dict(reweight.LAUNCHES), per_eval)
+    lp_p = model.log_posterior_batch(t, plain=True)
+    (g_p,) = torch.autograd.grad(lp_p.sum(), t)
+    if not bool(torch.isfinite(g).all() and torch.isfinite(lp).all()):
+        raise AssertionError(f"{tag}: non-finite log-density or gradient through the kernels")
+    rel = (g - g_p).abs() / g_p.abs().amax(1, keepdim=True)
+    gap, worst_param = float(rel.max()), int(rel.amax(0).argmax())
+    if gap > GRAD_E2E:
+        raise AssertionError(f"{tag}: gradient through the kernels vs the plain route {gap:.3e} "
+                             f"of the largest component > {GRAD_E2E}")
+    phase(f"[{tag}:grad] d log_posterior_batch / dθ [{t.shape[0]}, {t.shape[1]}] through the "
+          f"kernels vs the plain route: {gap:.3e} of each chain's largest component (bound "
+          f"{GRAD_E2E}; worst at parameter {worst_param}); max |Δ logp| {float((lp - lp_p).detach().abs().max()):.3e}; launches per "
+          f"evaluation {per_eval} | {smi}")
+    return gap
+
+
+def toy_minimize(model, smi: str) -> None:
+    """L-BFGS-B (``run_minimizer``) on the toy from a 0.5 prior-sigma jitter:
+    converged, χ² not above the start, at the Asimov minimum (MIN_CHI2,
+    MIN_PULL), a positive-definite Hessian and finite errors; every
+    evaluation one forward and one backward. The energy scale is held at its
+    prefit value: it moves events across bin edges only, so the χ² is a
+    staircase in it whose gradient is zero, and with it free L-BFGS-B stalls
+    on a step of that staircase (χ² 0.1-40 on this 100k-event Asimov toy, by
+    start point)."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.minimize import run_minimizer, shift_params
+    from mach3_tpu_torch.splines import reweight
+
+    dev = model.flat.prefit.device
+    x0 = jitter_init(model, 1, np.random.default_rng(3), frac=0.5)[0]
+    fixed = np.zeros(len(x0), bool)
+    fixed[shift_params(model)] = True
+    x0[fixed] = model.prefit_vector().cpu().numpy()[fixed]
+    with torch.no_grad():
+        chi2_0 = -2.0 * float(model.log_posterior(torch.as_tensor(x0, device=dev)))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_minimizer(model, x0=x0, fixed=fixed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = res.n_evaluations
+    check_launches("toy:minimize", dict(reweight.LAUNCHES),
+                   {k: v * n for k, v in TOY_GRAD_LAUNCHES.items()})
+    if not res.success or not res.chi2 <= chi2_0:
+        raise AssertionError(f"toy:minimize: {res.message}; chi2 {res.chi2:.6g} from {chi2_0:.6g}")
+    if res.covariance is None or not np.isfinite(res.errors).all():
+        raise AssertionError("toy:minimize: no finite Hesse errors")
+    free = np.any(res.covariance != 0, axis=0)
+    eig = np.linalg.eigvalsh(res.covariance[np.ix_(free, free)])
+    if not (eig > 0).all():
+        raise AssertionError(f"toy:minimize: Hessian not positive definite (eig min {eig.min()})")
+    pull = np.abs(res.x - model.prefit_vector().cpu().numpy())[free] / res.errors[free]
+    if not (res.chi2 <= MIN_CHI2 and pull.max() <= MIN_PULL):
+        raise AssertionError(f"toy:minimize: chi2 {res.chi2:.3e} and largest |x - prefit| / "
+                             f"error {pull.max():.3e}: not the Asimov minimum")
+    phase(f"[toy:minimize] L-BFGS-B: chi2 {chi2_0:.4f} -> {res.chi2:.6g} in {n} evaluations, "
+          f"{dt:.3f} s ({1e3 * dt / n:.3f} ms/evaluation incl. Hesse); {int(free.sum())} free "
+          f"params, covariance eigenvalues in [{eig.min():.3e}, {eig.max():.3e}], largest "
+          f"|x - prefit| / error {pull.max():.3e} (bound {MIN_PULL}); launches "
+          f"{dict(reweight.LAUNCHES)} | {smi}")
+
+
+def timed_ms(fn, iters: int) -> float:
+    """Host ms per call of ``fn`` over ``iters`` calls ending in a
+    synchronize, after one untimed call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def grad_budget(model, thetas, smi: str) -> None:
+    """The bench's ``hmc_large_grad_budget``: the sampling forward
+    (``total_nll_batch``), the differentiable forward, forward + backward,
+    their ratios, and a profile of one gradient evaluation."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = thetas.detach().clone().requires_grad_(True)
+
+    def grad_eval():
+        return torch.autograd.grad(model.log_posterior_batch(t).sum(), t)
+
+    with torch.no_grad():
+        fused = timed_ms(lambda: model.total_nll_batch(thetas), BUDGET_ITERS)
+        fwd = timed_ms(lambda: model.log_posterior_batch(thetas), BUDGET_ITERS)
+    grad_ms = timed_ms(grad_eval, BUDGET_ITERS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grad_eval()
+        torch.cuda.synchronize()
+    dev_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3
+
+    def share(name):
+        return sum(e.self_device_time_total for e in dev_ops if name in e.key) / 1e3
+
+    top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:5]
+    phase(f"[large:grad-budget] {thetas.shape[0]} chains, {BUDGET_ITERS} iterations: sampling "
+          f"forward {fused:.3f} ms, differentiable forward {fwd:.3f} ms, forward + backward "
+          f"{grad_ms:.3f} ms; diff forward / sampling forward {fwd / fused:.3f}, gradient / "
+          f"sampling forward {grad_ms / fused:.3f} | {smi}")
+    phase(f"[large:grad-profile] one gradient evaluation: {sum(e.count for e in dev_ops)} "
+          f"device ops, device busy {busy:.3f} ms (grad_a {share('grad_a_kernel'):.3f}, grad_b "
+          f"{share('grad_b_kernel'):.3f}, reweight_shared {share('reweight_shared'):.3f}, "
+          f"reweight_shifted {share('reweight_shifted'):.3f} ms) against {grad_ms:.3f} ms "
+          f"unprofiled: device idle share {1.0 - busy / grad_ms:.3f}; top: "
+          + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in top)
+          + f" | {smi}")
+
+
+def run_chees(model, thetas, smi: str) -> dict:
+    """ChEES-HMC with the bench's configuration (``bench.py:947-957``):
+    warm-up and adaptation, then timed steps whose kernel launches must be
+    what the fitter's own evaluation counts imply. Returns the launches."""
+    import torch
+
+    from mach3_tpu_torch.fitters.hmc import HMC, HMCConfig
+    from mach3_tpu_torch.splines import reweight
+
+    cfg = HMCConfig(step_size=0.02, adapt_steps=60, adapt_trajectory=True, max_leapfrog=12,
+                    chunk_size=10)
+    n_chains = thetas.shape[0]
+    fit = HMC(model, cfg, thetas.cpu().numpy(), seed=8)
+    t0 = time.perf_counter()
+    fit.run(n_steps=CHEES_WARM, collect=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    acc0 = fit.state.n_accepted.clone()
+    n_grad0, n_logp0 = fit.n_grad_evals, fit.n_logp_evals
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fit.run(n_steps=CHEES_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(reweight.LAUNCHES)
+    n_grad, n_logp = fit.n_grad_evals - n_grad0, fit.n_logp_evals - n_logp0
+    fwd = {"reweight_shared": 2, "reweight_shifted": 1}
+    want = {k: v * (n_grad + n_logp) for k, v in fwd.items()}
+    want.update(grad_a=3 * n_grad, grad_b=3 * n_grad)
+    check_launches("large:chees", launches, want)
+    st = fit.state
+    if not bool(torch.isfinite(st.logp).all()):
+        raise AssertionError("large:chees: non-finite logp")
+    acc = float((st.n_accepted - acc0).sum()) / (n_chains * CHEES_STEPS)
+    if not CHEES_ACC[0] < acc < CHEES_ACC[1]:
+        raise AssertionError(f"large:chees: acceptance {acc:.4f} outside {CHEES_ACC}")
+    eps, traj = float(torch.exp(st.log_eps)), float(torch.exp(st.log_traj))
+    if not (math.isfinite(eps) and math.isfinite(traj)
+            and eps * (1 - 1e-9) <= traj <= cfg.max_leapfrog * eps * (1 + 1e-9)):
+        raise AssertionError(f"large:chees: step size {eps} / trajectory time {traj} outside "
+                             f"[eps, {cfg.max_leapfrog} eps]")
+    phase(f"[large:chees] {n_chains} chains: {CHEES_WARM} warm-up/adaptation steps in "
+          f"{warm_s:.1f} s, then {CHEES_STEPS} timed steps in {dt:.3f} s: "
+          f"{n_chains * CHEES_STEPS / dt:.1f} chain-steps/s, mean {out['n_leapfrog'].mean():.2f} "
+          f"leapfrog steps, {n_grad} gradient evaluations ({1e3 * dt / n_grad:.3f} ms each), "
+          f"acceptance {acc:.4f}, step size {eps:.5g}, trajectory time {traj:.5g}; launches "
+          f"{launches} | {smi}")
+    return launches
 
 
 def toy_path(dev, smi: str) -> dict:
@@ -347,11 +676,18 @@ def toy_path(dev, smi: str) -> dict:
             a, kw, _ = checked[s.name]
             km, pm = time_kernel("toy", s, a, kw, smi)
             k_ms, p_ms = k_ms + km, p_ms + pm
+
+    grads = backward_vs_plain("toy", model, thetas, tables, smi)
+    with torch.no_grad():
+        diff_nll_vs_sampling("toy", model, thetas, tables, smi)
+    posterior_grad_vs_plain("toy", model, thetas, TOY_GRAD_LAUNCHES, smi)
+    toy_minimize(model, smi)
     return {"K1": dict(launches=launches["reweight_shifted"],
-                       max_abs_err=max(v[2] for v in checked.values()), ms=k_ms, plain_ms=p_ms)}
+                       max_abs_err=max(v[2] for v in checked.values()), ms=k_ms, plain_ms=p_ms),
+            "grad": grads}
 
 
-def large_path(dev, smi: str) -> dict:
+def large_path(dev, smi: str) -> tuple[dict, object]:
     import numpy as np
     import torch
 
@@ -381,7 +717,7 @@ def large_path(dev, smi: str) -> dict:
     with torch.no_grad():
         tables = model._shared_osc_tables(thetas)
         checked = kernels_vs_plain("large", model, thetas, tables, smi)
-        wide_form_vs_plain(model.samples[0], checked[model.samples[0].name], smi)
+        wide = wide_form_vs_plain(model.samples[0], checked[model.samples[0].name], smi)
         prefit = model.prefit_vector()[None]
         _, _, asimov = model.total_nll_batch_parts(prefit)
         worst = float(asimov.abs().max())
@@ -401,14 +737,36 @@ def large_path(dev, smi: str) -> dict:
             a, kw, _ = checked[s.name]
             times[s.name] = time_kernel("large", s, a, kw, smi)
     err = {n: v[2] for n, v in checked.items()}
-    return {
+    results = {
         "K3": dict(launches=launches["reweight_shifted"], max_abs_err=err["nue_beam"],
                    ms=times["nue_beam"][0], plain_ms=times["nue_beam"][1]),
         "K2": dict(launches=launches["reweight_shared"],
                    max_abs_err=max(err["numu_beam"], err["atmo"]),
                    ms=times["numu_beam"][0] + times["atmo"][0],
                    plain_ms=times["numu_beam"][1] + times["atmo"][1]),
+        "K4b": wide,
     }
+    del fitter, checked
+    return results, model
+
+
+def large_grad_path(model, dev, smi: str) -> tuple[dict, dict]:
+    """The gradient path on the large fixture at the bench's 64 chains;
+    returns (per-sample backward-kernel results, the ChEES run's launches)."""
+    import numpy as np
+    import torch
+
+    thetas = torch.as_tensor(jitter_init(model, GRAD_CHAINS, np.random.default_rng(0)),
+                             device=dev)
+    with torch.no_grad():
+        tables = model._shared_osc_tables(thetas)
+    grads = backward_vs_plain("large", model, thetas, tables, smi)
+    with torch.no_grad():
+        diff_nll_vs_sampling("large", model, thetas, tables, smi)
+    posterior_grad_vs_plain("large", model, thetas, LARGE_GRAD_LAUNCHES, smi)
+    grad_budget(model, thetas, smi)
+    launches = run_chees(model, thetas, smi)
+    return grads, launches
 
 
 def main() -> int:
@@ -438,14 +796,24 @@ def main() -> int:
               + " | ".join(res[:4]))
 
     results = toy_path(dev, smi)
-    results.update(large_path(dev, smi))
+    large_results, model = large_path(dev, smi)
+    results.update(large_results)
+    grads, chees = large_grad_path(model, dev, smi)
+    results["K4b"]["launches"] = chees["reweight_shared"]
+    every = {**results.pop("grad"), **grads}
+    for k, j in (("K6a", 0), ("K6b", 1)):
+        results[k] = dict(launches=chees[f"grad_{k[-1]}"],
+                          max_abs_err=max(v[j] for v in every.values()),
+                          ms=sum(v[2 + 2 * j] for v in grads.values()),
+                          plain_ms=sum(v[3 + 2 * j] for v in grads.values()))
 
-    sources = {"K1": "reweight_shifted", "K3": "reweight_shifted", "K2": "reweight_shared"}
+    names = {"K4b": "reweight_shared (trivial plan)", "K6a": "reweight_grad_a",
+             "K6b": "reweight_grad_b"}
     print(json.dumps({"kernels": [
-        {"name": sources[k], "route": "cuda",
-         "source": f"mach3_tpu_torch/csrc/{sources[k]}.cu", "replaces": TPU_KERNELS[k],
+        {"name": names.get(k, SOURCES[k]), "route": "cuda",
+         "source": f"mach3_tpu_torch/csrc/{SOURCES[k]}.cu", "replaces": TPU_KERNELS[k],
          **results[k]}
-        for k in ("K1", "K3", "K2")
+        for k in TPU_KERNELS
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -130,6 +130,29 @@ class FitModel(nn.Module):
         total = prior + torch.where(oob, len(self.samples) * LARGE_LOGL, sample)
         return total, prior_parts, sample_parts
 
+    def log_posterior_batch(self, thetas: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """[C, NP] -> [C] differentiable log-density, the gradient samplers'
+        and the minimiser's counterpart of :meth:`total_nll_batch`:
+        −(prior + Σ sample −logL). Oscillation grids are computed once per
+        signature, the prior is one whole-vector quadratic form, and each
+        sample runs :meth:`SampleModel.log_likelihood_batch_diff` (fused
+        forward, hand-written backward), or with ``plain=True``
+        :meth:`SampleModel.log_likelihood_batch_plain` (plain torch ops,
+        differentiable to any order). No out-of-bounds sentinel: hard bounds
+        are the caller's (HMC masks them to −inf outside the gradient)."""
+        flat = self.flat
+        d = torch.where(flat.flat_prior, 0.0, thetas.to(ATYPE) - flat.prefit)
+        total = -0.5 * (d * (d @ flat.inv_cov.T)).sum(1)
+        tables = self._shared_osc_tables(thetas)
+        for i, s in enumerate(self.samples):
+            nll = s.log_likelihood_batch_plain if plain else s.log_likelihood_batch_diff
+            total = total - nll(thetas, tables[i])
+        return total
+
+    def log_posterior(self, theta: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """The log-density of one θ [NP] (a batch of one)."""
+        return self.log_posterior_batch(theta[None], plain=plain)[0]
+
     def _shared_osc_tables(self, thetas: torch.Tensor) -> list:
         """Per-sample oscillation grids, computed once per unique signature
         (``OscillationHandler.cpp:18-35``, "up to 12x" saving)."""

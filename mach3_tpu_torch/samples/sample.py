@@ -23,6 +23,7 @@ from torch import nn
 from ..core.precision import ATYPE, FTYPE
 from ..osc.prob import OscParams, probabilities_const_density, probabilities_layered
 from ..splines.eval import eval_dense, find_segments
+from ..splines.grad import fused_reweight_diff, fused_reweight_diff_shifted
 from ..splines.reweight import fused_reweight_histogram_shared, fused_reweight_histogram_shifted
 from .binning import SampleBinning, histogram
 from .routing import KernelRoute
@@ -104,7 +105,7 @@ class OscConfig(nn.Module):
     def weights(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
         """Per-event oscillation weights [C, E] f32 (one flat gather)."""
         chan = self.chan_table(thetas, grids)
-        w = chan.reshape(chan.shape[0], -1)[:, self.flat_idx].to(FTYPE)
+        w = chan.reshape(chan.shape[0], -1).index_select(1, self.flat_idx).to(FTYPE)
         return torch.where(self.nc_mask, 1.0, w)
 
     def event_sort_key(self) -> torch.Tensor:
@@ -201,7 +202,7 @@ class AtmoOscConfig(nn.Module):
 
     def weights(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
         """Per-event oscillation weights [C, E] f32 (one flat gather)."""
-        w = self.chan_table(thetas, grids)[:, self.event_flat_idx].to(FTYPE)
+        w = self.chan_table(thetas, grids).index_select(1, self.event_flat_idx).to(FTYPE)
         return torch.where(self.nc_mask, 1.0, w)
 
     def event_sort_key(self) -> torch.Tensor:
@@ -330,7 +331,13 @@ class SampleModel(nn.Module):
     def _norm_weights(self, thetas: torch.Tensor) -> torch.Tensor:
         """[C, E] product of each event's matched norm values (exact zero for
         a zero norm; the reference's ``norm_pointers`` product)."""
-        return self._norm_ext_batch(thetas)[:, self.norm_idx].prod(-1)
+        # index_select here and in the oscillation gathers: its backward is an
+        # atomic index_add, while that of advanced indexing sorts the ~E x W
+        # repeated indices (72 of 110 ms of device time per gradient
+        # evaluation of the large fixture on an H100).
+        ext = self._norm_ext_batch(thetas)
+        return ext.index_select(1, self.norm_idx.reshape(-1)).reshape(
+            (ext.shape[0],) + tuple(self.norm_idx.shape)).prod(-1)
 
     def _osc_weights(self, thetas: torch.Tensor, osc_grids: tuple | None = None) -> torch.Tensor:
         """[C, E] f32; ``osc_grids`` injects (nu, antinu) grids shared across
@@ -436,6 +443,65 @@ class SampleModel(nn.Module):
             f"{self.name}: the {route.variant!r} kernel route is not ported yet: "
             "K5 (ROADMAP Queue 2)"
         )
+
+    def _diff_route(self) -> str | None:
+        """The fused differentiable route — ``"shared"`` or ``"shifted"``, the
+        route of the sample's forward kernel — or None for the plain route
+        under autograd. The card has no VMEM limit, so every sample with a
+        forward kernel takes it (the JAX package's VMEM guards do not apply)."""
+        route = self.kernel_route
+        if route.use_kernel and route.variant in ("shared", "shifted"):
+            return route.variant
+        return None
+
+    def log_likelihood_batch_plain(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> torch.Tensor:
+        """[C, NP] -> [C] -logL through plain torch ops (the JAX package's
+        ``log_likelihood_batch_xla``): differentiable to any order."""
+        return self._stat_sum(*self.reweight_batch_plain(thetas, osc_grids_batch))
+
+    def diff_kernel_args(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> tuple[tuple, dict]:
+        """Arguments of the sample's differentiable fused call
+        (``fused_reweight_diff`` on the shared route,
+        ``fused_reweight_diff_shifted`` on the shifted one): the first four
+        are (t, base_w, seg, coeffs), the last positional one the bins the
+        backward gathers at. The base weight carries the norm product (the
+        gather product, an exact 0 for a zero norm); on the shifted route the
+        bins are the plain binning's, which the kernel's in-kernel binning
+        reproduces (the shift value is rounded to f32 on both)."""
+        base_w = (self.mc_weight * self._osc_weights(thetas, osc_grids_batch)
+                  * self._norm_weights(thetas))
+        table = self.spline_table
+        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        head = (t, base_w, seg, table.coeffs)
+        if self._diff_route() == "shared":
+            return head + (self.static_bins,), dict(
+                n_bins=self.n_bins, tile_start=self.hist_tile_start,
+                tile_width=self.hist_tile_width, plan_ptr=self.hist_plan_ptr,
+                plan_idx=self.hist_plan_idx, nbl=self.hist_nbl)
+        kind, param_index, stride_j, n_axis_j = self.kernel_shift
+        with torch.no_grad():
+            bins = self.binning.find_bins(self._shifted_kinematics(thetas)).to(torch.int32)
+        return head + (thetas[:, param_index].to(FTYPE), self.kin[self.shifts[0].var_row],
+                       self.shift_static_base, self.shift_edges, bins), dict(
+            n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j)
+
+    def log_likelihood_batch_diff(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> torch.Tensor:
+        """[C, NP] -> [C] -logL, differentiable through the fused kernels: the
+        forward is the sample's reweight kernel with the norm product in the
+        base weight, the backward the two passes of ``splines/grad.py``. A
+        sample with no kernel route takes :meth:`log_likelihood_batch_plain`."""
+        route = self._diff_route()
+        if route is None:
+            return self.log_likelihood_batch_plain(thetas, osc_grids_batch)
+        fn = fused_reweight_diff if route == "shared" else fused_reweight_diff_shifted
+        args, kwargs = self.diff_kernel_args(thetas, osc_grids_batch)
+        return self._stat_sum(*fn(*args, **kwargs))
 
     def _stat_sum(self, mc: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
         """Per-bin test statistic (in ``stat_dtype``, default f64) summed over

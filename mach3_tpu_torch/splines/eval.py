@@ -34,16 +34,20 @@ def find_segments(
     return seg.to(torch.int32), (values - knot).to(FTYPE)
 
 
+def coefficient_rows(coeffs: torch.Tensor, seg: torch.Tensor, p: int, dtype=FTYPE) -> torch.Tensor:
+    """The 4 coefficient rows ``seg[c, p]*4 + (0..3)`` of parameter ``p`` per
+    chain, upcast to ``dtype`` after the gather: [C, 4, E]."""
+    rows = seg[:, p, None].long() * 4 + torch.arange(4, device=seg.device)  # [C, 4]
+    return coeffs[p][rows].to(dtype)
+
+
 def spline_product(
     coeffs: torch.Tensor, seg: torch.Tensor, t: torch.Tensor, w: torch.Tensor
 ) -> torch.Tensor:
     """``w * Π_p resp_p`` in f32: coeffs [P, K4, E] (f32 or bf16, upcast
     after the gather), seg/t [C, P], w [C, E] -> [C, E]."""
-    n_params = coeffs.shape[0]
-    rows4 = torch.arange(4, device=seg.device)
-    for p in range(n_params):
-        rows = seg[:, p, None].long() * 4 + rows4  # [C, 4]
-        co = coeffs[p][rows].to(FTYPE)  # [C, 4, E]
+    for p in range(coeffs.shape[0]):
+        co = coefficient_rows(coeffs, seg, p)
         tt = t[:, p, None]
         resp = co[:, 0] + tt * (co[:, 1] + tt * (co[:, 2] + tt * co[:, 3]))
         w = w * resp

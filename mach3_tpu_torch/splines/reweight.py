@@ -11,6 +11,10 @@ versions.
   per tile. Port of K2 ``_kernel_shared_blocked_sorted``. CUDA source
   ``csrc/reweight_shared.cu``.
 
+Both serve the sampling path (norm product in the kernel) and, with the norm
+left out, the forward of the differentiable path, whose backward kernels K6a
+and K6b live in ``splines/grad.py``.
+
 On a CUDA tensor a wrapper launches its hand-written kernel (built at first
 use by ``kernels/build.py``); on a CPU tensor it runs the plain PyTorch
 version beside it (``*_ref``). There is no fallback: a CUDA call that cannot
@@ -51,9 +55,10 @@ MAX_SHARED_BINS = 4096
 SHARED_CHAIN_TILE = 16
 MAX_SHARED_SMEM = 232448
 
-#: Launches of each CUDA kernel since its count was last set to 0. Only a
-#: CUDA launch adds to a count; the plain versions do not.
-LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0}
+#: Launches of each CUDA kernel since its count was last set to 0, the two
+#: backward passes of ``splines/grad.py`` included. Only a CUDA launch adds
+#: to a count; the plain versions do not.
+LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0, "grad_a": 0, "grad_b": 0}
 
 _C_VOIDP = ctypes.c_void_p
 _C_INT = ctypes.c_int
@@ -85,7 +90,8 @@ def fused_reweight_histogram_shifted_ref(
     return histogram(w, bins, n_bins)
 
 
-_INT_ARGS = ("seg", "static_base", "bins", "tile_start", "tile_width", "plan_ptr", "plan_idx")
+_INT_ARGS = ("seg", "static_base", "bins", "tile_start", "tile_width", "plan_ptr", "plan_idx",
+             "nz")
 
 
 def _check_tensors(named: dict, norm_ext, norm_s) -> None:
@@ -148,11 +154,13 @@ def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
         raise ValueError(f"shift kind {shift_kind!r} unknown to the kernel ({sorted(SHIFT_KINDS)})")
 
 
-def _library(stem: str, argtypes: list):
+def _library(stem: str, argtypes: list, entry: str | None = None):
+    """The library of ``csrc/<stem>.cu`` with the argument types of its entry
+    ``m3_<entry>`` (default ``m3_<stem>``) set."""
     from ..kernels.build import load_library
 
     lib = load_library(stem)
-    fn = getattr(lib, f"m3_{stem}")
+    fn = getattr(lib, f"m3_{entry or stem}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = _C_INT
