@@ -21,6 +21,15 @@ each kernel against its plain PyTorch version. Run from the repository root:
   the differentiable NLL vs the sampling NLL, the gradient vs the plain
   route, the gradient budget (``hmc_large_grad_budget``) and ChEES-HMC
   (``chees_hmc_large``).
+* The experiment path: the YAML experiment of
+  ``tutorial/experiment_files.py`` (the toy's 100,000 events in three
+  samples, 19 parameters) written into a temporary directory and built by
+  ``build_experiment`` at 256 chains: numu_2d (two shifts) and
+  nue_nonuniform (hyper-rectangle bins with a shift, a TF1 response) on the
+  per-chain kernel (K5; K5b is its ``hist="blockdiag"`` form), numu_nd (a
+  weight function, static bins, P = 4) on the shared kernel, whose trivial
+  plan computes K4a. Its gradient at 64 chains through K5, the shared
+  kernel, K6a and K6b.
 
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2, a profile of 10
@@ -29,8 +38,13 @@ the exit code is not 0. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its launches on
 its path (K1 and K3: the toy and large MR2T2 runs; K2: the large MR2T2 run;
-K4b, K6a, K6b: the ChEES run), its largest error against the plain version
-and both times.
+K4b, K6a, K6b: the ChEES run; K5, K4a: the experiment's MR2T2 run; K5b: its
+run with the deterministic histogram), its largest error against the plain
+version, both times and its bound: the least time the card could take for
+the same work, from the bytes each call must move (every input read once,
+each output written once) at 3.35 TB/s and its f32 operations at 67
+TFLOP/s, whichever is larger (H100 SXM peaks). No single PyTorch call
+computes a spline product and a histogram, so no kernel has a library time.
 
 Imports nothing of JAX. Exits non-zero when no CUDA device is visible.
 """
@@ -69,8 +83,10 @@ ASIMOV_ATOL = 1e-3
 # The fixed proposal throws at prior scale, while 100k Asimov events pin the
 # posterior far tighter: ~0.1-0.2% of proposals are accepted on the toy, in
 # the JAX package as well (mean acceptance probability 0.0023 over 32 chains
-# x 20 steps of its CPU run). The band only proves that the chains move. The
-# large path has no band: 101 prior-scale throws against ~450k Asimov events
+# x 20 steps of its CPU run); the experiment's 19 parameters ~0.03% (0.00030
+# over 256 chains x 1,000 steps on an H100, 700 W, with the same seeded
+# draws). The band only proves that the chains move. The large path has no
+# band: 101 prior-scale throws against ~450k Asimov events
 # are all but never accepted, and its run checks the NLLs and the launches.
 ACC_MIN = 1e-4
 
@@ -101,6 +117,17 @@ GRAD_E2E = 5e-3
 # Kernel launches per gradient evaluation (one forward, one backward).
 TOY_GRAD_LAUNCHES = {"reweight_shifted": 2, "grad_a": 2, "grad_b": 2}
 LARGE_GRAD_LAUNCHES = {"reweight_shared": 2, "reweight_shifted": 1, "grad_a": 3, "grad_b": 3}
+# The experiment path (tutorial/experiment_files.py) at the toy's width.
+EXP_EVENTS = 100_000
+EXP_SEED = 42
+EXP_ROUTES = ["generic", "generic", "shared"]
+EXP_LAUNCHES = {"reweight_perchain": 2, "reweight_shared": 1}
+EXP_DET_STEPS = 50  # the same fit with the deterministic histogram (K5b)
+EXP_GRAD_LAUNCHES = {"reweight_perchain": 2, "reweight_shared": 1, "grad_a": 3, "grad_b": 3}
+# H100 SXM peaks (NVIDIA's data sheet): device memory and f32 outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 # ChEES gates on the timed steps: mean acceptance inside (0.3, 0.99).
 CHEES_ACC = (0.3, 0.99)
 # The toy fit ends at the Asimov minimum, χ² = 0 at the prefit point: on an
@@ -113,12 +140,19 @@ TPU_KERNELS = {
     "K1": "mach3_tpu/splines/pallas_reweight.py:339",
     "K3": "mach3_tpu/splines/pallas_reweight.py:414",
     "K2": "mach3_tpu/splines/pallas_reweight.py:912",
+    "K4a": "mach3_tpu/splines/pallas_reweight.py:682",
     "K4b": "mach3_tpu/splines/pallas_reweight.py:723",
+    "K5": "mach3_tpu/splines/pallas_reweight.py:279",
+    "K5b": "mach3_tpu/splines/pallas_reweight.py:111",
     "K6a": "mach3_tpu/splines/pallas_grad.py:68",
     "K6b": "mach3_tpu/splines/pallas_grad.py:123",
 }
 SOURCES = {"K1": "reweight_shifted", "K3": "reweight_shifted", "K2": "reweight_shared",
-           "K4b": "reweight_shared", "K6a": "reweight_grad", "K6b": "reweight_grad"}
+           "K4a": "reweight_shared", "K4b": "reweight_shared", "K5": "reweight_perchain",
+           "K5b": "reweight_perchain", "K6a": "reweight_grad", "K6b": "reweight_grad"}
+NAMES = {"K4a": "reweight_shared (trivial plan, P <= 16)",
+         "K4b": "reweight_shared (trivial plan)", "K5b": "reweight_perchain_det",
+         "K6a": "reweight_grad_a", "K6b": "reweight_grad_b"}
 
 
 def phase(msg: str) -> None:
@@ -197,6 +231,60 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _nbytes(*xs) -> int:
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
+
+
+def coefficient_reads(seg, coeffs) -> tuple[int, int]:
+    """(bytes, evaluated (event, parameter) pairs) of a spline table that a
+    call needs: each parameter's 4 coefficient rows at the distinct segments
+    its chains are in, on the events where it is not the identity (an
+    identity response multiplies by exactly 1 and needs no read)."""
+    import torch
+
+    n_par, k4, n_ev = coeffs.shape
+    c4 = coeffs.reshape(n_par, k4 // 4, 4, n_ev)
+    events = ((c4[:, :, 1:] != 0).any(2).any(1) | (c4[:, :, 0] != 1).any(1)).sum(1).cpu()
+    nseg = torch.tensor([len(torch.unique(seg[:, p])) for p in range(n_par)])
+    return int((nseg * 4 * events).sum()) * coeffs.element_size(), int(events.sum())
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time for ``n_bytes`` of device memory traffic and ``n_ops``
+    f32 operations at the card's peaks, and which of the two sets it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def forward_bound(args, kwargs) -> dict:
+    """Bound of one forward reweight-histogram call from its arguments
+    (any of the three kernels): every tensor argument read once, the table
+    by ``coefficient_reads``, the two [C, B] outputs written once; 7 f32
+    operations per evaluated (chain, event, parameter) (a Horner step and
+    the product), 3 per (chain, event) (w² and the two sums) and 2 per
+    (chain, matched norm) (one multiply-add)."""
+    import torch
+
+    seg, coeffs, base_w = args[0], args[2], args[3]
+    c, e = base_w.shape
+    coef, pairs = coefficient_reads(seg, coeffs)
+    others = [a for i, a in enumerate(args) if i != 2] + list(kwargs.values())
+    norm_s = kwargs.get("norm_s")
+    matches = 0 if norm_s is None else int(torch.count_nonzero(norm_s))
+    return bound(_nbytes(*others) + coef + 2 * c * kwargs["n_bins"] * 4,
+                 c * (7 * pairs + 3 * e + 2 * matches))
+
+
+def summed(parts: list) -> dict:
+    """Bounds of several calls run one after another: the sum, set by
+    whichever kind sets the largest part."""
+    return dict(bound_ms=sum(b["bound_ms"] for b in parts),
+                bound_by=max(parts, key=lambda b: b["bound_ms"])["bound_by"])
+
+
 def kernel_of(sample):
     """(kernel name, wrapper, plain version, argument maker) of a sample's
     route."""
@@ -205,6 +293,9 @@ def kernel_of(sample):
     if sample.kernel_route.variant == "shared":
         return ("reweight_shared", reweight.fused_reweight_histogram_shared,
                 reweight.fused_reweight_histogram_shared_ref, sample.shared_kernel_args)
+    if sample.kernel_route.variant == "generic":
+        return ("reweight_perchain", reweight.fused_reweight_histogram,
+                reweight.fused_reweight_histogram_ref, sample.perchain_kernel_args)
     return ("reweight_shifted", reweight.fused_reweight_histogram_shifted,
             reweight.fused_reweight_histogram_shifted_ref, sample.shifted_kernel_args)
 
@@ -235,18 +326,28 @@ def kernels_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
     return out
 
 
-def wide_form_vs_plain(sample, checked, smi: str) -> dict:
+def wide_form_vs_plain(tag: str, sample, checked, smi: str, shuffle: bool = False) -> dict:
     """The shared kernel with a trivial plan — every parameter in every
     tile, the whole bin axis as the window: the function of the TPU's wide
-    shared kernel K4b (P > 16) — on a real sample, against the plain
-    version. These launches are comparisons, not the path's. Returns K4b's
-    max abs error and times."""
+    shared kernels K4b (P > 16) and K4a (P <= 16) — on a real sample,
+    against the plain version; with ``shuffle`` the events are put in a
+    random order first (K4a's events are unsorted). These launches are
+    comparisons, not the path's. Returns the max abs error, times and
+    bound."""
     import torch
 
     from mach3_tpu_torch.splines import plan, reweight
 
     args, kwargs, _ = checked
     dev = args[0].device
+    if shuffle:
+        perm = torch.randperm(sample.n_events, generator=torch.Generator().manual_seed(0))
+        perm = perm.to(dev)
+        seg, t, coeffs, base_w, bins = args
+        args = (seg, t, coeffs.index_select(2, perm).contiguous(),
+                base_w.index_select(1, perm).contiguous(), bins.index_select(0, perm).contiguous())
+        if kwargs.get("norm_s") is not None:
+            kwargs = dict(kwargs, norm_s=kwargs["norm_s"].index_select(1, perm).contiguous())
     starts, widths, ptr, idx, nbl = plan.trivial_plan(sample.n_events, args[0].shape[1],
                                                       sample.n_bins)
     kw = dict(kwargs, tile_start=torch.as_tensor(starts, device=dev),
@@ -259,10 +360,13 @@ def wide_form_vs_plain(sample, checked, smi: str) -> dict:
     e2, q2, r2 = compare(w2_k, w2_p, K_RTOL, K_ATOL_FRAC, f"{sample.name} wide w2")
     km, pm = time_pair(lambda: reweight.fused_reweight_histogram_shared(*args, **kw),
                        lambda: reweight.fused_reweight_histogram_shared_ref(*args, **kw))
-    phase(f"[large:wide-form-vs-plain] {sample.name} (reweight_shared, trivial plan, window "
-          f"{nbl} bins): max|dmc|={e1:.3e} max|dw2|={e2:.3e} max rel err {max(q1, q2):.3e} "
-          f"(worst {max(r1, r2):.3f} of tol); kernel {km:.4f} ms, plain {pm:.4f} ms | {smi}")
-    return dict(max_abs_err=max(e1, e2), ms=km, plain_ms=pm)
+    bnd = forward_bound(args, kw)
+    phase(f"[{tag}:wide-form-vs-plain] {sample.name} (reweight_shared, trivial plan, window "
+          f"{nbl} bins, P={args[0].shape[1]}{', events shuffled' if shuffle else ''}): "
+          f"max|dmc|={e1:.3e} max|dw2|={e2:.3e} max rel err {max(q1, q2):.3e} "
+          f"(worst {max(r1, r2):.3f} of tol); kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | {smi}")
+    return dict(max_abs_err=max(e1, e2), ms=km, plain_ms=pm, **bnd)
 
 
 def nll_vs_plain(tag: str, model, thetas, tables, smi: str) -> None:
@@ -283,7 +387,7 @@ def nll_vs_plain(tag: str, model, thetas, tables, smi: str) -> None:
     if worst > 1.0:
         raise AssertionError(f"{tag}: NLL kernel vs plain: max |d| {float(d_nll.max()):.3e} "
                              f"is {worst:.2f}x the tolerance")
-    phase(f"[{tag}:nll] total_nll_batch [{total.shape[0]}] finite; per-sample max |kernel - "
+    phase(f"[{tag}:nll-vs-plain] total_nll_batch [{total.shape[0]}] finite; per-sample max |kernel - "
           f"plain| = {float(d_nll.max()):.3e} ({worst:.3f} of tol, median tol "
           f"{float(tols.median()):.3e}); median total {float(total.median()):.3f} | {smi}")
 
@@ -364,13 +468,16 @@ def time_pair(kern, ref, reps: int = 30, ref_reps: int = 5) -> tuple[float, floa
     return 0.5 * (t[1] + t[2]), 0.5 * (t[0] + t[3])
 
 
-def time_kernel(tag: str, sample, args, kwargs, smi: str) -> tuple[float, float]:
-    """(kernel ms, plain ms) of a sample's forward kernel."""
+def time_kernel(tag: str, sample, args, kwargs, smi: str) -> tuple[float, float, dict]:
+    """(kernel ms, plain ms, bound) of a sample's forward kernel."""
     _, kern, ref, _ = kernel_of(sample)
     km, pm = time_pair(lambda: kern(*args, **kwargs), lambda: ref(*args, **kwargs))
-    phase(f"[{tag}:kernel-time] {sample.name}: kernel {km:.4f} ms, plain {pm:.4f} ms "
-          f"(C={args[3].shape[0]}, E={sample.n_events}, B={sample.n_bins}) | {smi}")
-    return km, pm
+    bnd = forward_bound(args, kwargs)
+    phase(f"[{tag}:kernel-time] {sample.name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; kernel at "
+          f"{bnd['bound_ms'] / km:.3f} of it) (C={args[3].shape[0]}, E={sample.n_events}, "
+          f"B={sample.n_bins}) | {smi}")
+    return km, pm, bnd
 
 
 def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
@@ -378,7 +485,12 @@ def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
     these chains: the forward's arguments of the differentiable route and
     the cotangents of the sample's statistic. Pass B is fed pass A's kernel
     outputs on both sides. Returns {sample name: (A err, B err, A ms, A
-    plain ms, B ms, B plain ms)}."""
+    plain ms, B ms, B plain ms, A bound, B bound)}: pass A reads (seg, t),
+    the table's rows, base_w, the bins and the cotangents and writes four
+    [C, E] fields (7 operations per evaluated (chain, event, parameter), 6
+    per (chain, event)); pass B reads the rows and three [C, E] fields and
+    writes [C, P] (15 operations per evaluated triple: response, slope,
+    product)."""
     import torch
 
     from mach3_tpu_torch.splines import grad
@@ -388,7 +500,8 @@ def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
         route = s._diff_route()
         args, kw = s.diff_kernel_args(thetas, tables[i])
         t, base_w, seg, coeffs = args[:4]
-        fwd = grad.fused_reweight_diff if route == "shared" else grad.fused_reweight_diff_shifted
+        fwd = {"shared": grad.fused_reweight_diff, "shifted": grad.fused_reweight_diff_shifted,
+               "generic": grad.fused_reweight_diff_perchain}[route]
         plan = {}
         if route == "shared":
             bins, plan = args[4], dict(plan_ptr=kw["plan_ptr"], plan_idx=kw["plan_idx"])
@@ -422,13 +535,21 @@ def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
                          lambda: grad.grad_pass_a_ref(*a_in, n_bins=s.n_bins, **plan))
         b_ms = time_pair(lambda: grad.grad_pass_b(*b_in, **plan),
                          lambda: grad.grad_pass_b_ref(*b_in, **plan))
-        out[s.name] = (err_a, float(err_b.max())) + a_ms + b_ms
+        c, e = base_w.shape
+        coef, pairs = coefficient_reads(seg, coeffs)
+        plan_bytes = _nbytes(*plan.values())
+        a_bnd = bound(_nbytes(*a_in[:2], *a_in[3:]) + plan_bytes + coef + 16 * c * e,
+                      c * (7 * pairs + 6 * e))
+        b_bnd = bound(_nbytes(seg, t, *got_a[1:]) + plan_bytes + coef + 4 * c * n_par,
+                      15 * c * pairs)
+        out[s.name] = (err_a, float(err_b.max())) + a_ms + b_ms + (a_bnd, b_bnd)
         form = "shared bins, plan" if route == "shared" else "per-chain bins"
         phase(f"[{tag}:grad-kernels] {s.name} ({form}): C={thetas.shape[0]} E={s.n_events} "
               f"P={n_par}; pass A max abs err {err_a:.3e} (worst {worst_a:.3f} of tol), nz "
               f"equal; pass B max abs err {float(err_b.max()):.3e} (worst {worst_b:.3f} of "
-              f"tol); grad_a {a_ms[0]:.4f} ms vs plain {a_ms[1]:.4f} ms, grad_b {b_ms[0]:.4f} "
-              f"ms vs plain {b_ms[1]:.4f} ms | {smi}")
+              f"tol); grad_a {a_ms[0]:.4f} ms vs plain {a_ms[1]:.4f} ms (bound "
+              f"{a_bnd['bound_ms']:.4f}), grad_b {b_ms[0]:.4f} ms vs plain {b_ms[1]:.4f} ms "
+              f"(bound {b_bnd['bound_ms']:.4f}) | {smi}")
     return out
 
 
@@ -645,8 +766,7 @@ def toy_path(dev, smi: str) -> dict:
     from mach3_tpu_torch.tutorial.toy import build_toy
 
     t0 = time.perf_counter()
-    toy = build_toy(n_events=N_EVENTS, seed=SEED, e_grid_size=E_GRID)
-    model = toy.model.to(dev)
+    model = build_toy(n_events=N_EVENTS, seed=SEED, e_grid_size=E_GRID, device=dev).model
     routes = [s.kernel_route.variant for s in model.samples]
     phase(f"[toy] built in {time.perf_counter() - t0:.1f} s; events "
           + ", ".join(f"{s.name}={s.n_events}" for s in model.samples) + f"; routes {routes}"
@@ -670,12 +790,8 @@ def toy_path(dev, smi: str) -> dict:
         "toy", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, {"reweight_shifted": 2}, smi,
         ACC_MIN)
     profile_steps("toy", fitter, step_ms, ["reweight_shifted"], smi)
-    k_ms = p_ms = 0.0
     with torch.no_grad():
-        for s in model.samples:
-            a, kw, _ = checked[s.name]
-            km, pm = time_kernel("toy", s, a, kw, smi)
-            k_ms, p_ms = k_ms + km, p_ms + pm
+        times = [time_kernel("toy", s, *checked[s.name][:2], smi) for s in model.samples]
 
     grads = backward_vs_plain("toy", model, thetas, tables, smi)
     with torch.no_grad():
@@ -683,7 +799,9 @@ def toy_path(dev, smi: str) -> dict:
     posterior_grad_vs_plain("toy", model, thetas, TOY_GRAD_LAUNCHES, smi)
     toy_minimize(model, smi)
     return {"K1": dict(launches=launches["reweight_shifted"],
-                       max_abs_err=max(v[2] for v in checked.values()), ms=k_ms, plain_ms=p_ms),
+                       max_abs_err=max(v[2] for v in checked.values()),
+                       ms=sum(v[0] for v in times), plain_ms=sum(v[1] for v in times),
+                       **summed([v[2] for v in times])),
             "grad": grads}
 
 
@@ -694,9 +812,8 @@ def large_path(dev, smi: str) -> tuple[dict, object]:
     from mach3_tpu_torch.tutorial.large import build_large
 
     t0 = time.perf_counter()
-    large = build_large(seed=LARGE_SEED, low_memory=True)
+    model = build_large(seed=LARGE_SEED, low_memory=True, device=dev).model
     build_s = time.perf_counter() - t0
-    model = large.model.to(dev)
     routes = [s.kernel_route.variant for s in model.samples]
     parts = []
     for s in model.samples:
@@ -717,7 +834,7 @@ def large_path(dev, smi: str) -> tuple[dict, object]:
     with torch.no_grad():
         tables = model._shared_osc_tables(thetas)
         checked = kernels_vs_plain("large", model, thetas, tables, smi)
-        wide = wide_form_vs_plain(model.samples[0], checked[model.samples[0].name], smi)
+        wide = wide_form_vs_plain("large", model.samples[0], checked[model.samples[0].name], smi)
         prefit = model.prefit_vector()[None]
         _, _, asimov = model.total_nll_batch_parts(prefit)
         worst = float(asimov.abs().max())
@@ -737,13 +854,15 @@ def large_path(dev, smi: str) -> tuple[dict, object]:
             a, kw, _ = checked[s.name]
             times[s.name] = time_kernel("large", s, a, kw, smi)
     err = {n: v[2] for n, v in checked.items()}
+    shared = [times["numu_beam"], times["atmo"]]
     results = {
         "K3": dict(launches=launches["reweight_shifted"], max_abs_err=err["nue_beam"],
-                   ms=times["nue_beam"][0], plain_ms=times["nue_beam"][1]),
+                   ms=times["nue_beam"][0], plain_ms=times["nue_beam"][1],
+                   **times["nue_beam"][2]),
         "K2": dict(launches=launches["reweight_shared"],
                    max_abs_err=max(err["numu_beam"], err["atmo"]),
-                   ms=times["numu_beam"][0] + times["atmo"][0],
-                   plain_ms=times["numu_beam"][1] + times["atmo"][1]),
+                   ms=sum(v[0] for v in shared), plain_ms=sum(v[1] for v in shared),
+                   **summed([v[2] for v in shared])),
         "K4b": wide,
     }
     del fitter, checked
@@ -767,6 +886,132 @@ def large_grad_path(model, dev, smi: str) -> tuple[dict, dict]:
     grad_budget(model, thetas, smi)
     launches = run_chees(model, thetas, smi)
     return grads, launches
+
+
+def blockdiag_vs_plain(model, checked, smi: str) -> dict:
+    """K5b (``hist="blockdiag"``) against the plain version on each
+    per-chain sample's arguments, within the kernels' tolerance, and twice:
+    bit for bit the same (no float atomics). Returns its max abs error,
+    times and bound."""
+    import torch
+
+    from mach3_tpu_torch.splines import reweight
+
+    errs, times, bounds = [], [], []
+    for s in model.samples:
+        if s.kernel_route.variant != "generic":
+            continue
+        args, kwargs, _ = checked[s.name]
+        kw = dict(kwargs, hist="blockdiag")
+        got = reweight.fused_reweight_histogram(*args, **kw)
+        again = reweight.fused_reweight_histogram(*args, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{s.name}: the deterministic histogram differs between runs")
+        ref = reweight.fused_reweight_histogram_ref(*args, **kw)
+        e1, q1, r1 = compare(got[0], ref[0], K_RTOL, K_ATOL_FRAC, f"{s.name} blockdiag mc")
+        e2, q2, r2 = compare(got[1], ref[1], K_RTOL, K_ATOL_FRAC, f"{s.name} blockdiag w2")
+        km, pm = time_pair(lambda: reweight.fused_reweight_histogram(*args, **kw),
+                           lambda: reweight.fused_reweight_histogram_ref(*args, **kw))
+        errs.append(max(e1, e2))
+        times.append((km, pm))
+        bounds.append(forward_bound(args, kw))
+        phase(f"[exp:blockdiag-vs-plain] {s.name} (reweight_perchain_det): max|dmc|={e1:.3e} "
+              f"max|dw2|={e2:.3e} max rel err {max(q1, q2):.3e} (worst {max(r1, r2):.3f} of "
+              f"tol); bit-identical over two runs; kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+              f"{bounds[-1]['bound_ms']:.4f} ms | {smi}")
+    return dict(max_abs_err=max(errs), ms=sum(t[0] for t in times),
+                plain_ms=sum(t[1] for t in times), **summed(bounds))
+
+
+def exp_path(dev, smi: str) -> dict:
+    """The YAML experiment path: files written into a temporary directory,
+    ``build_experiment`` on the card, then the phases of the other paths,
+    the deterministic histogram's run and the gradient at 64 chains."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.core.config import Config
+    from mach3_tpu_torch.samples.experiment import build_experiment
+    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.tutorial.experiment_files import write_experiment
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config.from_file(str(write_experiment(tmp, n_events=EXP_EVENTS, seed=EXP_SEED)))
+        written_s = time.perf_counter() - t0
+        model = build_experiment(cfg, device=dev).model
+    routes = [s.kernel_route.variant for s in model.samples]
+    phase(f"[exp] files written in {written_s:.1f} s, built in "
+          f"{time.perf_counter() - t0 - written_s:.1f} s; {model.n_params} params; "
+          + "; ".join(f"{s.name}: E={s.n_events} B={s.n_bins} P={s.spline_table.n_spline_params} "
+                      f"TF1={0 if s.tf1_table is None else s.tf1_table.n_tf1_params} "
+                      f"weight fns={len(s.weight_fns)} route={s.kernel_route.variant}"
+                      for s in model.samples) + f" | {smi}")
+    if routes != EXP_ROUTES:
+        raise AssertionError(f"experiment routes must be {EXP_ROUTES}, got {routes}")
+    thetas = torch.as_tensor(jitter_init(model, N_CHAINS, np.random.default_rng(0)), device=dev)
+
+    with torch.no_grad():
+        tables = model._shared_osc_tables(thetas)
+        checked = kernels_vs_plain("exp", model, thetas, tables, smi)
+        k5b = blockdiag_vs_plain(model, checked, smi)
+        nd = model.samples[2]
+        k4a = wide_form_vs_plain("exp", nd, checked[nd.name], smi, shuffle=True)
+        _, _, asimov = model.total_nll_batch_parts(model.prefit_vector()[None])
+        phase(f"[exp:asimov] per-sample NLL at prefit through the kernels "
+              f"{[f'{float(v):.3e}' for v in asimov[0]]} (bound {ASIMOV_ATOL}) | {smi}")
+        if not float(asimov.abs().max()) < ASIMOV_ATOL:
+            raise AssertionError(f"experiment Asimov NLL at prefit {asimov.tolist()}")
+        nll_vs_plain("exp", model, thetas, tables, smi)
+
+    fitter, step_ms, launches = run_mr2t2(
+        "exp", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, EXP_LAUNCHES, smi, ACC_MIN)
+    profile_steps("exp", fitter, step_ms, ["reweight_perchain", "reweight_shared"], smi)
+    generic = [s for s in model.samples if s.kernel_route.variant == "generic"]
+    for s in generic:
+        s.perchain_hist = "blockdiag"
+    reset_launches()
+    t0 = time.perf_counter()
+    fitter.run(n_steps=EXP_DET_STEPS, collect=False)
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    det_launches = dict(reweight.LAUNCHES)
+    check_launches("exp:mr2t2-blockdiag", det_launches,
+                   {"reweight_perchain_blockdiag": 2 * EXP_DET_STEPS,
+                    "reweight_shared": EXP_DET_STEPS})
+    if not bool(torch.isfinite(fitter.state.nll).all()):
+        raise AssertionError("exp: non-finite chain NLL with the deterministic histogram")
+    for s in generic:
+        s.perchain_hist = "maskreduce"
+    phase(f"[exp:mr2t2-blockdiag] {EXP_DET_STEPS} more steps with hist='blockdiag': "
+          f"{1e3 * det_s / EXP_DET_STEPS:.3f} ms/step, launches {det_launches} | {smi}")
+    with torch.no_grad():
+        times = {s.name: time_kernel("exp", s, *checked[s.name][:2], smi) for s in model.samples}
+    del fitter
+
+    thetas = torch.as_tensor(jitter_init(model, GRAD_CHAINS, np.random.default_rng(0)),
+                             device=dev)
+    with torch.no_grad():
+        tables = model._shared_osc_tables(thetas)
+    grads = backward_vs_plain("exp", model, thetas, tables, smi)
+    with torch.no_grad():
+        diff_nll_vs_sampling("exp", model, thetas, tables, smi)
+    posterior_grad_vs_plain("exp", model, thetas, EXP_GRAD_LAUNCHES, smi)
+
+    perchain = [times[s.name] for s in generic]
+    k4a["launches"] = launches["reweight_shared"]
+    k5b["launches"] = det_launches["reweight_perchain_blockdiag"]
+    return {
+        "K5": dict(launches=launches["reweight_perchain"],
+                   max_abs_err=max(checked[s.name][2] for s in generic),
+                   ms=sum(v[0] for v in perchain), plain_ms=sum(v[1] for v in perchain),
+                   **summed([v[2] for v in perchain])),
+        "K5b": k5b,
+        "K4a": k4a,
+        "grad": grads,
+    }
 
 
 def main() -> int:
@@ -796,23 +1041,25 @@ def main() -> int:
               + " | ".join(res[:4]))
 
     results = toy_path(dev, smi)
+    toy_grads = results.pop("grad")
+    results.update(exp_path(dev, smi))
+    exp_grads = results.pop("grad")
     large_results, model = large_path(dev, smi)
     results.update(large_results)
     grads, chees = large_grad_path(model, dev, smi)
     results["K4b"]["launches"] = chees["reweight_shared"]
-    every = {**results.pop("grad"), **grads}
+    every = {**toy_grads, **exp_grads, **grads}
     for k, j in (("K6a", 0), ("K6b", 1)):
         results[k] = dict(launches=chees[f"grad_{k[-1]}"],
                           max_abs_err=max(v[j] for v in every.values()),
                           ms=sum(v[2 + 2 * j] for v in grads.values()),
-                          plain_ms=sum(v[3 + 2 * j] for v in grads.values()))
+                          plain_ms=sum(v[3 + 2 * j] for v in grads.values()),
+                          **summed([v[6 + j] for v in grads.values()]))
 
-    names = {"K4b": "reweight_shared (trivial plan)", "K6a": "reweight_grad_a",
-             "K6b": "reweight_grad_b"}
     print(json.dumps({"kernels": [
-        {"name": names.get(k, SOURCES[k]), "route": "cuda",
+        {"name": NAMES.get(k, SOURCES[k]), "route": "cuda",
          "source": f"mach3_tpu_torch/csrc/{SOURCES[k]}.cu", "replaces": TPU_KERNELS[k],
-         **results[k]}
+         "library_ms": None, **results[k]}
         for k in TPU_KERNELS
     ]}))
     print(smi)

@@ -2,9 +2,12 @@
 
 Used by the tests that hold the port against the JAX package. It imports no
 jax: array leaves are read with ``np.asarray`` and static fields by
-attribute. JAX shift callables cannot cross: each shift becomes the port's
-``"scale"`` kind (``x * (1 + v)``, the toy's energy scale), after the JAX
-callable is evaluated on a few numpy values to check that it is that shift.
+attribute. JAX shift callables cannot cross: each shift becomes one of the
+port's named kinds (``splines/reweight.SHIFT_KINDS``), found by evaluating
+the JAX callable on a few numpy values; a shift of no named kind and every
+weight-valued function (closures over JAX code) raise — build such a model
+from the same experiment files with the port's ``build_experiment``. TF1
+tables and hyper-rectangle binnings cross as arrays.
 
 A shared-route sample arrives sorted and padded for JAX's own event tile
 (its pad events carry zero weight); the port lays it out again for its own
@@ -19,13 +22,13 @@ import torch
 from .core.precision import FTYPE
 from .fitters.model import FitModel
 from .params.state import _FIELDS, PriorModel
-from .samples.binning import SampleBinning
-from .samples.events import apply_shared_layout
-from .samples.routing import choose_kernel_route
-from .samples.sample import AtmoOscConfig, OscConfig, SampleModel, ShiftSpec
+from .samples.binning import NonUniformBinning, SampleBinning
+from .samples.events import assemble_sample
+from .samples.sample import AtmoOscConfig, OscConfig, ShiftSpec
 from .samples.teststats import TestStatistic
 from .splines.monolith import DenseSplineTable
 from .splines.reweight import SHIFT_KINDS
+from .splines.tf1 import TF1Table
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
@@ -51,16 +54,33 @@ def _prior(jp) -> PriorModel:
     return PriorModel(**{f: _np(getattr(jp, f)) for f in _FIELDS})
 
 
+_FROM_FILES = ("build the model from the same experiment files with "
+               "mach3_tpu_torch.samples.experiment.build_experiment")
+
+
 def _shift(js) -> ShiftSpec:
-    x = np.linspace(0.1, 2.9, 7).astype(np.float32)
-    for v in (-0.2, 0.0, 0.13):
-        want = SHIFT_KINDS["scale"][1](torch.tensor([[v]], dtype=FTYPE), torch.from_numpy(x))
-        got = np.asarray(js.fn(np.float32(v), x, None), np.float32)
-        if not np.allclose(got, want.numpy()[0], rtol=1e-6, atol=0.0):
-            raise NotImplementedError(
-                f"JAX shift on row {js.var_row} is not x * (1 + v); only that kind is ported"
-            )
-    return ShiftSpec.scale(js.param_index, js.var_row)
+    """The port's named shift that the JAX callable computes."""
+    x = np.linspace(-0.9, 2.9, 9).astype(np.float32)
+    for kind, (_, plain) in SHIFT_KINDS.items():
+        if all(np.allclose(np.asarray(js.fn(np.float32(v), x, None), np.float32),
+                           plain(torch.tensor([[v]], dtype=FTYPE), torch.from_numpy(x)).numpy()[0],
+                           rtol=1e-6, atol=1e-7)
+               for v in (-0.2, 0.0, 0.13)):
+            return ShiftSpec.named(kind, js.param_index, js.var_row)
+    raise NotImplementedError(
+        f"JAX shift on row {js.var_row} is none of {sorted(SHIFT_KINDS)}; a JAX callable "
+        f"cannot cross: {_FROM_FILES}")
+
+
+def _binning(jb):
+    if hasattr(jb, "strides"):
+        return SampleBinning(_tensor(jb.edges), _np(jb.n_bins_axis), _np(jb.strides),
+                             _np(jb.axis_vars), jb.n_bins)
+    if hasattr(jb, "cell_to_bin"):
+        return NonUniformBinning(_tensor(jb.cell_edges), _np(jb.n_cells_axis),
+                                 _np(jb.cell_strides), _np(jb.cell_to_bin), _np(jb.axis_vars),
+                                 jb.n_bins, _np(jb.extents))
+    raise NotImplementedError(f"{type(jb).__name__} is not ported (ROADMAP)")
 
 
 def _osc(jo) -> OscConfig | AtmoOscConfig | None:
@@ -83,16 +103,10 @@ def _osc(jo) -> OscConfig | AtmoOscConfig | None:
     )
 
 
-def _sample(js) -> SampleModel:
-    jb = js.binning
-    if not hasattr(jb, "strides"):
-        raise NotImplementedError(
-            f"{js.name}: only rectangular binnings are ported (ROADMAP)"
-        )
-    binning = SampleBinning(
-        _tensor(jb.edges), _np(jb.n_bins_axis), _np(jb.strides), _np(jb.axis_vars),
-        jb.n_bins,
-    )
+def _sample(js):
+    if js.weight_fns:
+        raise NotImplementedError(f"{js.name}: weight-valued functions are JAX closures; "
+                                  + _FROM_FILES)
     jt = js.spline_table
     table = None
     if jt is not None:
@@ -101,41 +115,21 @@ def _sample(js) -> SampleModel:
         table = DenseSplineTable(
             _tensor(jt.coeffs), _tensor(jt.knots_x), _np(jt.n_knots), _np(jt.param_index)
         )
-    shifts = tuple(_shift(s) for s in js.shifts)
-    kernel_shift = None
-    shift_edges = None
-    if js.kernel_shift is not None:
-        _, param_index, edges, stride_j, n_axis_j = js.kernel_shift
-        kernel_shift = ("scale", int(param_index), int(stride_j), int(n_axis_j))
-        shift_edges = np.asarray(edges, np.float32)
+    tf1 = js.tf1_table
+    if tf1 is not None:
+        tf1 = TF1Table(_np(tf1.slope), _np(tf1.intercept), _np(tf1.param_index))
     requested = js.kernel_route.requested if js.kernel_route is not None else js.use_pallas
-    route = choose_kernel_route(
-        jb.n_bins, table,
-        has_static_bins=js.static_bins is not None,
-        has_kernel_shift=kernel_shift is not None,
-        requested=requested,
-    )
+    # The bin map, route and (shared route) layout are the port's own,
+    # rebuilt from the arrays; a JAX shared-route sample arrives sorted and
+    # padded with zero-weight events, which stay events here.
     arrays = dict(kin=_np(js.kin), mc_weight=_np(js.mc_weight), norm_idx=_np(js.norm_idx),
-                  norm_s=_np(js.norm_s), static_bins=_np(js.static_bins),
-                  spline_table=table, osc=_osc(js.osc))
-    if route.use_kernel and route.variant == "shared":
-        arrays = apply_shared_layout(js.name, arrays, table, arrays["osc"], jb.n_bins)
-    return SampleModel(
-        js.name,
-        binning=binning,
-        data=_np(js.data),
-        norm_applied=_np(js.norm_applied),
-        shifts=shifts,
+                  norm_s=_np(js.norm_s), spline_table=table, osc=_osc(js.osc),
+                  tf1_table=tf1, weight_mask=None)
+    return assemble_sample(
+        js.name, arrays, _binning(js.binning), shifts=tuple(_shift(s) for s in js.shifts),
+        norm_applied=_np(js.norm_applied), data=_np(js.data),
         test_statistic=TestStatistic(js.test_statistic.value),
-        stat_dtype=_dtype(js.stat_dtype),
-        kernel_route=route,
-        kernel_shift=kernel_shift,
-        shift_static_base=_np(js.shift_static_base),
-        shift_edges=shift_edges,
-        tf1_table=js.tf1_table,
-        weight_fns=tuple(js.weight_fns),
-        **arrays,
-    )
+        stat_dtype=_dtype(js.stat_dtype), use_kernel=requested)
 
 
 def from_jax_model(jax_fit_model, device="cpu") -> FitModel:

@@ -9,21 +9,24 @@
 //
 //   w   = base[c,e] · Π_p resp_p · exp(Σ_k log|ext[c,k]|·S[k,e]) · (−1)^(Σ_k neg[c,k]·S[k,e])
 //   x   = x_nom[e] · (1 + v[c])                      (shift kind "scale")
+//         x_nom[e] + v[c]                            ("offset")
+//         1 + (x_nom[e] − 1) · (1 + v[c])            ("scale_about_one")
 //   idx = #(edges ≤ x) − 1
 //   bin = static[e] + stride·idx, or the garbage bin n_bins when idx ∉ [0, n_axis)
 //         or static[e] < 0
 //   mc[c,bin] += w,  w2[c,bin] += w²                 (garbage bin dropped)
 //
 // Responses: resp_p = y + t(b + t(c + t·d)) from the 4 coefficient rows
-// seg*4 + (0..3) of coeffs[p, :, e], in f32 (the JAX production route rounds
-// the deviation resp − 1 to bf16; this port does not). seg is trusted to lie
-// in [0, n_knots − 2], as find_segments clamps it. bf16 tables are upcast here.
+// seg*4 + (0..3) of coeffs[p, :, e], in f32 (spline_response.cuh; the JAX
+// production route rounds the deviation resp − 1 to bf16; this port does
+// not).
 //
 // Norm: log|ext| is floored at 1e-30 as in the TPU kernel, so a zero norm
 // gives a ~1e-30 weight, not an exact 0 (the JAX XLA route gives 0).
 //
-// Binning: x is formed with __fadd_rn/__fmul_rn so it cannot be contracted
-// into an FMA and lands in the same bin as the f32 reference. The edge count
+// Binning: x is formed with __fadd_rn/__fsub_rn/__fmul_rn, one rounding per
+// operation in the plain version's order, so it cannot be contracted into an
+// FMA and lands in the same bin as the f32 reference. The edge count
 // is a binary search over the edges staged in shared memory; a NaN x compares
 // false everywhere, gives idx = −1 and so goes to the garbage bin.
 //
@@ -58,6 +61,8 @@
 
 #include <cstddef>
 
+#include "spline_response.cuh"
+
 namespace {
 
 constexpr int kChainTile = 8;
@@ -67,11 +72,21 @@ constexpr int kMaxBins = 512;
 constexpr int kMaxEdges = 1025;
 constexpr int kMaxParams = 256;
 constexpr int kMaxNorm = 256;
-constexpr int kShiftScale = 0;  // x * (1 + v)
+// Shift kinds (splines/reweight.py SHIFT_KINDS); a is the per-chain
+// constant: 1 + v, or v for "offset".
+constexpr int kShiftScale = 0;        // x * (1 + v)
+constexpr int kShiftOffset = 1;       // x + v
+constexpr int kShiftAboutOne = 2;     // 1 + (x - 1) * (1 + v)
 
-__device__ __forceinline__ float load_coef(const float* p) { return *p; }
-__device__ __forceinline__ float load_coef(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float shift_x(int kind, float x, float a) {
+  switch (kind) {
+    case kShiftOffset:
+      return __fadd_rn(x, a);
+    case kShiftAboutOne:
+      return __fadd_rn(1.0f, __fmul_rn(__fsub_rn(x, 1.0f), a));
+    default:
+      return __fmul_rn(x, a);
+  }
 }
 
 template <typename CoefT, bool kHasNorm>
@@ -83,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) reweight_shifted_kernel(
     int n_edges, const float* __restrict__ norm_ext,
     const float* __restrict__ norm_s, int na1, float* __restrict__ mc,
     float* __restrict__ w2, int C, int P, int K4, int E, int n_bins,
-    int stride_j, int n_axis_j) {
+    int stride_j, int n_axis_j, int shift_kind) {
   extern __shared__ float smem[];
   const int hb = n_bins + 1;                            // + garbage bin
   float* hist = smem;                                   // [CT][2][hb]
@@ -92,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) reweight_shifted_kernel(
   int* sh_seg = reinterpret_cast<int*>(sh_t + kChainTile * P);  // [CT][P]
   float* sh_logext = reinterpret_cast<float*>(sh_seg + kChainTile * P);
   float* sh_neg = sh_logext + kChainTile * na1;         // [CT][na1]
-  float* sh_scale = sh_neg + kChainTile * na1;          // [CT] 1 + v
+  float* sh_shift = sh_neg + kChainTile * na1;          // [CT] a of shift_x
 
   const int tid = threadIdx.x;
   const int c0 = blockIdx.y * kChainTile;
@@ -114,7 +129,8 @@ __global__ void __launch_bounds__(kThreads) reweight_shifted_kernel(
     }
   }
   for (int i = tid; i < nct; i += kThreads) {
-    sh_scale[i] = __fadd_rn(1.0f, shift_vals[c0 + i]);
+    const float v = shift_vals[c0 + i];
+    sh_shift[i] = shift_kind == kShiftOffset ? v : __fadd_rn(1.0f, v);
   }
   __syncthreads();
 
@@ -123,17 +139,8 @@ __global__ void __launch_bounds__(kThreads) reweight_shifted_kernel(
     const float xn = x_nom[e];
     const int sb = static_base[e];
     for (int c = 0; c < nct; ++c) {
-      float w = base_w[static_cast<size_t>(c0 + c) * es + e];
-      for (int p = 0; p < P; ++p) {
-        const float t = sh_t[c * P + p];
-        const CoefT* co = coeffs +
-            (static_cast<size_t>(p) * K4 + static_cast<size_t>(sh_seg[c * P + p]) * 4) * es + e;
-        const float y = load_coef(co);
-        const float b = load_coef(co + es);
-        const float cc = load_coef(co + 2 * es);
-        const float d = load_coef(co + 3 * es);
-        w *= y + t * (b + t * (cc + t * d));
-      }
+      float w = m3::spline_weight(coeffs, sh_seg + c * P, sh_t + c * P, P, K4, es, e,
+                                  base_w[static_cast<size_t>(c0 + c) * es + e]);
       if (kHasNorm) {
         float lw = 0.f;
         float pw = 0.f;
@@ -145,7 +152,7 @@ __global__ void __launch_bounds__(kThreads) reweight_shifted_kernel(
         const float sign = 1.f - 2.f * (pw - 2.f * floorf(pw * 0.5f));
         w *= expf(lw) * sign;
       }
-      const float x = __fmul_rn(xn, sh_scale[c]);
+      const float x = shift_x(shift_kind, xn, sh_shift[c]);
       int lo = 0;
       int hi = n_edges;
       while (lo < hi) {  // count of edges <= x (edges strictly increasing)
@@ -184,7 +191,7 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream, const int* seg,
                    const int* static_base, const float* edges, int n_edges,
                    const float* norm_ext, const float* norm_s, int na1,
                    float* mc, float* w2, int C, int P, int K4, int E,
-                   int n_bins, int stride_j, int n_axis_j) {
+                   int n_bins, int stride_j, int n_axis_j, int shift_kind) {
   auto kernel = reweight_shifted_kernel<CoefT, kHasNorm>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -195,7 +202,7 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream, const int* seg,
   kernel<<<grid, kThreads, smem, stream>>>(
       seg, t, static_cast<const CoefT*>(coeffs), base_w, shift_vals, x_nom,
       static_base, edges, n_edges, norm_ext, norm_s, na1, mc, w2, C, P, K4, E,
-      n_bins, stride_j, n_axis_j);
+      n_bins, stride_j, n_axis_j, shift_kind);
   return cudaGetLastError();
 }
 
@@ -217,7 +224,7 @@ extern "C" int m3_reweight_shifted(
   if (C <= 0 || E <= 0 || P <= 0 || P > kMaxParams || K4 <= 0 || K4 % 4 != 0 ||
       n_bins <= 0 || n_bins > kMaxBins || n_edges < 2 || n_edges > kMaxEdges ||
       n_axis_j != n_edges - 1 || na1 < 0 || na1 > kMaxNorm ||
-      shift_kind != kShiftScale) {
+      shift_kind < kShiftScale || shift_kind > kShiftAboutOne) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t floats = static_cast<size_t>(kChainTile) * 2 * (n_bins + 1) +
@@ -234,7 +241,7 @@ extern "C" int m3_reweight_shifted(
       static_cast<const int*>(static_base), static_cast<const float*>(edges), \
       n_edges, static_cast<const float*>(norm_ext),                          \
       static_cast<const float*>(norm_s), na1, static_cast<float*>(mc),       \
-      static_cast<float*>(w2), C, P, K4, E, n_bins, stride_j, n_axis_j
+      static_cast<float*>(w2), C, P, K4, E, n_bins, stride_j, n_axis_j, shift_kind
   cudaError_t err;
   if (coef_bf16) {
     err = has_norm ? launch<__nv_bfloat16, true>(M3_ARGS)

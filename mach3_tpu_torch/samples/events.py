@@ -1,5 +1,5 @@
 """Host-side event store and SampleModel construction (port of
-``mach3_tpu/samples/events.py`` for rectangular binnings).
+``mach3_tpu/samples/events.py``).
 
 The reference's sample-init pipeline (``Samples/SampleHandlerFD.cpp:169-202``):
 MC into a struct-of-arrays, norm parameters matched to events once
@@ -24,9 +24,10 @@ from ..params.parameterset import ParamMeta
 from ..splines.monolith import DenseSplineTable, dense_table_activity
 from ..splines.plan import shared_layout
 from ..splines.reweight import SHIFT_KINDS
-from .binning import SampleBinning
+from ..splines.tf1 import TF1Table
+from .binning import NonUniformBinning, SampleBinning
 from .routing import choose_kernel_route
-from .sample import AtmoOscConfig, OscConfig, SampleModel, ShiftSpec
+from .sample import AtmoOscConfig, OscConfig, SampleModel, ShiftSpec, WeightSpec
 from .teststats import TestStatistic
 
 _log = get_logger("samples")
@@ -254,9 +255,11 @@ def apply_shared_layout(name: str, arrays: dict, table: DenseSplineTable, osc,
     with zero-weight copies, and the per-tile plan.
 
     arrays: numpy ``kin`` [V, E], ``mc_weight`` [E], ``norm_idx`` [E, W],
-    ``norm_s`` [NA1, E] or None, ``static_bins`` [E]. Returns them permuted,
-    with ``spline_table``, ``osc`` and the ``hist_*`` plan, as keyword
-    arguments of :class:`SampleModel`."""
+    ``norm_s`` [NA1, E] or None, ``static_bins`` [E], ``weight_mask``
+    [Nw, E] or None, and ``tf1_table`` or None. Returns them permuted, with
+    ``spline_table``, ``osc`` and the ``hist_*`` plan, as keyword arguments
+    of :class:`SampleModel`. Pad events weigh 0, respond 1 to every TF1
+    parameter and match no weight function."""
     act = dense_table_activity(table)
     bins = np.asarray(arrays["static_bins"], np.int64)
     key = None if osc is None else osc.event_sort_key().cpu().numpy()
@@ -265,6 +268,10 @@ def apply_shared_layout(name: str, arrays: dict, table: DenseSplineTable, osc,
     tperm, pperm = torch.from_numpy(perm), torch.from_numpy(lay.param_perm)
     mc_weight = np.asarray(arrays["mc_weight"])[perm].copy()
     mc_weight[pad] = 0.0  # pads carry no weight
+    weight_mask = arrays.get("weight_mask")
+    if weight_mask is not None:
+        weight_mask = np.asarray(weight_mask)[:, perm] & ~pad
+    tf1 = arrays.get("tf1_table")
     out = dict(
         kin=np.asarray(arrays["kin"])[:, perm],
         mc_weight=mc_weight,
@@ -276,6 +283,8 @@ def apply_shared_layout(name: str, arrays: dict, table: DenseSplineTable, osc,
             table.knots_x[pperm], table.n_knots[pperm], table.param_index[pperm],
         ),
         osc=None if osc is None else osc.take_events(perm),
+        tf1_table=None if tf1 is None else tf1.take_events(perm, pad),
+        weight_mask=weight_mask,
         hist_tile_start=lay.tile_start,
         hist_tile_width=lay.tile_width,
         hist_plan_ptr=lay.plan_ptr,
@@ -300,24 +309,30 @@ def build_sample_model(
     n_total_params: int,
     norm_idx: np.ndarray | None = None,
     spline_table=None,
+    tf1_table: TF1Table | None = None,
     osc: OscConfig | AtmoOscConfig | None = None,
     shifts: Sequence[ShiftSpec] = (),
+    weight_fns: Sequence[WeightSpec] = (),
     data: np.ndarray | None = None,
     test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
     use_kernel: bool | str = "auto",
+    binning: SampleBinning | NonUniformBinning | None = None,
     stat_dtype=None,
 ) -> SampleModel:
-    """Assemble the static SampleModel tensors (on the CPU; move the result
-    with ``.to(device)``).
+    """Assemble the static SampleModel tensors on the CPU (the builders of
+    ``tutorial/`` and ``samples/experiment.py`` move the model to the card).
 
     var_order fixes the row layout of the kinematics matrix; binning_vars
-    and ``ShiftSpec.var_row`` refer to its rows. use_kernel: ``"auto"`` /
+    and ``ShiftSpec.var_row`` refer to its rows. ``binning`` (a prebuilt
+    ``NonUniformBinning`` or ``SampleBinning``, its axis_vars rows of
+    var_order) replaces the rectangular binning of ``binning_edges``.
+    Each ``WeightSpec`` carries its event mask [E]. use_kernel: ``"auto"`` /
     ``True`` route to a kernel where one fits, ``False`` forces the plain
     route (``routing.choose_kernel_route``)."""
     var_index = {v: i for i, v in enumerate(var_order)}
     kin = np.stack([np.asarray(events.kinematics[v], np.float32) for v in var_order])
-    binned_rows = [int(var_index[v]) for v in binning_vars]
-    binning = SampleBinning.build(binning_edges, binned_rows)
+    if binning is None:
+        binning = SampleBinning.build(binning_edges, [int(var_index[v]) for v in binning_vars])
 
     if norm_idx is None:
         norm_idx = np.full((events.n_events, 1), -1, np.int64)
@@ -345,57 +360,88 @@ def build_sample_model(
         for w_col in range(norm_idx.shape[1]):
             np.add.at(norm_s, (norm_idx[:, w_col], np.arange(events.n_events)), 1.0)
 
-    if data is None:
-        data = np.zeros(binning.n_bins)
+    weight_mask = None
+    if weight_fns:
+        weight_mask = np.stack([np.asarray(w.mask, bool) for w in weight_fns])
+    arrays = dict(kin=kin, mc_weight=np.asarray(events.mc_weight, np.float32),
+                  norm_idx=norm_idx, norm_s=norm_s, spline_table=spline_table, osc=osc,
+                  tf1_table=tf1_table, weight_mask=weight_mask)
+    return assemble_sample(
+        name, arrays, binning, shifts=tuple(shifts), weight_fns=tuple(weight_fns),
+        norm_applied=norm_applied, data=data, test_statistic=test_statistic,
+        stat_dtype=stat_dtype, use_kernel=use_kernel)
 
-    # Bin map: with no shift on a binned axis the event->bin map is static;
-    # with exactly one shift of a kind the kernel knows on one binned axis,
-    # the binning of that axis moves into the kernel and the static axes'
-    # summed contribution is precomputed here.
-    static_bins = None
-    kernel_shift = None
-    shift_static_base = None
-    shift_edges = None
+
+def _shift_bins(shifts, binning, kin: np.ndarray) -> tuple:
+    """The bin map of a sample: (static_bins [E], None, None, None) when no
+    shift moves a binned axis; (None, kernel_shift, shift_static_base [E],
+    shift_edges) for exactly one shift of a kind the kernel knows on one
+    axis of a rectangular binning (that axis is binned in the kernel, the
+    others' summed contribution is precomputed here, -1 where one is out of
+    range); else all None: per-chain bins, the generic route."""
+    binned_rows = list(binning.axis_vars)
     shifted_binned = [s for s in shifts if s.var_row in binned_rows]
     if not shifted_binned:
-        static_bins = binning.find_bins(torch.from_numpy(kin)).numpy()
-    elif len(shifts) == 1 and len(shifted_binned) == 1 and shifts[0].kind in SHIFT_KINDS:
-        s = shifts[0]
-        axis_j = binned_rows.index(s.var_row)
-        static_base = np.zeros(events.n_events, np.int64)
-        valid = np.ones(events.n_events, bool)
-        for a, r in enumerate(binned_rows):
-            if a == axis_j:
-                continue
-            n_a = binning.n_bins_axis[a]
-            real_edges = np.asarray(binning_edges[a], np.float64)[: n_a + 1]
-            idx = np.searchsorted(real_edges, kin[r], side="right") - 1
-            valid &= (idx >= 0) & (idx < n_a)
-            static_base += np.clip(idx, 0, n_a - 1) * binning.strides[a]
-        shift_static_base = np.where(valid, static_base, -1).astype(np.int32)
-        shift_edges = binning.axis_edges(axis_j)
-        kernel_shift = (
-            s.kind, int(s.param_index), binning.strides[axis_j], binning.n_bins_axis[axis_j]
-        )
+        return binning.find_bins(torch.from_numpy(kin)).numpy(), None, None, None
+    if not (isinstance(binning, SampleBinning) and len(shifts) == 1
+            and shifts[0].kind in SHIFT_KINDS):
+        return None, None, None, None
+    s = shifts[0]
+    axis_j = binned_rows.index(s.var_row)
+    static_base = np.zeros(kin.shape[1], np.int64)
+    valid = np.ones(kin.shape[1], bool)
+    for a, r in enumerate(binned_rows):
+        if a == axis_j:
+            continue
+        n_a = binning.n_bins_axis[a]
+        idx = np.searchsorted(binning.axis_edges(a).numpy(), kin[r], side="right") - 1
+        valid &= (idx >= 0) & (idx < n_a)
+        static_base += np.clip(idx, 0, n_a - 1) * binning.strides[a]
+    kernel_shift = (s.kind, int(s.param_index), binning.strides[axis_j],
+                    binning.n_bins_axis[axis_j])
+    return (None, kernel_shift, np.where(valid, static_base, -1).astype(np.int32),
+            binning.axis_edges(axis_j))
 
+
+def assemble_sample(
+    name: str,
+    arrays: dict,
+    binning: SampleBinning | NonUniformBinning,
+    *,
+    shifts: tuple = (),
+    weight_fns: tuple = (),
+    norm_applied=None,
+    data=None,
+    test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
+    stat_dtype=None,
+    use_kernel: bool | str = "auto",
+) -> SampleModel:
+    """The :class:`SampleModel` of prepared host arrays (``arrays``: numpy
+    ``kin``, ``mc_weight``, ``norm_idx``, ``norm_s``, ``weight_mask``, and
+    the ``spline_table``, ``osc`` and ``tf1_table`` modules) under
+    ``binning``: its bin map (:func:`_shift_bins`), its kernel route and, on
+    the shared route, its event layout and plan. ``build_sample_model`` and
+    ``SampleModel.with_binning`` end here."""
+    static_bins, kernel_shift, shift_static_base, shift_edges = _shift_bins(
+        shifts, binning, np.asarray(arrays["kin"]))
     route = choose_kernel_route(
         binning.n_bins,
-        spline_table,
+        arrays["spline_table"],
         has_static_bins=static_bins is not None,
         has_kernel_shift=kernel_shift is not None,
         requested=use_kernel,
     )
-    arrays = dict(kin=kin, mc_weight=np.asarray(events.mc_weight, np.float32),
-                  norm_idx=norm_idx, norm_s=norm_s, static_bins=static_bins,
-                  spline_table=spline_table, osc=osc)
+    arrays = dict(arrays, static_bins=static_bins)
     if route.use_kernel and route.variant == "shared":
-        arrays = apply_shared_layout(name, arrays, spline_table, osc, binning.n_bins)
+        arrays = apply_shared_layout(name, arrays, arrays["spline_table"], arrays["osc"],
+                                     binning.n_bins)
     return SampleModel(
         name,
         binning=binning,
-        data=data,
+        data=np.zeros(binning.n_bins) if data is None else data,
         norm_applied=norm_applied,
-        shifts=tuple(shifts),
+        shifts=shifts,
+        weight_fns=weight_fns,
         test_statistic=test_statistic,
         stat_dtype=stat_dtype,
         kernel_route=route,

@@ -5,14 +5,17 @@ The JAX package sizes tiles against the TPU's VMEM; none of that carries
 over. What carries over is the decision, made once at build time from static
 properties: which reweight variant a sample takes.
 
-* ``shifted`` — one elementwise shift on one binned axis, dense table, up to
-  ``MAX_PERCHAIN_BINS`` bins: the shifted CUDA kernel of
+* ``shifted`` — a single shift, of a kind the kernel forms itself
+  (``SHIFT_KINDS``), on one axis of a rectangular binning, dense table, up
+  to ``MAX_PERCHAIN_BINS`` bins: the shifted CUDA kernel of
   ``splines/reweight.py`` (K1; with P > 16 it stands for K3, whose P blocks
   the CUDA kernel's run-time loop over P replaces).
 * ``shared``  — static bins, dense table, up to ``MAX_KERNEL_BINS`` bins: the
   shared CUDA kernel (K2), over the event layout of ``splines/plan.py``.
-* ``generic`` — per-chain bins given as input (K5): routed as in the JAX
-  package but not ported yet, so ``SampleModel.reweight_batch`` raises.
+* ``generic`` — per-chain bins given as input (several shifts, a custom
+  binning with a shift, or a shift with no kernel kind), P <= 16 and up to
+  ``MAX_PERCHAIN_BINS`` bins: the per-chain CUDA kernel (K5; K5b is its
+  ``hist="blockdiag"`` form).
 * ``xla``     — plain torch ops (the JAX package computes that route
   outside Pallas too).
 """

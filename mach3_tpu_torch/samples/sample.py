@@ -4,16 +4,20 @@
 one function of a chain batch of proposed parameter vectors [C, NP]:
 
     base weight = MC weight x oscillation weight (x norm product)
-    -> spline response product, shifted-axis binning, Σw/Σw² histogram
+                  x TF1 responses x weight-valued functional responses
+    -> spline response product, binning, Σw/Σw² histogram
     -> per-bin test statistic summed in f64.
 
-On the ``shifted`` and ``shared`` routes the middle line is a fused CUDA
-kernel (``splines/reweight.py``); the ``xla`` route and the unbatched
-``reweight`` run it as plain torch ops. Static arrays are registered buffers,
-so ``SampleModel.to(device)`` moves a sample.
+On the ``shifted``, ``shared`` and ``generic`` routes the middle line is a
+fused CUDA kernel (``splines/reweight.py``: in-kernel binning of one shifted
+axis, static bins, or per-chain bins computed here as plain torch ops); the
+``xla`` route and the unbatched ``reweight`` run it as plain torch ops.
+Static arrays are registered buffers, so ``SampleModel.to(device)`` moves a
+sample.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable
 
@@ -23,35 +27,68 @@ from torch import nn
 from ..core.precision import ATYPE, FTYPE
 from ..osc.prob import OscParams, probabilities_const_density, probabilities_layered
 from ..splines.eval import eval_dense, find_segments
-from ..splines.grad import fused_reweight_diff, fused_reweight_diff_shifted
-from ..splines.reweight import fused_reweight_histogram_shared, fused_reweight_histogram_shifted
-from .binning import SampleBinning, histogram
+from ..splines.grad import (
+    fused_reweight_diff,
+    fused_reweight_diff_perchain,
+    fused_reweight_diff_shifted,
+)
+from ..splines.reweight import (
+    SHIFT_KINDS,
+    fused_reweight_histogram,
+    fused_reweight_histogram_shared,
+    fused_reweight_histogram_shifted,
+)
+from .binning import NonUniformBinning, SampleBinning, histogram
 from .routing import KernelRoute
 from .teststats import TestStatistic, get_test_stat_fn
 
-#: A functional shift: (param_value [C, 1], var_values [..., E], kin [..., V, E])
+#: A functional shift: (param_value [C, 1], var_values [C, E], kin [C, V, E])
 #: -> new var values.
 ShiftFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+#: A weight-valued functional response: (param_value [C, 1], nominal kin
+#: [V, E]) -> weight [C, E].
+WeightFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShiftSpec:
     """One functional parameter applied to one kinematic variable.
 
-    ``kind`` names the shift for the kernels (``"scale"``: ``x * (1 + v)``,
-    see ``splines/reweight.SHIFT_KINDS``); ``fn`` is its plain torch form,
-    used on the plain route. A kind the kernel does not know keeps the
-    sample on the plain route."""
+    ``kind`` names a shift the shifted kernel forms itself
+    (``splines/reweight.SHIFT_KINDS``), or is None for a shift known only by
+    its torch body (``samples/experiment.register_shift``); ``fn`` is the
+    plain torch form. A sample whose single binned-axis shift has no kind
+    takes the ``generic`` route (per-chain bins computed with ``fn``)."""
 
-    kind: str
+    kind: str | None
     fn: ShiftFn
     param_index: int
     var_row: int
 
     @classmethod
+    def named(cls, kind: str, param_index: int, var_row: int) -> "ShiftSpec":
+        """The shift of kind ``kind`` (a key of ``SHIFT_KINDS``)."""
+        plain = SHIFT_KINDS[kind][1]
+        return cls(kind, lambda value, x, kin: plain(value, x), param_index, var_row)
+
+    @classmethod
     def scale(cls, param_index: int, var_row: int) -> "ShiftSpec":
         """The energy-scale shift ``x * (1 + v)``."""
-        return cls("scale", lambda value, x, kin: x * (1.0 + value), param_index, var_row)
+        return cls.named("scale", param_index, var_row)
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightSpec:
+    """One weight-valued functional parameter (the weight half of the
+    reference's ``FuncParFuncType`` callbacks, ``SampleHandlerFD.cpp:465-564``):
+    ``fn(value, kin)`` multiplies the weight of the events of ``mask`` [E]
+    bool. ``kin`` is the nominal kinematics (weights see unshifted values).
+    A :class:`SampleModel` keeps the masks in its ``weight_mask`` buffer,
+    where they move and are laid out with the events."""
+
+    fn: WeightFn
+    param_index: int
+    mask: Any = None
 
 
 class OscConfig(nn.Module):
@@ -245,7 +282,9 @@ class SampleModel(nn.Module):
     [NA] (global indices of the sample's norm params), static_bins [E]
     (bins that no shift moves), shift_static_base [E] i32 and shift_edges
     [n_axis + 1] f32 (the shifted route's static-axis bins and shifted-axis
-    edges). ``kernel_shift`` = (kind, param_index, stride, n_axis).
+    edges), weight_mask [Nw, E] bool (the events of each weight function).
+    ``kernel_shift`` = (kind, param_index, stride, n_axis); ``tf1_table`` a
+    :class:`~mach3_tpu_torch.splines.tf1.TF1Table`.
 
     On the shared route the events are laid out by ``splines/plan.py`` and
     the kernel's per-tile plan is kept as hist_tile_start / hist_tile_width
@@ -275,7 +314,8 @@ class SampleModel(nn.Module):
         shift_static_base=None,
         shift_edges=None,
         tf1_table=None,
-        weight_fns: tuple = (),
+        weight_fns: tuple[WeightSpec, ...] = (),
+        weight_mask=None,
         hist_tile_start=None,
         hist_tile_width=None,
         hist_plan_ptr=None,
@@ -283,11 +323,8 @@ class SampleModel(nn.Module):
         hist_nbl: int | None = None,
     ):
         super().__init__()
-        if tf1_table is not None or weight_fns:
-            raise NotImplementedError(
-                "TF1 tables and weight-valued functional parameters are not "
-                "ported yet (ROADMAP Queue 1, item 4)"
-            )
+        if (weight_mask is None) != (not weight_fns):
+            raise ValueError("weight_fns and weight_mask come together or not at all")
         self.name = name
         self.register_buffer("kin", _buffer(kin, FTYPE))
         self.register_buffer("mc_weight", _buffer(mc_weight, FTYPE))
@@ -302,15 +339,21 @@ class SampleModel(nn.Module):
         self.register_buffer("hist_tile_width", _buffer(hist_tile_width, torch.int32))
         self.register_buffer("hist_plan_ptr", _buffer(hist_plan_ptr, torch.int32))
         self.register_buffer("hist_plan_idx", _buffer(hist_plan_idx, torch.int32))
+        self.register_buffer("weight_mask", _buffer(weight_mask, torch.bool))
         self.hist_nbl = hist_nbl
         self.binning = binning
         self.spline_table = spline_table
+        self.tf1_table = tf1_table
         self.osc = osc
         self.shifts = tuple(shifts)
+        self.weight_fns = tuple(dataclasses.replace(w, mask=None) for w in weight_fns)
         self.test_statistic = test_statistic
         self.stat_dtype = stat_dtype
         self.kernel_route = kernel_route or KernelRoute(False, "xla", reason="no route")
         self.kernel_shift = kernel_shift
+        #: The generic route's histogram form: ``"maskreduce"`` (K5) or
+        #: ``"blockdiag"`` (K5b, the same sums in a fixed order).
+        self.perchain_hist = "maskreduce"
 
     @property
     def n_events(self) -> int:
@@ -346,6 +389,33 @@ class SampleModel(nn.Module):
             return torch.ones((thetas.shape[0], self.n_events), dtype=FTYPE, device=thetas.device)
         return self.osc.weights(thetas, osc_grids)
 
+    def _func_weights(self, thetas: torch.Tensor) -> torch.Tensor | None:
+        """[C, E] product of the weight-valued functional responses on their
+        matched events, or None without any (JAX ``_func_weights``)."""
+        w = None
+        for i, ws in enumerate(self.weight_fns):
+            wf = ws.fn(thetas[:, ws.param_index, None], self.kin).to(FTYPE)
+            wf = torch.where(self.weight_mask[i], wf, 1.0)
+            w = wf if w is None else w * wf
+        return w
+
+    def _functional_weights(self, w: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
+        """``w`` [C, E] times the TF1 and weight-function responses."""
+        if self.tf1_table is not None:
+            w = w * self.tf1_table.eval(thetas)
+        fw = self._func_weights(thetas)
+        return w if fw is None else w * fw
+
+    def _base_weight(self, thetas: torch.Tensor, osc_grids_batch: tuple | None,
+                     norm: bool) -> torch.Tensor:
+        """The kernels' base weight [C, E]: MC weight x oscillation (x the
+        norm product when ``norm``; the shifted and shared kernels form it
+        themselves on the sampling path) x TF1 x weight functions."""
+        w = self.mc_weight * self._osc_weights(thetas, osc_grids_batch)
+        if norm:
+            w = w * self._norm_weights(thetas)
+        return self._functional_weights(w, thetas)
+
     def _shifted_kinematics(self, thetas: torch.Tensor) -> torch.Tensor:
         """[C, V, E] kinematics after the functional shifts. The parameter
         value is rounded to f32 first, as the kernel takes it, so both routes
@@ -367,10 +437,16 @@ class SampleModel(nn.Module):
         w = self.mc_weight * self._norm_weights(thetas)
         if self.spline_table is not None:
             w = w * eval_dense(self.spline_table, thetas)
-        w = w * self._osc_weights(thetas, osc_grids)
+        w = self._functional_weights(w * self._osc_weights(thetas, osc_grids), thetas)
         if self.static_bins is not None:
             return w, self.static_bins.expand(w.shape)
-        return w, self.binning.find_bins(self._shifted_kinematics(thetas))
+        return w, self._perchain_bins(thetas)
+
+    def _perchain_bins(self, thetas: torch.Tensor) -> torch.Tensor:
+        """[C, E] bins of the shifted kinematics (int64; ``n_bins`` =
+        garbage). Bins are integers, piecewise constant in θ: no gradient."""
+        with torch.no_grad():
+            return self.binning.find_bins(self._shifted_kinematics(thetas))
 
     # ---------------------------------------------------------- reweight
     def reweight(self, params: torch.Tensor, osc_grids: tuple | None = None):
@@ -391,9 +467,7 @@ class SampleModel(nn.Module):
     ) -> tuple[tuple, dict]:
         """Arguments of the shifted-route kernel call for a chain batch."""
         norm_in_kernel = self.norm_s is not None
-        base_w = self.mc_weight * self._osc_weights(thetas, osc_grids_batch)
-        if not norm_in_kernel:
-            base_w = base_w * self._norm_weights(thetas)
+        base_w = self._base_weight(thetas, osc_grids_batch, norm=not norm_in_kernel)
         table = self.spline_table
         seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
         kind, param_index, stride_j, n_axis_j = self.kernel_shift
@@ -411,9 +485,7 @@ class SampleModel(nn.Module):
         self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
     ) -> tuple[tuple, dict]:
         """Arguments of the shared-route kernel call for a chain batch."""
-        base_w = self.mc_weight * self._osc_weights(thetas, osc_grids_batch)
-        if self.norm_s is None:
-            base_w = base_w * self._norm_weights(thetas)
+        base_w = self._base_weight(thetas, osc_grids_batch, norm=self.norm_s is None)
         table = self.spline_table
         seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
         args = (seg.contiguous(), t.contiguous(), table.coeffs, base_w.contiguous(),
@@ -425,6 +497,20 @@ class SampleModel(nn.Module):
             kwargs.update(norm_ext=self._norm_ext_batch(thetas), norm_s=self.norm_s)
         return args, kwargs
 
+    def perchain_kernel_args(
+        self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
+    ) -> tuple[tuple, dict]:
+        """Arguments of the generic-route kernel call for a chain batch: the
+        per-chain bins of the shifted kinematics as plain torch ops (the JAX
+        package computes them in XLA too), the norm product in the base
+        weight (JAX ``sample.py:497-510``)."""
+        base_w = self._base_weight(thetas, osc_grids_batch, norm=True)
+        table = self.spline_table
+        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        bins = self._perchain_bins(thetas).to(torch.int32)
+        return (seg.contiguous(), t.contiguous(), table.coeffs, base_w.contiguous(),
+                bins.contiguous()), dict(n_bins=self.n_bins, hist=self.perchain_hist)
+
     def reweight_batch(
         self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -433,24 +519,20 @@ class SampleModel(nn.Module):
         route = self.kernel_route
         if not route.use_kernel:
             return self.reweight_batch_plain(thetas, osc_grids_batch)
-        if route.variant == "shifted":
-            args, kwargs = self.shifted_kernel_args(thetas, osc_grids_batch)
-            return fused_reweight_histogram_shifted(*args, **kwargs)
-        if route.variant == "shared":
-            args, kwargs = self.shared_kernel_args(thetas, osc_grids_batch)
-            return fused_reweight_histogram_shared(*args, **kwargs)
-        raise NotImplementedError(
-            f"{self.name}: the {route.variant!r} kernel route is not ported yet: "
-            "K5 (ROADMAP Queue 2)"
-        )
+        if route.variant not in _FORWARD:
+            raise NotImplementedError(f"{self.name}: no kernel route {route.variant!r}")
+        make_args, kernel = _FORWARD[route.variant]
+        args, kwargs = make_args(self, thetas, osc_grids_batch)
+        return kernel(*args, **kwargs)
 
     def _diff_route(self) -> str | None:
-        """The fused differentiable route — ``"shared"`` or ``"shifted"``, the
-        route of the sample's forward kernel — or None for the plain route
-        under autograd. The card has no VMEM limit, so every sample with a
-        forward kernel takes it (the JAX package's VMEM guards do not apply)."""
+        """The fused differentiable route — ``"shared"``, ``"shifted"`` or
+        ``"generic"``, the route of the sample's forward kernel — or None for
+        the plain route under autograd. The card has no VMEM limit, so every
+        sample with a forward kernel takes it (the JAX package's VMEM guards
+        do not apply)."""
         route = self.kernel_route
-        if route.use_kernel and route.variant in ("shared", "shifted"):
+        if route.use_kernel and route.variant in _FORWARD:
             return route.variant
         return None
 
@@ -466,25 +548,28 @@ class SampleModel(nn.Module):
     ) -> tuple[tuple, dict]:
         """Arguments of the sample's differentiable fused call
         (``fused_reweight_diff`` on the shared route,
-        ``fused_reweight_diff_shifted`` on the shifted one): the first four
+        ``fused_reweight_diff_shifted`` on the shifted one,
+        ``fused_reweight_diff_perchain`` on the generic one): the first four
         are (t, base_w, seg, coeffs), the last positional one the bins the
         backward gathers at. The base weight carries the norm product (the
-        gather product, an exact 0 for a zero norm); on the shifted route the
-        bins are the plain binning's, which the kernel's in-kernel binning
-        reproduces (the shift value is rounded to f32 on both)."""
-        base_w = (self.mc_weight * self._osc_weights(thetas, osc_grids_batch)
-                  * self._norm_weights(thetas))
+        gather product, an exact 0 for a zero norm), TF1 and weight
+        functions; on the shifted route the bins are the plain binning's,
+        which the kernel's in-kernel binning reproduces (the shift value is
+        rounded to f32 on both)."""
+        base_w = self._base_weight(thetas, osc_grids_batch, norm=True)
         table = self.spline_table
         seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
         head = (t, base_w, seg, table.coeffs)
-        if self._diff_route() == "shared":
+        route = self._diff_route()
+        if route == "shared":
             return head + (self.static_bins,), dict(
                 n_bins=self.n_bins, tile_start=self.hist_tile_start,
                 tile_width=self.hist_tile_width, plan_ptr=self.hist_plan_ptr,
                 plan_idx=self.hist_plan_idx, nbl=self.hist_nbl)
+        bins = self._perchain_bins(thetas).to(torch.int32)
+        if route == "generic":
+            return head + (bins,), dict(n_bins=self.n_bins)
         kind, param_index, stride_j, n_axis_j = self.kernel_shift
-        with torch.no_grad():
-            bins = self.binning.find_bins(self._shifted_kinematics(thetas)).to(torch.int32)
         return head + (thetas[:, param_index].to(FTYPE), self.kin[self.shifts[0].var_row],
                        self.shift_static_base, self.shift_edges, bins), dict(
             n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j)
@@ -499,9 +584,8 @@ class SampleModel(nn.Module):
         route = self._diff_route()
         if route is None:
             return self.log_likelihood_batch_plain(thetas, osc_grids_batch)
-        fn = fused_reweight_diff if route == "shared" else fused_reweight_diff_shifted
         args, kwargs = self.diff_kernel_args(thetas, osc_grids_batch)
-        return self._stat_sum(*fn(*args, **kwargs))
+        return self._stat_sum(*_DIFF[route](*args, **kwargs))
 
     def _stat_sum(self, mc: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
         """Per-bin test statistic (in ``stat_dtype``, default f64) summed over
@@ -531,3 +615,38 @@ class SampleModel(nn.Module):
         """MC prediction at ``params`` [NP] (the reference's Asimov default,
         ``MaCh3Factory.h:134-157``), f64 [B]."""
         return self.reweight(params)[0].to(ATYPE)
+
+    def with_binning(self, binning: SampleBinning | NonUniformBinning) -> "SampleModel":
+        """The same sample under another binning (on this sample's device,
+        data zeroed): the static bins, the kernel route and, on the shared
+        route, the whole event layout and plan are rebuilt for it
+        (``samples/events.assemble_sample``); nothing of the old plan is
+        kept. A laid-out sample's zero-weight pad events stay as events."""
+        from .events import assemble_sample
+
+        def host(x):
+            return None if x is None else x.numpy()
+
+        dev = self.kin.device
+        src = copy.deepcopy(self).cpu()  # shares no module with this sample
+        arrays = dict(kin=host(src.kin), mc_weight=host(src.mc_weight),
+                      norm_idx=host(src.norm_idx), norm_s=host(src.norm_s),
+                      weight_mask=host(src.weight_mask), spline_table=src.spline_table,
+                      osc=src.osc, tf1_table=src.tf1_table)
+        sample = assemble_sample(
+            self.name, arrays, binning.cpu(), shifts=self.shifts, weight_fns=self.weight_fns,
+            norm_applied=host(src.norm_applied), data=None,
+            test_statistic=self.test_statistic, stat_dtype=self.stat_dtype,
+            use_kernel=self.kernel_route.requested)
+        return sample.to(dev)
+
+
+#: Route -> (argument maker, kernel wrapper) of the sampling path, and the
+#: differentiable call of each.
+_FORWARD = {
+    "shifted": (SampleModel.shifted_kernel_args, fused_reweight_histogram_shifted),
+    "shared": (SampleModel.shared_kernel_args, fused_reweight_histogram_shared),
+    "generic": (SampleModel.perchain_kernel_args, fused_reweight_histogram),
+}
+_DIFF = {"shared": fused_reweight_diff, "shifted": fused_reweight_diff_shifted,
+         "generic": fused_reweight_diff_perchain}

@@ -43,6 +43,7 @@ from .reweight import (
     _check_tensors,
     _library,
     _raise_on,
+    fused_reweight_histogram,
     fused_reweight_histogram_shared,
     fused_reweight_histogram_shifted,
 )
@@ -292,6 +293,28 @@ class _FusedReweightDiffShifted(torch.autograd.Function):
         return (g_t, g_base) + (None,) * 11
 
 
+class _FusedReweightDiffPerchain(torch.autograd.Function):
+    """Per-chain bins given as input (the generic route): forward on the
+    per-chain kernel K5, backward K6a + K6b at the same bins. Port of
+    ``fused_reweight_diff`` with per-chain bins (``pallas_grad.py:319-345``).
+    Bins are integer inputs: no gradient flows to them."""
+
+    @staticmethod
+    def forward(ctx, t, base_w, seg, coeffs, bins, n_bins):
+        mc, w2 = fused_reweight_histogram(seg, t, coeffs, base_w, bins, n_bins=n_bins)
+        ctx.save_for_backward(t, base_w, seg, coeffs, bins)
+        ctx.n_bins = n_bins
+        return mc, w2
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gmc, gw2):
+        t, base_w, seg, coeffs, bins = ctx.saved_tensors
+        g_t, g_base = reweight_backward(seg, t, coeffs, base_w, bins, gmc, gw2,
+                                        n_bins=ctx.n_bins, need_t=ctx.needs_input_grad[0])
+        return (g_t, g_base) + (None,) * 4
+
+
 def fused_reweight_diff(
     t: torch.Tensor,  # [C, P] f32 — differentiable
     base_w: torch.Tensor,  # [C, E] f32 — differentiable (MC x osc x norm)
@@ -332,3 +355,16 @@ def fused_reweight_diff_shifted(
         t.contiguous(), base_w.contiguous(), seg, coeffs, shift_vals.contiguous(), x_nom,
         static_base, edges, bins.contiguous(), n_bins, shift_kind, stride_j, n_axis_j)
 
+
+def fused_reweight_diff_perchain(
+    t: torch.Tensor,  # [C, P] f32 — differentiable
+    base_w: torch.Tensor,  # [C, E] f32 — differentiable (MC x osc x norm x TF1 x weight fns)
+    seg: torch.Tensor,  # [C, P] i32
+    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16
+    bins: torch.Tensor,  # [C, E] i32 — per-chain bins (outside [0, n_bins) dropped)
+    *,
+    n_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable (mc, w2) [C, n_bins] of a generic-route sample."""
+    return _FusedReweightDiffPerchain.apply(t.contiguous(), base_w.contiguous(), seg, coeffs,
+                                            bins.contiguous(), n_bins)

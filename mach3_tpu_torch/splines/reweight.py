@@ -8,12 +8,19 @@ versions.
   over P makes unnecessary). CUDA source ``csrc/reweight_shifted.cu``.
 * ``fused_reweight_histogram_shared``: static bins, events laid out in tiles
   by ``splines/plan.py``, a histogram window and a list of active parameters
-  per tile. Port of K2 ``_kernel_shared_blocked_sorted``. CUDA source
+  per tile. Port of K2 ``_kernel_shared_blocked_sorted``; under
+  ``plan.trivial_plan`` (every parameter, the whole bin axis) it computes
+  K4a ``_kernel_shared`` and K4b ``_kernel_shared_blocked``. CUDA source
   ``csrc/reweight_shared.cu``.
+* ``fused_reweight_histogram``: per-chain bins given as input [C, E]. Port
+  of K5 ``_kernel_maskreduce`` (``hist="maskreduce"``, float atomics) and of
+  K5b ``_kernel`` (``hist="blockdiag"``, another histogram with the same
+  output: here a deterministic one). CUDA source
+  ``csrc/reweight_perchain.cu``.
 
-Both serve the sampling path (norm product in the kernel) and, with the norm
-left out, the forward of the differentiable path, whose backward kernels K6a
-and K6b live in ``splines/grad.py``.
+They serve the sampling path (norm product in the shifted and shared
+kernels) and, with the norm left out, the forward of the differentiable
+path, whose backward kernels K6a and K6b live in ``splines/grad.py``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel (built at first
 use by ``kernels/build.py``); on a CPU tensor it runs the plain PyTorch
@@ -39,9 +46,14 @@ from .eval import spline_product
 from .plan import EVENT_TILE
 
 #: Shift kinds the kernel knows: name -> (code in the kernel, torch function
-#: of (value [C, 1], x [1, E])). Formed in f32 (1 + v first, then the
-#: product), as the kernel forms it.
-SHIFT_KINDS = {"scale": (0, lambda v, x: x * (1.0 + v))}
+#: of (value [C, 1], x [1, E])). Each is formed in f32 in the order written,
+#: one rounding per operation, as the kernel forms it (``__fadd_rn`` /
+#: ``__fmul_rn``), so both bin an event on an edge alike.
+SHIFT_KINDS = {
+    "scale": (0, lambda v, x: x * (1.0 + v)),
+    "offset": (1, lambda v, x: x + v),
+    "scale_about_one": (2, lambda v, x: 1.0 + (x - 1.0) * (1.0 + v)),
+}
 
 #: Bin-count limit of the shifted kernel's shared-memory histogram (``routing.py``).
 MAX_BINS = 512
@@ -58,7 +70,13 @@ MAX_SHARED_SMEM = 232448
 #: Launches of each CUDA kernel since its count was last set to 0, the two
 #: backward passes of ``splines/grad.py`` included. Only a CUDA launch adds
 #: to a count; the plain versions do not.
-LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0, "grad_a": 0, "grad_b": 0}
+LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0, "reweight_perchain": 0,
+            "reweight_perchain_blockdiag": 0, "grad_a": 0, "grad_b": 0}
+#: Histogram forms of ``fused_reweight_histogram``.
+HIST_FORMS = ("maskreduce", "blockdiag")
+#: Events per block of the per-chain kernels (``csrc/reweight_perchain.cu``):
+#: the deterministic form writes one partial histogram per such tile.
+PERCHAIN_EVENTS_PER_BLOCK = 2048
 
 _C_VOIDP = ctypes.c_void_p
 _C_INT = ctypes.c_int
@@ -173,6 +191,8 @@ _SHIFTED_ARGTYPES = (
     [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] + [_C_VOIDP] * 2
     + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 8 + [_C_VOIDP]
 )
+_PERCHAIN_ARGTYPES = [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 4 + [_C_INT] * 5 + [_C_VOIDP]
+_PERCHAIN_DET_ARGTYPES = [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 3 + [_C_INT] * 6 + [_C_VOIDP]
 _SHARED_ARGTYPES = (
     [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 6 + [_C_INT] + [_C_VOIDP] * 2
     + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 6 + [_C_VOIDP]
@@ -326,4 +346,66 @@ def fused_reweight_histogram_shared(
         )
     _raise_on(lib, rc, "reweight_shared")
     LAUNCHES["reweight_shared"] += 1
+    return mc, w2
+
+
+def fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, *, n_bins, hist="maskreduce"):
+    """Plain PyTorch version of both per-chain kernels, on any device. Same
+    arguments and results as :func:`fused_reweight_histogram`."""
+    w = spline_product(coeffs, seg, t, base_w)
+    b = bins.long()
+    return histogram(w, torch.where((b >= 0) & (b < n_bins), b, n_bins), n_bins)
+
+
+def fused_reweight_histogram(
+    seg: torch.Tensor,  # [C, P] i32 — spline segment per (chain, param)
+    t: torch.Tensor,  # [C, P] f32 — local coordinate in that segment
+    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16
+    base_w: torch.Tensor,  # [C, E] f32 — mc_weight x osc x norm (x TF1 x weight fns)
+    bins: torch.Tensor,  # [C, E] i32 — per-chain bins (outside [0, n_bins) dropped)
+    *,
+    n_bins: int,
+    hist: str = "maskreduce",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mc [C, n_bins], w2 [C, n_bins]) f32 over per-chain bins. ``hist``
+    picks the kernel: ``"maskreduce"`` (K5: shared-memory float atomics) or
+    ``"blockdiag"`` (K5b: per-warp histograms summed in a fixed order, the
+    same result on every run). Launches the CUDA kernel for CUDA tensors,
+    runs the plain version for CPU tensors, raises otherwise."""
+    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, bins=bins)
+    _check_tensors(named, None, None)
+    c, p, e = _check_shapes(named, dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"),
+                                        bins=("C", "E")), coeffs, base_w, None, None)
+    if not 1 <= n_bins <= MAX_BINS:
+        raise ValueError(f"n_bins={n_bins} outside [1, {MAX_BINS}]")
+    if hist not in HIST_FORMS:
+        raise ValueError(f"hist={hist!r}: the per-chain kernels are {HIST_FORMS}")
+    dev = seg.device
+    if dev.type == "cpu":
+        return fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, n_bins=n_bins, hist=hist)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    k4 = coeffs.shape[1]
+    bf16 = int(coeffs.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if hist == "maskreduce":
+            lib = _library("reweight_perchain", _PERCHAIN_ARGTYPES)
+            mc = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
+            w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
+            rc = lib.m3_reweight_perchain(
+                seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), bf16, base_w.data_ptr(),
+                bins.data_ptr(), mc.data_ptr(), w2.data_ptr(), c, p, k4, e, n_bins, stream)
+            _raise_on(lib, rc, "reweight_perchain")
+            LAUNCHES["reweight_perchain"] += 1
+            return mc, w2
+        lib = _library("reweight_perchain", _PERCHAIN_DET_ARGTYPES, entry="reweight_perchain_det")
+        n_tiles = -(-e // PERCHAIN_EVENTS_PER_BLOCK)
+        partial = torch.empty((n_tiles, 2, c, n_bins), dtype=FTYPE, device=dev)
+        rc = lib.m3_reweight_perchain_det(
+            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), bf16, base_w.data_ptr(),
+            bins.data_ptr(), partial.data_ptr(), n_tiles, c, p, k4, e, n_bins, stream)
+    _raise_on(lib, rc, "reweight_perchain_det")
+    LAUNCHES["reweight_perchain_blockdiag"] += 1
+    mc, w2 = partial.sum(0)
     return mc, w2

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.config import Config
+from ..core.device import target_device
 from ..core.logging import get_logger
 from ..fitters.model import FitModel
 from ..params.parameterset import ParameterSet, ParamType
@@ -276,12 +277,15 @@ def build_large(
     numu_bins: tuple[int, int] = (48, 24),
     atmo_bins: tuple[int, int] = (40, 25),
     asimov: bool = True,
+    device: str | torch.device = "cuda",
 ) -> LargeExperiment:
-    """Build the reference-scale experiment on the CPU (move it with
-    ``.model.to(device)``). Defaults give 101 parameters and 2,182 bins over
-    three samples. ``low_memory`` stores the spline tables in bf16 and
-    evaluates the per-bin statistic in f32 (the reference's
-    ``_LOW_MEMORY_STRUCTS_`` analogue, ``Manager/Core.h:27-41``)."""
+    """Build the reference-scale experiment: host arrays on the CPU, the
+    model returned on ``device`` (the card by default, raising when none is
+    visible; ``device="cpu"`` keeps it on the CPU). Defaults give 101
+    parameters and 2,182 bins over three samples. ``low_memory`` stores the
+    spline tables in bf16 and evaluates the per-bin statistic in f32 (the
+    reference's ``_LOW_MEMORY_STRUCTS_`` analogue, ``Manager/Core.h:27-41``)."""
+    dev = target_device(device)
     rng = np.random.default_rng(seed)
     xsec = ParameterSet.from_config(Config(large_xsec_config(n_splines)), name="xsec")
     osc = ParameterSet.from_config(Config(osc_config_yaml()), name="osc")
@@ -363,5 +367,6 @@ def build_large(
         with torch.no_grad():
             for s in samples:
                 s.set_data(s.asimov_data(prefit))
+    model.to(dev)
     names = [f"xsec_{n}" for n in xsec.names] + [f"osc_{n}" for n in osc.names]
     return LargeExperiment(xsec=xsec, osc=osc, samples=samples, model=model, names=names)

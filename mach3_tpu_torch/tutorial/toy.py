@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.config import Config
+from ..core.device import target_device
 from ..fitters.model import FitModel
 from ..params.parameterset import ParameterSet, ParamType
 from ..samples.events import (
@@ -234,10 +235,13 @@ def build_toy(
     flip_hierarchy: bool = False,
     e_grid_size: int = 200,
     use_kernel: bool | str = "auto",
+    device: str | torch.device = "cuda",
 ) -> ToyExperiment:
-    """Build the toy on the CPU (move it with ``toy.model.to(device)``), with
-    Barlow-Beeston statistics, dense spline tables and Asimov data at the
-    prefit point."""
+    """Build the toy with Barlow-Beeston statistics, dense spline tables and
+    Asimov data at the prefit point. The host arrays are built on the CPU
+    and the model is returned on ``device``: the card by default (raises
+    when none is visible); ``device="cpu"`` keeps it on the CPU."""
+    dev = target_device(device)
     rng = np.random.default_rng(seed)
     xsec = ParameterSet.from_config(Config(xsec_config()), name="xsec")
     osc = ParameterSet.from_config(Config(osc_config_yaml(flip_hierarchy)), name="osc")
@@ -328,6 +332,7 @@ def build_toy(
     with torch.no_grad():
         for s in samples:
             s.set_data(s.asimov_data(prefit))
+    model.to(dev)
     return ToyExperiment(
         xsec=xsec, osc=osc, samples=samples, model=model, names=names,
         event_modes=event_modes,

@@ -533,7 +533,7 @@ def test_large_gradients_match_jax(monkeypatch):
 
     monkeypatch.setattr(jsample, "eval_dense",
                         lambda table, params: jeval_dense(table, params, exact=True))
-    tm = build_large(**SIZE).model
+    tm = build_large(**SIZE, device="cpu").model
     j = jbuild_large(**SIZE, use_pallas=False, asimov=False)
     jm = JFitModel.build([j.xsec, j.osc], [s.with_data(t.data.numpy())
                                            for s, t in zip(j.samples, tm.samples)])

@@ -48,12 +48,12 @@ NLL_ORACLE_ATOL, NLL_ORACLE_RTOL = 1e-4, 1e-5
 
 @pytest.fixture(scope="module")
 def port():
-    return build_large(**SIZE)
+    return build_large(**SIZE, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def port_plain():
-    return build_large(**SIZE, use_kernel=False, asimov=False)
+    return build_large(**SIZE, use_kernel=False, asimov=False, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -9,9 +9,15 @@ On the CPU the port's wrapper runs its plain PyTorch version; it is held
   interpret mode) within rtol 2e-3, atol 1e-6·max|mc|: JAX rounds every
   response deviation to bf16, the port keeps f32 (splines/eval.py).
 
-The ``cuda``-marked test holds the CUDA kernel to the plain version; it runs
-only where a CUDA device is visible and imports no jax, so it also runs with
-``--noconftest`` on a machine without jax.
+Each shift kind of ``SHIFT_KINDS`` (``scale``, ``offset``,
+``scale_about_one``) takes the shifted route as a sample's single shift, and
+the plain version bins every event, edge events included, exactly as the
+sample's plain route does (unit weights: equal counts).
+
+The ``cuda``-marked tests hold the CUDA kernel to the plain version, for
+every shift kind too; they run only where a CUDA device is visible and
+import no jax, so they also run with ``--noconftest`` on a machine without
+jax.
 """
 import types
 
@@ -19,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.samples.events import EventData, build_sample_model
+from mach3_tpu_torch.samples.sample import ShiftSpec
 from mach3_tpu_torch.splines import reweight
 from mach3_tpu_torch.splines.eval import find_segments
 from mach3_tpu_torch.splines.monolith import SplineParamSpec, build_dense_table
@@ -79,7 +87,7 @@ def _inputs(case: str, n_chains: int = 5, n_events: int = 300, seed: int = 0):
     )
 
 
-def _port_args(d, device="cpu"):
+def _port_args(d, device="cpu", kind="scale"):
     """(args, kwargs) of the port's wrapper for inputs ``d``."""
     table = build_dense_table(
         [SplineParamSpec(**s) for s in d.specs], len(d.x_nom), low_memory=d.low_memory
@@ -92,7 +100,7 @@ def _port_args(d, device="cpu"):
 
     args = (seg, t, table.coeffs, dev(d.base), dev(d.shift), dev(d.x_nom), dev(d.static),
             torch.as_tensor(EDGES, dtype=torch.float32, device=device))
-    kwargs = dict(n_bins=N_BINS, shift_kind="scale", stride_j=N_OTHER, n_axis_j=len(EDGES) - 1,
+    kwargs = dict(n_bins=N_BINS, shift_kind=kind, stride_j=N_OTHER, n_axis_j=len(EDGES) - 1,
                   norm_ext=dev(d.norm_ext), norm_s=dev(d.norm_s))
     return args, kwargs
 
@@ -224,7 +232,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         reweight.fused_reweight_histogram_shifted(*args[:3], base.t().contiguous().t(),
                                                   *args[4:], **kwargs)
     with pytest.raises(ValueError):
-        reweight.fused_reweight_histogram_shifted(*args, **{**kwargs, "shift_kind": "offset"})
+        reweight.fused_reweight_histogram_shifted(*args, **{**kwargs, "shift_kind": "double_scale"})
     with pytest.raises(ValueError):
         reweight.fused_reweight_histogram_shifted(*args, **{**kwargs, "n_bins": 513})
     with pytest.raises(ValueError):
@@ -232,6 +240,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     before = dict(reweight.LAUNCHES)
     reweight.fused_reweight_histogram_shifted(*args, **kwargs)
     assert reweight.LAUNCHES == before  # the plain version is not a launch
+
+
+@pytest.mark.parametrize("kind", sorted(reweight.SHIFT_KINDS))
+def test_shift_kinds_bin_edge_events_as_the_plain_route(kind):
+    edges = np.linspace(0.0, 3.0, 13)  # steps of 0.25: exact in f32
+    rng = np.random.default_rng(7)
+    x = np.concatenate([edges, edges + 0.125, rng.uniform(-0.5, 3.5, 3000)])
+    n = len(x)
+    events = EventData(kinematics={"x": x, "y": rng.uniform(0.0, 1.0, n)},
+                       mode=np.zeros(n, np.int32), target=np.full(n, 12, np.int32),
+                       pdg=np.full(n, 14, np.int32), preosc_pdg=np.full(n, 14, np.int32),
+                       mc_weight=np.ones(n))
+    unit = SplineParamSpec("s", 0, np.array([-1.0, 0.0, 1.0]), np.arange(n), np.ones((n, 3)))
+    sample = build_sample_model(
+        "s", events, ["x", "y"], [edges, np.array([0.0, 0.5, 1.0])], ["x", "y"],
+        n_total_params=2, spline_table=build_dense_table([unit], n),
+        shifts=(ShiftSpec.named(kind, 1, 0),))
+    assert sample.kernel_route.variant == "shifted" and sample.kernel_shift[0] == kind
+    th = np.zeros((9, 2))
+    th[:, 1] = [0.0, 0.25, -0.25, 0.5, 0.125, -0.375, 0.1, -0.3, 1e-7]
+    th = torch.from_numpy(th)
+    mc, w2 = sample.reweight_batch(th)  # the kernel's plain version on the CPU
+    mc_p, w2_p = sample.reweight_batch_plain(th)
+    assert torch.equal(mc, mc_p) and torch.equal(w2, w2_p)
+    assert float(mc.sum()) > 0.9 * n
 
 
 @pytest.fixture()
@@ -257,3 +290,15 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
     _close(w2.cpu().numpy(), w2_p.cpu().numpy(), ORACLE_RTOL)
     if case == "nan_shift":
         assert float(mc[3].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(reweight.SHIFT_KINDS))
+def test_cuda_shift_kinds_match_plain_version(cuda_device, kind):
+    d = _inputs("norm", n_chains=11, n_events=5000)
+    args, kwargs = _port_args(d, cuda_device, kind)
+    mc, w2 = reweight.fused_reweight_histogram_shifted(*args, **kwargs)
+    torch.cuda.synchronize()
+    mc_p, w2_p = reweight.fused_reweight_histogram_shifted_ref(*args, **kwargs)
+    _close(mc.cpu().numpy(), mc_p.cpu().numpy(), ORACLE_RTOL)
+    _close(w2.cpu().numpy(), w2_p.cpu().numpy(), ORACLE_RTOL)

@@ -78,8 +78,8 @@ def test_routing_variants(static, shift, p, bins, variant):
 def test_plain_route_matches_kernel_route():
     """use_kernel=False (plain torch) and the shifted route give the same NLL."""
     kw = dict(n_events=800, seed=2, e_grid_size=20)
-    shifted = build_toy(**kw).model
-    plain = build_toy(**kw, use_kernel=False).model
+    shifted = build_toy(**kw, device="cpu").model
+    plain = build_toy(**kw, use_kernel=False, device="cpu").model
     assert [s.kernel_route.variant for s in plain.samples] == ["xla", "xla"]
     th = shifted.prefit_vector()[None].repeat(4, 1)
     th[1:, 9] = torch.tensor([0.02, -0.03, 0.05])  # energy scale
@@ -90,10 +90,10 @@ def test_plain_route_matches_kernel_route():
 
 
 def test_unported_routes_raise():
-    toy = build_toy(n_events=300, seed=2, e_grid_size=10)
+    toy = build_toy(n_events=300, seed=2, e_grid_size=10, device="cpu")
     s = toy.model.samples[0]
-    s.kernel_route = routing.KernelRoute(True, "generic")
-    with pytest.raises(NotImplementedError, match="K5"):
+    s.kernel_route = routing.KernelRoute(True, "sparse")  # no kernel of that name
+    with pytest.raises(NotImplementedError, match="no kernel route 'sparse'"):
         s.reweight_batch(toy.model.prefit_vector()[None])
 
 

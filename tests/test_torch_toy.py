@@ -49,7 +49,7 @@ def jtoy():
 
 @pytest.fixture(scope="module")
 def ttoy():
-    return build_toy(**TOY)
+    return build_toy(**TOY, device="cpu")
 
 
 @pytest.fixture()
@@ -206,7 +206,7 @@ def test_mr2t2_short_run(ttoy):
     """50 steps x 16 chains from the port's own toy and generator, throws at
     0.2 of the prior scale (the toy's prior-scale throws are accepted ~2% of
     the time here): finite, and the chains move."""
-    model = build_toy(**{**TOY, "n_events": 600}).model
+    model = build_toy(**{**TOY, "n_events": 600}, device="cpu").model
     model.flat.step_scale.mul_(0.2)
     init = _thetas_port(model, 16)
     fitter = MR2T2(model, MCMCConfig(chunk_size=25), init, seed=3)
