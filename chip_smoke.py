@@ -15,7 +15,8 @@ each kernel against its plain PyTorch version. Run from the repository root:
 * The large path: the reference-scale fixture ``build_large(low_memory=True)``
   (101 parameters, 3 samples, 2,182 bins, bf16 tables, f32 statistic) at 128
   chains; numu_beam and atmo on the shared kernel (K2; K4b is its trivial
-  plan), nue_beam on the shifted kernel with P = 43 (K3), atmo through
+  plan), nue_beam on the shifted kernel with P = 43 under its activity plan
+  (K3; also held against the same kernel under a trivial plan), atmo through
   layered-PREM oscillation. Its gradient path at the JAX bench's 64 chains:
   K6a/K6b on shared bins (numu_beam, atmo) and per-chain bins (nue_beam),
   the differentiable NLL vs the sampling NLL, the gradient vs the plain
@@ -45,6 +46,10 @@ the same work, from the bytes each call must move (every input read once,
 each output written once) at 3.35 TB/s and its f32 operations at 67
 TFLOP/s, whichever is larger (H100 SXM peaks). No single PyTorch call
 computes a spline product and a histogram, so no kernel has a library time.
+
+``python3 chip_smoke.py --kernel-times`` stops each of the toy and large
+paths after its kernel-vs-plain and kernel-timing phases and prints neither
+the kernels line nor the last line: a short run for work on a kernel.
 
 Imports nothing of JAX. Exits non-zero when no CUDA device is visible.
 """
@@ -265,7 +270,9 @@ def forward_bound(args, kwargs) -> dict:
     by ``coefficient_reads``, the two [C, B] outputs written once; 7 f32
     operations per evaluated (chain, event, parameter) (a Horner step and
     the product), 3 per (chain, event) (w² and the two sums) and 2 per
-    (chain, matched norm) (one multiply-add)."""
+    (chain, matched norm) (one multiply-add). ``responses`` is the number
+    of (chain, event, parameter) responses that are not the identity: what
+    the call must evaluate, whatever plan it runs under."""
     import torch
 
     seg, coeffs, base_w = args[0], args[2], args[3]
@@ -274,15 +281,16 @@ def forward_bound(args, kwargs) -> dict:
     others = [a for i, a in enumerate(args) if i != 2] + list(kwargs.values())
     norm_s = kwargs.get("norm_s")
     matches = 0 if norm_s is None else int(torch.count_nonzero(norm_s))
-    return bound(_nbytes(*others) + coef + 2 * c * kwargs["n_bins"] * 4,
-                 c * (7 * pairs + 3 * e + 2 * matches))
+    return dict(bound(_nbytes(*others) + coef + 2 * c * kwargs["n_bins"] * 4,
+                      c * (7 * pairs + 3 * e + 2 * matches)), responses=c * pairs)
 
 
 def summed(parts: list) -> dict:
     """Bounds of several calls run one after another: the sum, set by
     whichever kind sets the largest part."""
     return dict(bound_ms=sum(b["bound_ms"] for b in parts),
-                bound_by=max(parts, key=lambda b: b["bound_ms"])["bound_by"])
+                bound_by=max(parts, key=lambda b: b["bound_ms"])["bound_by"],
+                responses=sum(b.get("responses", 0) for b in parts))
 
 
 def kernel_of(sample):
@@ -367,6 +375,41 @@ def wide_form_vs_plain(tag: str, sample, checked, smi: str, shuffle: bool = Fals
           f"(worst {max(r1, r2):.3f} of tol); kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
           f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) | {smi}")
     return dict(max_abs_err=max(e1, e2), ms=km, plain_ms=pm, **bnd)
+
+
+def plan_vs_trivial(tag: str, sample, checked, smi: str) -> None:
+    """The shifted kernel under the sample's activity plan against the same
+    kernel under a trivial plan (every parameter on every tile) and against
+    the plain version, on the same arguments: all three within the kernels'
+    tolerance of each other, and both kernel times. These launches are
+    comparisons, not the path's."""
+    import torch
+
+    from mach3_tpu_torch.splines import plan, reweight
+
+    args, kwargs, _ = checked
+    dev = args[0].device
+    if kwargs.get("plan_ptr") is None:
+        raise AssertionError(f"{sample.name}: a shifted-route sample without an activity plan")
+    ptr, idx = plan.trivial_active(sample.n_events, args[0].shape[1])
+    kw_t = dict(kwargs, plan_ptr=torch.as_tensor(ptr, device=dev),
+                plan_idx=torch.as_tensor(idx, device=dev))
+    kern, ref = (reweight.fused_reweight_histogram_shifted,
+                 reweight.fused_reweight_histogram_shifted_ref)
+    real, triv, plain = kern(*args, **kwargs), kern(*args, **kw_t), ref(*args, **kwargs)
+    worst = 0.0
+    for a, b, what in ((real, plain, "plan vs plain"), (triv, plain, "trivial vs plain"),
+                       (real, triv, "plan vs trivial")):
+        for x, y, h in zip(a, b, ("mc", "w2")):
+            worst = max(worst, compare(x, y, K_RTOL, K_ATOL_FRAC, f"{sample.name} {what} {h}")[2])
+    t = [cuda_ms(lambda: kern(*args, **kw_t), 10), cuda_ms(lambda: kern(*args, **kwargs), 30),
+         cuda_ms(lambda: kern(*args, **kwargs), 30), cuda_ms(lambda: kern(*args, **kw_t), 10)]
+    bnd = forward_bound(args, kwargs)
+    phase(f"[{tag}:shifted-plan-vs-trivial] {sample.name} (reweight_shifted): the plan lists "
+          f"{int(kwargs['plan_idx'].numel())} (tile, parameter) pairs, the trivial plan "
+          f"{len(idx)}; plan vs plain, trivial vs plain and plan vs trivial all within "
+          f"{worst:.3f} of tol; kernel under the plan {0.5 * (t[1] + t[2]):.4f} ms, under the "
+          f"trivial plan {0.5 * (t[0] + t[3]):.4f} ms, bound {bnd['bound_ms']:.4f} ms | {smi}")
 
 
 def nll_vs_plain(tag: str, model, thetas, tables, smi: str) -> None:
@@ -468,6 +511,24 @@ def time_pair(kern, ref, reps: int = 30, ref_reps: int = 5) -> tuple[float, floa
     return 0.5 * (t[1] + t[2]), 0.5 * (t[0] + t[3])
 
 
+def response_rate(bnd: dict, ms: float) -> str:
+    """The non-identity responses of a call per second of kernel time."""
+    return (f"{bnd['responses'] / (1e-3 * ms):.3e} responses/s "
+            f"({bnd['responses']:.3e} non-identity responses)")
+
+
+def layout_info(sample) -> str:
+    """A laid-out sample's tiles, distinct active-parameter lists (at least
+    its activity groups), pad share and mean active parameters per tile."""
+    ptr, idx = sample.hist_plan_ptr.tolist(), sample.hist_plan_idx.tolist()
+    lists = {tuple(idx[a:b]) for a, b in zip(ptr[:-1], ptr[1:])}
+    window = "" if sample.hist_nbl is None else f" window={sample.hist_nbl}"
+    return (f"{window} tiles={len(ptr) - 1} distinct active lists={len(lists)} pad share="
+            f"{float(sample.event_pad.float().mean()):.4f} active params/tile="
+            f"{(ptr[-1] - ptr[0]) / max(len(ptr) - 1, 1):.2f} of "
+            f"{sample.spline_table.n_spline_params}")
+
+
 def time_kernel(tag: str, sample, args, kwargs, smi: str) -> tuple[float, float, dict]:
     """(kernel ms, plain ms, bound) of a sample's forward kernel."""
     _, kern, ref, _ = kernel_of(sample)
@@ -475,8 +536,8 @@ def time_kernel(tag: str, sample, args, kwargs, smi: str) -> tuple[float, float,
     bnd = forward_bound(args, kwargs)
     phase(f"[{tag}:kernel-time] {sample.name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
           f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; kernel at "
-          f"{bnd['bound_ms'] / km:.3f} of it) (C={args[3].shape[0]}, E={sample.n_events}, "
-          f"B={sample.n_bins}) | {smi}")
+          f"{bnd['bound_ms'] / km:.3f} of it), {response_rate(bnd, km)} "
+          f"(C={args[3].shape[0]}, E={sample.n_events}, B={sample.n_bins}) | {smi}")
     return km, pm, bnd
 
 
@@ -759,7 +820,7 @@ def run_chees(model, thetas, smi: str) -> dict:
     return launches
 
 
-def toy_path(dev, smi: str) -> dict:
+def toy_path(dev, smi: str, quick: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -768,9 +829,9 @@ def toy_path(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     model = build_toy(n_events=N_EVENTS, seed=SEED, e_grid_size=E_GRID, device=dev).model
     routes = [s.kernel_route.variant for s in model.samples]
-    phase(f"[toy] built in {time.perf_counter() - t0:.1f} s; events "
-          + ", ".join(f"{s.name}={s.n_events}" for s in model.samples) + f"; routes {routes}"
-          + f" | {smi}")
+    phase(f"[toy] built in {time.perf_counter() - t0:.1f} s; "
+          + "; ".join(f"{s.name}: E={s.n_events}{layout_info(s)}" for s in model.samples)
+          + f"; routes {routes} | {smi}")
     if routes != ["shifted", "shifted"]:
         raise AssertionError(f"both toy samples must take the shifted route, got {routes}")
     thetas = torch.as_tensor(jitter_init(model, N_CHAINS, np.random.default_rng(0)), device=dev)
@@ -778,6 +839,10 @@ def toy_path(dev, smi: str) -> dict:
     with torch.no_grad():
         tables = model._shared_osc_tables(thetas)
         checked = kernels_vs_plain("toy", model, thetas, tables, smi)
+        if quick:
+            for s in model.samples:
+                time_kernel("toy", s, *checked[s.name][:2], smi)
+            return {}
         prefit = model.prefit_vector()[None]
         pre_tables = model._shared_osc_tables(prefit)
         for i, s in enumerate(model.samples):
@@ -805,7 +870,7 @@ def toy_path(dev, smi: str) -> dict:
             "grad": grads}
 
 
-def large_path(dev, smi: str) -> tuple[dict, object]:
+def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
     import numpy as np
     import torch
 
@@ -820,9 +885,7 @@ def large_path(dev, smi: str) -> tuple[dict, object]:
         info = (f"{s.name}: E={s.n_events} B={s.n_bins} P={s.spline_table.n_spline_params} "
                 f"route={s.kernel_route.variant}")
         if s.hist_plan_ptr is not None:
-            n_act = s.hist_plan_ptr.diff().float().mean()
-            info += (f" window={s.hist_nbl} tiles={s.hist_tile_start.shape[0]} "
-                     f"active params/tile={float(n_act):.2f}")
+            info += layout_info(s)
         parts.append(info)
     phase(f"[large] built in {build_s:.1f} s (host); {model.n_params} params; "
           + "; ".join(parts) + f" | {smi}")
@@ -835,6 +898,11 @@ def large_path(dev, smi: str) -> tuple[dict, object]:
         tables = model._shared_osc_tables(thetas)
         checked = kernels_vs_plain("large", model, thetas, tables, smi)
         wide = wide_form_vs_plain("large", model.samples[0], checked[model.samples[0].name], smi)
+        plan_vs_trivial("large", model.samples[1], checked[model.samples[1].name], smi)
+        if quick:
+            for s in model.samples:
+                time_kernel("large", s, *checked[s.name][:2], smi)
+            return {}, model
         prefit = model.prefit_vector()[None]
         _, _, asimov = model.total_nll_batch_parts(prefit)
         worst = float(asimov.abs().max())
@@ -1040,6 +1108,14 @@ def main() -> int:
         phase(f"[build] {lib.name} in {seconds:.1f} s ({'built' if seconds else 'cached'}); "
               + " | ".join(res[:4]))
 
+    if sys.argv[1:] == ["--kernel-times"]:
+        toy_path(dev, smi, quick=True)
+        large_path(dev, smi, quick=True)
+        print(smi)
+        return 0
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]} (only --kernel-times)")
+
     results = toy_path(dev, smi)
     toy_grads = results.pop("grad")
     results.update(exp_path(dev, smi))
@@ -1059,7 +1135,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": NAMES.get(k, SOURCES[k]), "route": "cuda",
          "source": f"mach3_tpu_torch/csrc/{SOURCES[k]}.cu", "replaces": TPU_KERNELS[k],
-         "library_ms": None, **results[k]}
+         "library_ms": None, **{f: v for f, v in results[k].items() if f != "responses"}}
         for k in TPU_KERNELS
     ]}))
     print(smi)

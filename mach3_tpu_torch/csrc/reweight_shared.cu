@@ -3,20 +3,22 @@
 //
 // Replaces the TPU kernel K2, mach3_tpu/splines/pallas_reweight.py
 // _kernel_shared_blocked_sorted (reached through
-// fused_reweight_histogram_shared with tile_starts / block_plan). It computes
-// what K2 computes; it is not carried over block by block. Per (chain c,
-// event e) of an event tile:
+// fused_reweight_histogram_shared with tile_starts / block_plan); under a
+// trivial plan (every parameter, the whole bin axis) it computes K4a
+// _kernel_shared and K4b _kernel_shared_blocked. It computes what they
+// compute; it is not carried over block by block. Per (chain c, event e) of
+// an event tile:
 //
-//   w   = base[c,e] · Π_{p active in the tile} resp_p(seg[c,p], t[c,p], coeffs[p,:,e])
-//         · exp(Σ_k log|ext[c,k]|·S[k,e]) · (−1)^(Σ_k neg[c,k]·S[k,e])
+//   w   = base[c,e] · exp(Σ_k log|ext[c,k]|·S[k,e]) · (−1)^(Σ_k neg[c,k]·S[k,e])
+//         · Π_{p active in the tile} resp_p(seg[c,p], t[c,p], coeffs[p,:,e])
 //   mc[c, bin[e]] += w,   w2[c, bin[e]] += w²        (bin[e] ∉ [0, n_bins) dropped)
 //
 // Responses: resp_p = y + t(b + t(c + t·d)) from the 4 coefficient rows
-// seg*4 + (0..3) of coeffs[p, :, e], in f32, as the shifted kernel does (no
-// selector dot, no bf16 deviation rounding); bf16 tables are upcast on load.
-// Parameters missing from a tile's list are the identity on every event of
-// the tile (splines/plan.py), and skipping them is exact: y = 1, b = c = d = 0
-// gives resp == 1.0 in f32.
+// seg*4 + (0..3) of coeffs[p, :, e], in f32 (no selector dot, no bf16
+// deviation rounding); bf16 tables are upcast on load. Parameters missing
+// from a tile's list are the identity on every event of the tile
+// (splines/plan.py), and skipping them is exact: y = 1, b = c = d = 0 gives
+// resp == 1.0 in f32.
 //
 // Norm: log|ext| floored at 1e-30 as in the TPU kernels, so a zero norm
 // gives a ~1e-30 weight.
@@ -28,30 +30,58 @@
 // tiles so that the blocks that read one tile's coefficients run side by
 // side and share them in L2.
 //
-// Histogram: a [kChainTile][2][nbl] shared-memory histogram (nbl the widest
-// window of the sample), of which a tile zeroes and flushes its own width.
-// Sorted events put long runs of equal bins into one warp, and shared atomics
-// on one address serialise, so each warp first sums w and w² over its runs of
-// equal bin (a segmented scan with shuffles) and only the last lane of a run
-// adds to shared memory. A bin outside the window goes straight to the global
-// histogram, so the result does not depend on the plan's window. After the
-// tile, one global atomicAdd per non-empty (chain, bin) of the window.
+// Response product: m3::TileCore (spline_response.cuh). A thread keeps the
+// 16 chains' weights of its event in registers (starting from base · norm);
+// the tile's work is a list of (parameter, segment, chain mask) items whose
+// coefficient rows are staged through a 3-stage shared-memory ring by 16-byte
+// cp.async, four items to a stage.
+//
+// Histogram: a [kChainTile][2·nbl + 1] shared-memory histogram (nbl the
+// widest window of the sample), of which a tile zeroes and flushes its own
+// width. After the product the weights are parked in shared memory as
+// [event][chain] and the threads regroup: thread (chain, event group) walks 16
+// consecutive events of one chain, sums each run of equal bins (the events
+// are sorted by bin) in registers and adds a run once. Lanes of a warp then
+// add into 16 different chains' histograms, whose odd pitch puts them on 16
+// different banks, so the float atomicAdd (a compare-and-swap loop in shared
+// memory) meets at most one other lane. A bin outside the window goes
+// straight to the global histogram, so the result does not depend on the
+// plan's window. After the tile, one global atomicAdd per non-empty
+// (chain, bin) of the window.
 //
 // What bounds it on this card, and what the design does about each:
+//  * instruction slots of the response loop (spline_response.cuh): ~5 instructions
+//    per (item, chain) and thread. At the reference-scale fixture (~21.6 items
+//    a tile: ~10.8 active parameters, chains on both sides of the knot at
+//    the nominal value) the loop takes about a third of the kernel's time and
+//    runs near the card's instruction rate.
+//  * what a block does once, whatever its items: the dependent global reads
+//    of its plan, (seg, t) and norm values, three barriers to list the items,
+//    the window's zeroing and flush. A block lives for one tile of 256
+//    events, so this weighs about as much as the loop.
 //  * the coefficient reads. The bf16 tables of the reference-scale fixture
-//    (244 MB numu_beam, 344 MB atmo) do not fit the 50 MB L2. A thread reads
-//    4 rows of each active parameter per chain; rows of the 16 chains of a
-//    block that share a segment hit L1, and the 8 chain tiles of 128 chains
-//    read each tile's rows while they sit in L2, so device memory sees each
-//    active row about once a call. Inactive (parameter, tile) pairs are never
-//    read.
-//  * the [C, E] base_w read (~C·E·4 bytes a call), coalesced along E;
-//  * the norm match counts S [NA1, E], re-read per chain from L1/L2.
-//  * arithmetic: ~10 instructions per active (chain, event, parameter) plus
-//    2 per (chain, event, norm slot). At 128 chains this is the largest term.
+//    (244 MB numu_beam, 344 MB atmo) do not fit the 50 MB L2. A block copies
+//    each row it needs once (the distinct segments of its 16 chains), 16
+//    bytes a thread, ahead of their use; the 8 chain tiles of 128 chains read
+//    a tile's rows while they sit in L2, so device memory sees each active
+//    row about once a call. Inactive (parameter, tile) pairs are never read.
+//  * the [C, E] base_w read (~C·E·4 bytes a call), coalesced along E, 16
+//    independent loads a thread;
+//  * the norm match counts S [NA1, E], read once per event (not per chain),
+//    eight slots at a time; an unmatched slot costs a load and a compare.
+//
+// Limits: n_bins ≤ 4096, P ≤ 256, NA+1 ≤ 256, K4 / 4 ≤ 64 knots, E·sizeof(coef)
+// and the table's base pointer multiples of 16 bytes, and the block's shared
+// memory (the ring: 24 KB for bf16, 48 KB for f32; the window histogram; 136
+// bytes per parameter, 8 per possible item, 128 per norm slot) ≤ 227 KB.
 //
 // Sums are taken in an order that changes from run to run (atomics), so
 // results agree with the plain version to f32 summation-order tolerance.
+//
+// Occupancy: registers are capped at 80 a thread, three blocks of 256
+// threads to an SM, which is also what the reference-scale fixture's shared
+// memory (~67 KB a block with a 256-bin window) allows; a cap of 64 registers
+// spills.
 //
 // Launch: grid (ceil(C / kChainTile), n_tiles), kThreads threads, on the
 // caller's stream. It allocates nothing; mc and w2 must be zeroed [C, n_bins]
@@ -61,26 +91,23 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "spline_response.cuh"
 
 namespace {
 
-constexpr int kChainTile = 16;
-constexpr int kThreads = 256;
+constexpr int kChainTile = m3::kTileChains;
+constexpr int kThreads = m3::kTileEvents;
 constexpr int kEventTile = kThreads;  // one event per thread
 constexpr int kMaxBins = 4096;
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
-constexpr int kMaxParams = 256;
+constexpr int kMaxParams = m3::kMaxTileParams;
 constexpr int kMaxNorm = 256;
 constexpr int kMaxTiles = 65535;  // gridDim.y
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float load_coef(const float* p) { return *p; }
-__device__ __forceinline__ float load_coef(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 template <typename CoefT, bool kHasNorm>
-__global__ void __launch_bounds__(kThreads) reweight_shared_kernel(
+__global__ void __launch_bounds__(kThreads, 3) reweight_shared_kernel(
     const int* __restrict__ seg, const float* __restrict__ tval,
     const CoefT* __restrict__ coeffs, const float* __restrict__ base_w,
     const int* __restrict__ bins, const int* __restrict__ tile_start,
@@ -88,13 +115,13 @@ __global__ void __launch_bounds__(kThreads) reweight_shared_kernel(
     const int* __restrict__ plan_idx, int nbl, const float* __restrict__ norm_ext,
     const float* __restrict__ norm_s, int na1, float* __restrict__ mc,
     float* __restrict__ w2, int C, int P, int K4, int E, int n_bins) {
-  extern __shared__ float smem[];
-  float* hist = smem;                                    // [CT][2][nbl]
-  float* sh_t = hist + kChainTile * 2 * nbl;             // [CT][nact]
-  int* sh_seg = reinterpret_cast<int*>(sh_t + kChainTile * P);  // [CT][nact]
-  int* sh_p = sh_seg + kChainTile * P;                   // [nact]
-  float* sh_logext = reinterpret_cast<float*>(sh_p + P);  // [CT][na1]
-  float* sh_neg = sh_logext + kChainTile * na1;          // [CT][na1]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  m3::TileCore<CoefT> core;
+  float* sh_logext = reinterpret_cast<float*>(core.carve(smem_raw, P, K4));  // [na1][CT]
+  float* sh_neg = sh_logext + kChainTile * na1;                              // [na1][CT]
+  float* hist = sh_neg + kChainTile * na1;                                   // [CT][hp]
+  const int hp = 2 * nbl + 1;  // odd: lanes over chains hit 16 different banks
+  int* sh_key = reinterpret_cast<int*>(hist + kChainTile * hp);              // [kThreads]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -105,93 +132,72 @@ __global__ void __launch_bounds__(kThreads) reweight_shared_kernel(
   const int width = min(tile_width[tile], nbl);
   const int p_begin = plan_ptr[tile];
   const int nact = plan_ptr[tile + 1] - p_begin;
+  const int e0 = tile * kEventTile;
 
   for (int i = tid; i < nct * width; i += kThreads) {
     const int c = i / width;
-    float* hc = hist + c * 2 * nbl + (i - c * width);
+    float* hc = hist + c * hp + (i - c * width);
     hc[0] = 0.f;
     hc[nbl] = 0.f;
   }
-  for (int i = tid; i < nact; i += kThreads) sh_p[i] = plan_idx[p_begin + i];
-  for (int i = tid; i < nct * nact; i += kThreads) {
-    const int c = i / nact;
-    const size_t g = static_cast<size_t>(c0 + c) * P + plan_idx[p_begin + i - c * nact];
-    sh_seg[i] = seg[g];
-    sh_t[i] = tval[g];
-  }
-  if (kHasNorm) {
-    for (int i = tid; i < nct * na1; i += kThreads) {
-      const float v = norm_ext[static_cast<size_t>(c0) * na1 + i];
-      sh_logext[i] = logf(fmaxf(fabsf(v), 1e-30f));
-      sh_neg[i] = v < 0.f ? 1.f : 0.f;
-    }
-  }
-  __syncthreads();
+  if (kHasNorm) m3::norm_prepare(sh_logext, sh_neg, norm_ext, c0, nct, na1);
+  const int n_items = core.prepare(seg, tval, plan_idx + p_begin, nact, c0, nct, P, K4);
 
   const size_t es = static_cast<size_t>(E);
-  const int e = tile * kEventTile + tid;
+  const int e = e0 + tid;
   const int b = e < E ? bins[e] : -1;
   const int key = (b >= 0 && b < n_bins) ? b : -1;  // -1: dropped
-  const int local = key - start;
-  const bool in_window = key >= 0 && local >= 0 && local < width;
 
-  // Runs of equal key in this warp (the same for every chain): the first
-  // lane of each run and whether this lane ends one.
-  const int prev = __shfl_up_sync(kFullMask, key, 1);
-  const int next = __shfl_down_sync(kFullMask, key, 1);
-  const unsigned heads = __ballot_sync(kFullMask, lane == 0 || prev != key);
-  const int run_start = 31 - __clz(heads & (kFullMask >> (31 - lane)));
-  const bool run_end = lane == 31 || next != key;
+  core.start(coeffs, es, E, e0, n_items);
+  float w[kChainTile];
+  if (kHasNorm && key >= 0) {
+    m3::norm_factor(sh_logext, sh_neg, norm_s, es, e, na1, w);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kChainTile; ++c) w[c] = 1.f;
+  }
+#pragma unroll
+  for (int c = 0; c < kChainTile; ++c) {
+    w[c] *= (key >= 0 && c < nct) ? base_w[static_cast<size_t>(c0 + c) * es + e] : 0.f;
+  }
+  core.multiply(coeffs, es, E, e0, n_items, w);
 
-  for (int c = 0; c < nct; ++c) {
-    float w = 0.f;
-    if (key >= 0) {
-      w = base_w[static_cast<size_t>(c0 + c) * es + e];
-      const int* cs = sh_seg + c * nact;
-      const float* ct = sh_t + c * nact;
-      for (int j = 0; j < nact; ++j) {
-        const float t = ct[j];
-        const CoefT* co = coeffs +
-            (static_cast<size_t>(sh_p[j]) * K4 + static_cast<size_t>(cs[j]) * 4) * es + e;
-        const float y = load_coef(co);
-        const float bb = load_coef(co + es);
-        const float cc = load_coef(co + 2 * es);
-        const float d = load_coef(co + 3 * es);
-        w *= y + t * (bb + t * (cc + t * d));
-      }
-      if (kHasNorm) {
-        float lw = 0.f;
-        float pw = 0.f;
-        for (int k = 0; k < na1; ++k) {
-          const float s = norm_s[static_cast<size_t>(k) * es + e];
-          lw = fmaf(sh_logext[c * na1 + k], s, lw);
-          pw = fmaf(sh_neg[c * na1 + k], s, pw);
+  // The tail (spline_response.cuh): this thread's chain and 16 consecutive
+  // events, whose runs of equal bin (the events are sorted by bin) are summed
+  // in registers. A run's sums go to the window histogram, or, for a bin
+  // outside the window, straight to the global one.
+  sh_key[tid] = key;
+  const float* sh_w = core.park(w);
+  const int c = tid % kChainTile;
+  if (c < nct) {
+    float* hc = hist + c * hp;
+    const size_t row = static_cast<size_t>(c0 + c) * n_bins;
+    const int ev0 = (tid / kChainTile) * m3::kTailEvents;
+    int cur = -1;
+    float sw = 0.f;
+    float sq = 0.f;
+    for (int k = 0; k <= m3::kTailEvents; ++k) {
+      const int kk = k < m3::kTailEvents ? sh_key[ev0 + k] : -2;  // -2 ends the last run
+      if (kk == -1) continue;
+      if (kk != cur) {
+        if (cur >= 0) {
+          const int local = cur - start;
+          if (local >= 0 && local < width) {
+            atomicAdd(hc + local, sw);
+            atomicAdd(hc + nbl + local, sq);
+          } else {
+            atomicAdd(mc + row + cur, sw);
+            atomicAdd(w2 + row + cur, sq);
+          }
         }
-        const float sign = 1.f - 2.f * (pw - 2.f * floorf(pw * 0.5f));
-        w *= expf(lw) * sign;
+        cur = kk;
+        sw = 0.f;
+        sq = 0.f;
       }
-    }
-    // Segmented inclusive scan of (w, w²) over the runs: the run's last
-    // lane ends up with the run's sums.
-    float sw = w;
-    float sq = w * w;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float uw = __shfl_up_sync(kFullMask, sw, off);
-      const float uq = __shfl_up_sync(kFullMask, sq, off);
-      if (lane - off >= run_start) {
-        sw += uw;
-        sq += uq;
-      }
-    }
-    if (run_end && key >= 0) {
-      if (in_window) {
-        float* hc = hist + c * 2 * nbl;
-        atomicAdd(hc + local, sw);
-        atomicAdd(hc + nbl + local, sq);
-      } else {
-        const size_t o = static_cast<size_t>(c0 + c) * n_bins + key;
-        atomicAdd(mc + o, sw);
-        atomicAdd(w2 + o, sq);
+      if (kk >= 0) {
+        const float wv = sh_w[(ev0 + k) * m3::kWeightPitch + c];
+        sw += wv;
+        sq += wv * wv;
       }
     }
   }
@@ -202,8 +208,8 @@ __global__ void __launch_bounds__(kThreads) reweight_shared_kernel(
     const int l = i - c * width;
     const int bin = start + l;
     if (bin >= n_bins) continue;
-    const float m = hist[c * 2 * nbl + l];
-    const float q = hist[c * 2 * nbl + nbl + l];
+    const float m = hist[c * hp + l];
+    const float q = hist[c * hp + nbl + l];
     const size_t o = static_cast<size_t>(c0 + c) * n_bins + bin;
     if (m != 0.f) atomicAdd(mc + o, m);
     if (q != 0.f) atomicAdd(w2 + o, q);
@@ -235,30 +241,35 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream, const int* seg,
 }  // namespace
 
 // Plain C entry for ctypes. coeffs is f32 (coef_bf16 == 0) or bf16; norm_ext
-// and norm_s may be null (na1 is then ignored). event_tile must equal the
-// kernel's tile (the plan was built for it). Returns a cudaError_t code:
-// cudaErrorInvalidValue for sizes the kernel does not take, otherwise
-// cudaGetLastError() right after the launch.
+// and norm_s may be null (na1 is then ignored). event_tile and chain_tile
+// must equal the kernel's (the plan was built for the first, the caller sized
+// the shared memory with the second). Returns a cudaError_t code:
+// cudaErrorInvalidValue for sizes the kernel does not take (the header's
+// limits), otherwise cudaGetLastError() right after the launch.
 extern "C" int m3_reweight_shared(
     const void* seg, const void* t, const void* coeffs, int coef_bf16,
     const void* base_w, const void* bins, const void* tile_start,
     const void* tile_width, const void* plan_ptr, const void* plan_idx, int nbl,
     const void* norm_ext,
     const void* norm_s, int na1, void* mc, void* w2, int C, int P, int K4,
-    int E, int n_bins, int event_tile, void* stream) {
+    int E, int n_bins, int event_tile, int chain_tile, void* stream) {
   const bool has_norm = norm_ext != nullptr && norm_s != nullptr;
   if (!has_norm) na1 = 0;
   const int n_tiles = E > 0 ? (E + kEventTile - 1) / kEventTile : 0;
   if (C <= 0 || E <= 0 || P <= 0 || P > kMaxParams || K4 <= 0 || K4 % 4 != 0 ||
       n_bins <= 0 || n_bins > kMaxBins || nbl <= 0 || nbl > n_bins ||
       na1 < 0 || na1 > kMaxNorm || event_tile != kEventTile ||
-      n_tiles > kMaxTiles) {
+      chain_tile != kChainTile || n_tiles > kMaxTiles || K4 / 4 > m3::kMaxKnots) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t words = static_cast<size_t>(kChainTile) * 2 * nbl +
-                       2 * static_cast<size_t>(kChainTile) * P + P +
-                       2 * static_cast<size_t>(kChainTile) * na1;
-  const size_t smem = words * sizeof(float);
+  const size_t coef_size = coef_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  if ((static_cast<size_t>(E) * coef_size) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(coeffs) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = m3::core_bytes(coef_size, P, K4) +
+                      sizeof(float) * (kChainTile * (2 * static_cast<size_t>(nbl) + 1 + 2 * na1) +
+                                       kThreads);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((C + kChainTile - 1) / kChainTile, n_tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

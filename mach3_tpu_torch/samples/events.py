@@ -5,8 +5,9 @@ The reference's sample-init pipeline (``Samples/SampleHandlerFD.cpp:169-202``):
 MC into a struct-of-arrays, norm parameters matched to events once
 (``CalcNormsBins``, ``:637-747``), oscillation channels wired — beam
 (``:1047-1122``) or atmospheric through PREM — then the static tensors of a
-:class:`SampleModel`. A sample on the shared route gets its events laid out
-for the shared kernel (``splines/plan.py``; JAX ``events.py:428-598``).
+:class:`SampleModel`. A sample on the shared or the shifted route gets its
+events laid out for its kernel (``splines/plan.py``; JAX ``events.py:428-598``
+lays out the shared route only).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from ..core.precision import ATYPE, FTYPE
 from ..osc.prem import PRODUCTION_HEIGHT_KM, path_through_earth
 from ..params.parameterset import ParamMeta
 from ..splines.monolith import DenseSplineTable, dense_table_activity
-from ..splines.plan import shared_layout
+from ..splines.plan import shared_layout, shifted_layout
 from ..splines.reweight import SHIFT_KINDS
 from ..splines.tf1 import TF1Table
 from .binning import NonUniformBinning, SampleBinning
@@ -248,36 +249,37 @@ def build_atmo_osc_config(
     )
 
 
-def apply_shared_layout(name: str, arrays: dict, table: DenseSplineTable, osc,
-                        n_bins: int) -> dict:
-    """Lay a shared-route sample's events out for the shared kernel
-    (``splines/plan.py``): parameters regrouped, events sorted and padded
-    with zero-weight copies, and the per-tile plan.
-
-    arrays: numpy ``kin`` [V, E], ``mc_weight`` [E], ``norm_idx`` [E, W],
-    ``norm_s`` [NA1, E] or None, ``static_bins`` [E], ``weight_mask``
-    [Nw, E] or None, and ``tf1_table`` or None. Returns them permuted, with
-    ``spline_table``, ``osc`` and the ``hist_*`` plan, as keyword arguments
-    of :class:`SampleModel`. Pad events weigh 0, respond 1 to every TF1
-    parameter and match no weight function."""
-    act = dense_table_activity(table)
-    bins = np.asarray(arrays["static_bins"], np.int64)
-    key = None if osc is None else osc.event_sort_key().cpu().numpy()
-    lay = shared_layout(act, bins, n_bins, key)
+def _take_events(arrays: dict, table: DenseSplineTable, lay) -> dict:
+    """``arrays`` (numpy ``kin`` [V, E], ``mc_weight`` [E], ``norm_idx``
+    [E, W], ``norm_s`` [NA1, E] or None, ``static_bins`` / ``shift_static_base``
+    [E] or None, ``weight_mask`` [Nw, E] or None, ``event_perm`` / ``event_pad``
+    of an earlier layout or None, and the ``osc`` and ``tf1_table`` modules or
+    None) with the events and the table's parameters in the order of the
+    layout ``lay``, as keyword arguments of :class:`SampleModel` with the
+    layout's CSR plan. Pad events weigh 0, respond 1 to every TF1 parameter
+    and match no weight function; ``event_perm`` [E'] (the index of each
+    event before any layout) and ``event_pad`` [E'] say where each came from."""
     perm, pad = lay.event_perm, lay.pad_mask
     tperm, pperm = torch.from_numpy(perm), torch.from_numpy(lay.param_perm)
-    mc_weight = np.asarray(arrays["mc_weight"])[perm].copy()
+
+    def events(x, axis=-1):
+        return None if x is None else np.take(np.asarray(x), perm, axis=axis)
+
+    mc_weight = events(arrays["mc_weight"]).copy()
     mc_weight[pad] = 0.0  # pads carry no weight
-    weight_mask = arrays.get("weight_mask")
+    weight_mask = events(arrays.get("weight_mask"))
     if weight_mask is not None:
-        weight_mask = np.asarray(weight_mask)[:, perm] & ~pad
-    tf1 = arrays.get("tf1_table")
-    out = dict(
-        kin=np.asarray(arrays["kin"])[:, perm],
+        weight_mask = weight_mask & ~pad
+    osc, tf1 = arrays.get("osc"), arrays.get("tf1_table")
+    before, before_pad = arrays.get("event_perm"), arrays.get("event_pad")
+    return dict(
+        arrays,
+        kin=events(arrays["kin"]),
         mc_weight=mc_weight,
-        norm_idx=np.asarray(arrays["norm_idx"])[perm],
-        norm_s=None if arrays["norm_s"] is None else np.asarray(arrays["norm_s"])[:, perm],
-        static_bins=bins[perm],
+        norm_idx=events(arrays["norm_idx"], axis=0),
+        norm_s=events(arrays["norm_s"]),
+        static_bins=events(arrays.get("static_bins")),
+        shift_static_base=events(arrays.get("shift_static_base")),
         spline_table=DenseSplineTable(
             table.coeffs.index_select(0, pperm).index_select(2, tperm),
             table.knots_x[pperm], table.n_knots[pperm], table.param_index[pperm],
@@ -285,19 +287,48 @@ def apply_shared_layout(name: str, arrays: dict, table: DenseSplineTable, osc,
         osc=None if osc is None else osc.take_events(perm),
         tf1_table=None if tf1 is None else tf1.take_events(perm, pad),
         weight_mask=weight_mask,
-        hist_tile_start=lay.tile_start,
-        hist_tile_width=lay.tile_width,
+        event_perm=perm if before is None else np.asarray(before)[perm],
+        event_pad=pad if before_pad is None else np.asarray(before_pad)[perm] | pad,
         hist_plan_ptr=lay.plan_ptr,
         hist_plan_idx=lay.plan_idx,
-        hist_nbl=lay.nbl,
     )
-    _log.info(
-        "%s: shared layout — %d activity groups, %d pad events (%.1f%%), %d tiles of "
-        "window %d bins, %.2f of %d params active per tile",
-        name, lay.n_groups, int(pad.sum()), 100.0 * pad.sum() / max(len(perm), 1),
-        lay.n_tiles, lay.nbl, lay.mean_active(), act.shape[0],
-    )
-    return out
+
+
+def _log_layout(name: str, what: str, lay, n_params: int) -> None:
+    n_pad = int(lay.pad_mask.sum())
+    _log.info("%s: %s — %d activity groups, %d pad events (%.1f%%), %d tiles, %.2f of %d "
+              "params active per tile", name, what, lay.n_groups, n_pad,
+              100.0 * n_pad / max(len(lay.event_perm), 1), lay.n_tiles, lay.mean_active(),
+              n_params)
+
+
+def apply_shared_layout(name: str, arrays: dict, n_bins: int) -> dict:
+    """Lay a shared-route sample's events out for the shared kernel
+    (``plan.shared_layout``): parameters regrouped, events sorted by
+    (activity group, static bin, oscillation index) and padded with
+    zero-weight copies, and the per-tile plan and histogram windows.
+    ``arrays`` and the result as in :func:`_take_events`."""
+    table, osc = arrays["spline_table"], arrays["osc"]
+    act = dense_table_activity(table)
+    bins = np.asarray(arrays["static_bins"], np.int64)
+    key = None if osc is None else osc.event_sort_key().cpu().numpy()
+    lay = shared_layout(act, bins, n_bins, key)
+    _log_layout(name, f"shared layout, window {lay.nbl} bins", lay, act.shape[0])
+    return dict(_take_events(arrays, table, lay), hist_tile_start=lay.tile_start,
+                hist_tile_width=lay.tile_width, hist_nbl=lay.nbl)
+
+
+def apply_shifted_layout(name: str, arrays: dict) -> dict:
+    """Lay a shifted-route sample's events out for the shifted kernel
+    (``plan.shifted_layout``): parameters regrouped, events sorted by
+    activity group (no bin sort: the kernel bins per chain) and padded with
+    zero-weight copies, and the per-tile plan. ``arrays`` and the result as
+    in :func:`_take_events`."""
+    table = arrays["spline_table"]
+    act = dense_table_activity(table)
+    lay = shifted_layout(act)
+    _log_layout(name, "shifted layout", lay, act.shape[0])
+    return _take_events(arrays, table, lay)
 
 
 def build_sample_model(
@@ -420,8 +451,9 @@ def assemble_sample(
     ``kin``, ``mc_weight``, ``norm_idx``, ``norm_s``, ``weight_mask``, and
     the ``spline_table``, ``osc`` and ``tf1_table`` modules) under
     ``binning``: its bin map (:func:`_shift_bins`), its kernel route and, on
-    the shared route, its event layout and plan. ``build_sample_model`` and
-    ``SampleModel.with_binning`` end here."""
+    the shared and shifted routes, its event layout and plan (``event_perm``
+    and ``event_pad`` of an earlier layout may ride in ``arrays``).
+    ``build_sample_model`` and ``SampleModel.with_binning`` end here."""
     static_bins, kernel_shift, shift_static_base, shift_edges = _shift_bins(
         shifts, binning, np.asarray(arrays["kin"]))
     route = choose_kernel_route(
@@ -431,10 +463,11 @@ def assemble_sample(
         has_kernel_shift=kernel_shift is not None,
         requested=use_kernel,
     )
-    arrays = dict(arrays, static_bins=static_bins)
+    arrays = dict(arrays, static_bins=static_bins, shift_static_base=shift_static_base)
     if route.use_kernel and route.variant == "shared":
-        arrays = apply_shared_layout(name, arrays, arrays["spline_table"], arrays["osc"],
-                                     binning.n_bins)
+        arrays = apply_shared_layout(name, arrays, binning.n_bins)
+    elif route.use_kernel and route.variant == "shifted":
+        arrays = apply_shifted_layout(name, arrays)
     return SampleModel(
         name,
         binning=binning,
@@ -446,7 +479,6 @@ def assemble_sample(
         stat_dtype=stat_dtype,
         kernel_route=route,
         kernel_shift=kernel_shift,
-        shift_static_base=shift_static_base,
         shift_edges=shift_edges,
         **arrays,
     )

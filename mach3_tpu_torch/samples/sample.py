@@ -286,11 +286,14 @@ class SampleModel(nn.Module):
     ``kernel_shift`` = (kind, param_index, stride, n_axis); ``tf1_table`` a
     :class:`~mach3_tpu_torch.splines.tf1.TF1Table`.
 
-    On the shared route the events are laid out by ``splines/plan.py`` and
-    the kernel's per-tile plan is kept as hist_tile_start / hist_tile_width
-    [T] i32 (the histogram window of each event tile), hist_plan_ptr [T + 1]
-    / hist_plan_idx [nnz] i32 (CSR lists of each tile's active spline
-    params) and ``hist_nbl`` (the widest window, in bins)."""
+    On the shared and shifted routes the events are laid out by
+    ``splines/plan.py`` and the kernel's per-tile plan is kept as
+    hist_plan_ptr [T + 1] / hist_plan_idx [nnz] i32 (CSR lists of each event
+    tile's active spline params) and, on the shared route, hist_tile_start /
+    hist_tile_width [T] i32 (the histogram window of each tile) and
+    ``hist_nbl`` (the widest window, in bins). event_perm [E] i64 (each
+    event's index before the layout) and event_pad [E] bool (zero-weight
+    copies that fill a tile) say where a laid-out sample's events came from."""
 
     def __init__(
         self,
@@ -321,6 +324,8 @@ class SampleModel(nn.Module):
         hist_plan_ptr=None,
         hist_plan_idx=None,
         hist_nbl: int | None = None,
+        event_perm=None,
+        event_pad=None,
     ):
         super().__init__()
         if (weight_mask is None) != (not weight_fns):
@@ -340,6 +345,8 @@ class SampleModel(nn.Module):
         self.register_buffer("hist_plan_ptr", _buffer(hist_plan_ptr, torch.int32))
         self.register_buffer("hist_plan_idx", _buffer(hist_plan_idx, torch.int32))
         self.register_buffer("weight_mask", _buffer(weight_mask, torch.bool))
+        self.register_buffer("event_perm", _buffer(event_perm, torch.long))
+        self.register_buffer("event_pad", _buffer(event_pad, torch.bool))
         self.hist_nbl = hist_nbl
         self.binning = binning
         self.spline_table = spline_table
@@ -465,7 +472,8 @@ class SampleModel(nn.Module):
     def shifted_kernel_args(
         self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
     ) -> tuple[tuple, dict]:
-        """Arguments of the shifted-route kernel call for a chain batch."""
+        """Arguments of the shifted-route kernel call for a chain batch (the
+        activity plan of a laid-out sample included)."""
         norm_in_kernel = self.norm_s is not None
         base_w = self._base_weight(thetas, osc_grids_batch, norm=not norm_in_kernel)
         table = self.spline_table
@@ -476,7 +484,8 @@ class SampleModel(nn.Module):
             thetas[:, param_index].to(FTYPE).contiguous(),
             self.kin[self.shifts[0].var_row], self.shift_static_base, self.shift_edges,
         )
-        kwargs = dict(n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j)
+        kwargs = dict(n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j,
+                      plan_ptr=self.hist_plan_ptr, plan_idx=self.hist_plan_idx)
         if norm_in_kernel:
             kwargs.update(norm_ext=self._norm_ext_batch(thetas), norm_s=self.norm_s)
         return args, kwargs
@@ -555,7 +564,8 @@ class SampleModel(nn.Module):
         gather product, an exact 0 for a zero norm), TF1 and weight
         functions; on the shifted route the bins are the plain binning's,
         which the kernel's in-kernel binning reproduces (the shift value is
-        rounded to f32 on both)."""
+        rounded to f32 on both), and the forward runs under the sample's
+        activity plan while the backward passes read every parameter."""
         base_w = self._base_weight(thetas, osc_grids_batch, norm=True)
         table = self.spline_table
         seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
@@ -572,7 +582,8 @@ class SampleModel(nn.Module):
         kind, param_index, stride_j, n_axis_j = self.kernel_shift
         return head + (thetas[:, param_index].to(FTYPE), self.kin[self.shifts[0].var_row],
                        self.shift_static_base, self.shift_edges, bins), dict(
-            n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j)
+            n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j,
+            plan_ptr=self.hist_plan_ptr, plan_idx=self.hist_plan_idx)
 
     def log_likelihood_batch_diff(
         self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
@@ -619,8 +630,8 @@ class SampleModel(nn.Module):
     def with_binning(self, binning: SampleBinning | NonUniformBinning) -> "SampleModel":
         """The same sample under another binning (on this sample's device,
         data zeroed): the static bins, the kernel route and, on the shared
-        route, the whole event layout and plan are rebuilt for it
-        (``samples/events.assemble_sample``); nothing of the old plan is
+        and shifted routes, the whole event layout and plan are rebuilt for
+        it (``samples/events.assemble_sample``); nothing of the old plan is
         kept. A laid-out sample's zero-weight pad events stay as events."""
         from .events import assemble_sample
 
@@ -632,7 +643,8 @@ class SampleModel(nn.Module):
         arrays = dict(kin=host(src.kin), mc_weight=host(src.mc_weight),
                       norm_idx=host(src.norm_idx), norm_s=host(src.norm_s),
                       weight_mask=host(src.weight_mask), spline_table=src.spline_table,
-                      osc=src.osc, tf1_table=src.tf1_table)
+                      osc=src.osc, tf1_table=src.tf1_table, event_perm=host(src.event_perm),
+                      event_pad=host(src.event_pad))
         sample = assemble_sample(
             self.name, arrays, binning.cpu(), shifts=self.shifts, weight_fns=self.weight_fns,
             norm_applied=host(src.norm_applied), data=None,

@@ -39,6 +39,7 @@ from .eval import coefficient_rows
 from .plan import EVENT_TILE
 from .reweight import (
     LAUNCHES,
+    _check_plan,
     _check_shapes,
     _check_tensors,
     _library,
@@ -115,19 +116,6 @@ def pass_b_term_scale(seg, t, coeffs, sev, pnz, nz) -> torch.Tensor:
     adds up. They cancel, so this, not |ḡ_t|, is the unit of ḡ_t's
     rounding and of its tolerance."""
     return _pass_b_sums(seg, t, coeffs, sev.double(), pnz.double(), nz, absolute=True)
-
-
-def _check_plan(named: dict, plan_ptr, plan_idx, n_events: int) -> bool:
-    if (plan_ptr is None) != (plan_idx is None):
-        raise ValueError("plan_ptr and plan_idx come together or not at all")
-    if plan_ptr is None:
-        return False
-    named.update(plan_ptr=plan_ptr, plan_idx=plan_idx)
-    n_tiles = -(-n_events // EVENT_TILE)
-    if tuple(plan_ptr.shape) != (n_tiles + 1,) or plan_idx.dim() != 1:
-        raise ValueError(f"plan_ptr must be [{n_tiles + 1}] and plan_idx 1-D, got "
-                         f"{tuple(plan_ptr.shape)} and {tuple(plan_idx.shape)}")
-    return True
 
 
 def _check_a(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, plan_idx):
@@ -270,16 +258,18 @@ class _FusedReweightDiff(torch.autograd.Function):
 
 class _FusedReweightDiffShifted(torch.autograd.Function):
     """Per-chain bins of a shifted axis: forward on the shifted kernel (which
-    bins in-kernel), backward K6a + K6b with the per-chain bins of the plain
-    binning. Port of ``fused_reweight_diff_shifted``. Bins are piecewise
-    constant in θ: the shift value gets its a.e.-zero gradient."""
+    bins in-kernel, under the sample's activity plan when it has one),
+    backward K6a + K6b with the per-chain bins of the plain binning, reading
+    every parameter. Port of ``fused_reweight_diff_shifted``. Bins are
+    piecewise constant in θ: the shift value gets its a.e.-zero gradient."""
 
     @staticmethod
     def forward(ctx, t, base_w, seg, coeffs, shift_vals, x_nom, static_base, edges, bins,
-                n_bins, shift_kind, stride_j, n_axis_j):
+                n_bins, shift_kind, stride_j, n_axis_j, plan_ptr, plan_idx):
         mc, w2 = fused_reweight_histogram_shifted(
             seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges, n_bins=n_bins,
-            shift_kind=shift_kind, stride_j=stride_j, n_axis_j=n_axis_j)
+            shift_kind=shift_kind, stride_j=stride_j, n_axis_j=n_axis_j, plan_ptr=plan_ptr,
+            plan_idx=plan_idx)
         ctx.save_for_backward(t, base_w, seg, coeffs, bins)
         ctx.n_bins = n_bins
         return mc, w2
@@ -290,7 +280,7 @@ class _FusedReweightDiffShifted(torch.autograd.Function):
         t, base_w, seg, coeffs, bins = ctx.saved_tensors
         g_t, g_base = reweight_backward(seg, t, coeffs, base_w, bins, gmc, gw2,
                                         n_bins=ctx.n_bins, need_t=ctx.needs_input_grad[0])
-        return (g_t, g_base) + (None,) * 11
+        return (g_t, g_base) + (None,) * 13
 
 
 class _FusedReweightDiffPerchain(torch.autograd.Function):
@@ -349,11 +339,14 @@ def fused_reweight_diff_shifted(
     shift_kind: str,
     stride_j: int,
     n_axis_j: int,
+    plan_ptr: torch.Tensor | None = None,  # the forward's activity plan
+    plan_idx: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable (mc, w2) [C, n_bins] of a shifted-route sample."""
     return _FusedReweightDiffShifted.apply(
         t.contiguous(), base_w.contiguous(), seg, coeffs, shift_vals.contiguous(), x_nom,
-        static_base, edges, bins.contiguous(), n_bins, shift_kind, stride_j, n_axis_j)
+        static_base, edges, bins.contiguous(), n_bins, shift_kind, stride_j, n_axis_j,
+        plan_ptr, plan_idx)
 
 
 def fused_reweight_diff_perchain(

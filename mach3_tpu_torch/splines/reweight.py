@@ -4,8 +4,10 @@ versions.
 * ``fused_reweight_histogram_shifted``: per-chain shifted-axis binning.
   Port of the TPU kernels K1 ``_kernel_maskreduce_shifted`` and K3
   ``_kernel_shifted_blocked`` (``mach3_tpu/splines/pallas_reweight.py``; K3
-  is K1 with P streamed in VMEM blocks, which the CUDA kernel's run-time loop
-  over P makes unnecessary). CUDA source ``csrc/reweight_shifted.cu``.
+  is K1 with P streamed in VMEM blocks, which the CUDA kernel's list of work
+  items per event tile makes unnecessary), under the activity plan of
+  ``plan.shifted_layout`` when the caller has one. CUDA source
+  ``csrc/reweight_shifted.cu``.
 * ``fused_reweight_histogram_shared``: static bins, events laid out in tiles
   by ``splines/plan.py``, a histogram window and a list of active parameters
   per tile. Port of K2 ``_kernel_shared_blocked_sorted``; under
@@ -60,12 +62,20 @@ MAX_BINS = 512
 MAX_EDGES = 1025
 MAX_PARAMS = 256
 MAX_NORM = 256
-#: Bin-count limit of the shared kernel, and the shared memory of one of its
-#: blocks: a [16 chains][2][nbl] window histogram plus the chain tile's
-#: (seg, t) and norm values (``csrc/reweight_shared.cu``).
+#: Bin-count limit of the shared kernel.
 MAX_SHARED_BINS = 4096
-SHARED_CHAIN_TILE = 16
-MAX_SHARED_SMEM = 232448
+#: The tile of the shared and shifted kernels (``csrc/spline_response.cuh``):
+#: ``EVENT_TILE`` events (one per thread) by ``CHAIN_TILE`` chains, whose
+#: coefficient rows pass through a ring of ``RING_STAGES`` stages of
+#: ``ITEMS_PER_STAGE`` (parameter, segment) items in shared memory; a table
+#: has at most ``MAX_KNOTS`` knots, and its rows start on 16-byte boundaries.
+CHAIN_TILE = 16
+RING_STAGES = 3
+ITEMS_PER_STAGE = 4
+MAX_KNOTS = 64
+ROW_ALIGN = 16
+#: A block's shared memory on Hopper.
+MAX_SMEM = 232448
 
 #: Launches of each CUDA kernel since its count was last set to 0, the two
 #: backward passes of ``splines/grad.py`` included. Only a CUDA launch adds
@@ -94,10 +104,12 @@ def norm_weight(norm_ext: torch.Tensor, norm_s: torch.Tensor) -> torch.Tensor:
 
 def fused_reweight_histogram_shifted_ref(
     seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges, *,
-    n_bins, shift_kind, stride_j, n_axis_j, norm_ext=None, norm_s=None,
+    n_bins, shift_kind, stride_j, n_axis_j, plan_ptr=None, plan_idx=None,
+    norm_ext=None, norm_s=None,
 ):
-    """Plain PyTorch version of the kernel, on any device. Same arguments and
-    results as :func:`fused_reweight_histogram_shifted`."""
+    """Plain PyTorch version of the kernel, on any device: every parameter
+    (the plan only skips exact identities). Same arguments and results as
+    :func:`fused_reweight_histogram_shifted`."""
     w = spline_product(coeffs, seg, t, base_w)
     if norm_ext is not None:
         w = w * norm_weight(norm_ext, norm_s)
@@ -156,10 +168,61 @@ def _check_shapes(named: dict, shapes: dict, coeffs, base_w, norm_ext, norm_s) -
     return c, p, e
 
 
+def tile_core_smem(coeffs: torch.Tensor, na1: int) -> int:
+    """Bytes of shared memory the tile core of a block takes for this table
+    and ``na1`` norm slots (``m3::core_bytes`` of ``csrc/spline_response.cuh``
+    plus the norm arrays); the kernel's histogram comes on top."""
+    p, k4 = coeffs.shape[0], coeffs.shape[1]
+    ring = RING_STAGES * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
+    items = p * min(k4 // 4, CHAIN_TILE)
+    core = ring + p * CHAIN_TILE * 8 + (2 * p + 1) * 4 + items * 8
+    return -(-core // 16) * 16 + 2 * CHAIN_TILE * na1 * 4
+
+
+def _check_tile_core(coeffs: torch.Tensor, norm_s, hist_bytes: int) -> None:
+    """What the tile core asks of a table: at most ``MAX_KNOTS`` knots and a
+    block's shared memory (``hist_bytes`` of it the kernel's histogram)
+    within the card's."""
+    if coeffs.shape[1] // 4 > MAX_KNOTS:
+        raise ValueError(f"{coeffs.shape[1] // 4} knots > {MAX_KNOTS}")
+    smem = tile_core_smem(coeffs, 0 if norm_s is None else norm_s.shape[0]) + hist_bytes
+    if smem > MAX_SMEM:
+        raise ValueError(f"a block needs {smem} bytes of shared memory > {MAX_SMEM}")
+
+
+def _check_row_alignment(coeffs: torch.Tensor) -> None:
+    """Rows of a table on the card start on ``ROW_ALIGN``-byte boundaries
+    (the kernels' 16-byte asynchronous copies); a laid-out table has them,
+    its E being a multiple of ``EVENT_TILE``. There is no slower path for a
+    table that has not."""
+    pitch = coeffs.shape[2] * coeffs.element_size()
+    if pitch % ROW_ALIGN or coeffs.data_ptr() % ROW_ALIGN:
+        raise ValueError(
+            f"the kernel copies coefficient rows {ROW_ALIGN} bytes at a time: the table's row "
+            f"pitch ({pitch} bytes for E={coeffs.shape[2]}) and base pointer must be multiples "
+            f"of {ROW_ALIGN}; lay the sample out (splines/plan.py pads E to {EVENT_TILE})")
+
+
+def _check_plan(named: dict, plan_ptr, plan_idx, n_events: int) -> bool:
+    """Adds an activity plan to ``named`` and checks its shape; False when
+    there is none."""
+    if (plan_ptr is None) != (plan_idx is None):
+        raise ValueError("plan_ptr and plan_idx come together or not at all")
+    if plan_ptr is None:
+        return False
+    named.update(plan_ptr=plan_ptr, plan_idx=plan_idx)
+    n_tiles = -(-n_events // EVENT_TILE)
+    if tuple(plan_ptr.shape) != (n_tiles + 1,) or plan_idx.dim() != 1:
+        raise ValueError(f"plan_ptr must be [{n_tiles + 1}] and plan_idx 1-D, got "
+                         f"{tuple(plan_ptr.shape)} and {tuple(plan_idx.shape)}")
+    return True
+
+
 def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
-           n_bins, shift_kind, n_axis_j, norm_ext, norm_s):
+           n_bins, shift_kind, n_axis_j, plan_ptr, plan_idx, norm_ext, norm_s) -> bool:
     named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, shift_vals=shift_vals,
                  x_nom=x_nom, static_base=static_base, edges=edges)
+    has_plan = _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
     _check_tensors(named, norm_ext, norm_s)
     shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"), shift_vals=("C",),
                   x_nom=("E",), static_base=("E",), edges=(n_axis_j + 1,))
@@ -170,6 +233,9 @@ def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
         raise ValueError(f"{n_axis_j + 1} edges outside [2, {MAX_EDGES}]")
     if shift_kind not in SHIFT_KINDS:
         raise ValueError(f"shift kind {shift_kind!r} unknown to the kernel ({sorted(SHIFT_KINDS)})")
+    _check_tile_core(coeffs, norm_s,
+                     4 * (CHAIN_TILE * (2 * n_bins + 2) + edges.shape[0] + 2 * EVENT_TILE))
+    return has_plan
 
 
 def _library(stem: str, argtypes: list, entry: str | None = None):
@@ -188,14 +254,14 @@ def _library(stem: str, argtypes: list, entry: str | None = None):
 
 
 _SHIFTED_ARGTYPES = (
-    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] + [_C_VOIDP] * 2
-    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 8 + [_C_VOIDP]
+    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] + [_C_VOIDP] * 4
+    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 10 + [_C_VOIDP]
 )
 _PERCHAIN_ARGTYPES = [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 4 + [_C_INT] * 5 + [_C_VOIDP]
 _PERCHAIN_DET_ARGTYPES = [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 3 + [_C_INT] * 6 + [_C_VOIDP]
 _SHARED_ARGTYPES = (
     [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 6 + [_C_INT] + [_C_VOIDP] * 2
-    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 6 + [_C_VOIDP]
+    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 7 + [_C_VOIDP]
 )
 
 
@@ -219,13 +285,18 @@ def fused_reweight_histogram_shifted(
     shift_kind: str,
     stride_j: int,
     n_axis_j: int,
+    plan_ptr: torch.Tensor | None = None,  # [T + 1] i32 — CSR offsets (tiles of EVENT_TILE)
+    plan_idx: torch.Tensor | None = None,  # [nnz] i32 — each tile's active spline params
     norm_ext: torch.Tensor | None = None,  # [C, NA1] f32 extended norm values
     norm_s: torch.Tensor | None = None,  # [NA1, E] f32 match counts
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(mc [C, n_bins], w2 [C, n_bins]) f32. Launches the CUDA kernel for CUDA
-    tensors, runs the plain version for CPU tensors, raises otherwise."""
-    _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
-           n_bins, shift_kind, n_axis_j, norm_ext, norm_s)
+    tensors, runs the plain version for CPU tensors, raises otherwise. A
+    plan (``plan.shifted_layout``) must list every parameter that is not the
+    identity on some event of a tile; without one the kernel reads every
+    parameter on every tile."""
+    has_plan = _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
+                      n_bins, shift_kind, n_axis_j, plan_ptr, plan_idx, norm_ext, norm_s)
     kwargs = dict(n_bins=n_bins, shift_kind=shift_kind, stride_j=stride_j,
                   n_axis_j=n_axis_j, norm_ext=norm_ext, norm_s=norm_s)
     dev = seg.device
@@ -235,6 +306,7 @@ def fused_reweight_histogram_shifted(
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    _check_row_alignment(coeffs)
     lib = _library("reweight_shifted", _SHIFTED_ARGTYPES)
     c, p = seg.shape
     k4, e = coeffs.shape[1], coeffs.shape[2]
@@ -248,12 +320,14 @@ def fused_reweight_histogram_shifted(
             int(coeffs.dtype == torch.bfloat16),
             base_w.data_ptr(), shift_vals.data_ptr(), x_nom.data_ptr(),
             static_base.data_ptr(), edges.data_ptr(), edges.shape[0],
+            plan_ptr.data_ptr() if has_plan else None,
+            plan_idx.data_ptr() if has_plan else None,
             norm_ext.data_ptr() if has_norm else None,
             norm_s.data_ptr() if has_norm else None,
             norm_s.shape[0] if has_norm else 0,
             mc.data_ptr(), w2.data_ptr(),
             c, p, k4, e, n_bins, stride_j, n_axis_j,
-            SHIFT_KINDS[shift_kind][0], stream,
+            SHIFT_KINDS[shift_kind][0], EVENT_TILE, CHAIN_TILE, stream,
         )
     _raise_on(lib, rc, "reweight_shifted")
     LAUNCHES["reweight_shifted"] += 1
@@ -288,11 +362,7 @@ def _check_shared(seg, t, coeffs, base_w, bins, n_bins, tile_start, tile_width, 
         raise ValueError(f"n_bins={n_bins} outside [1, {MAX_SHARED_BINS}]")
     if not isinstance(nbl, int) or not 1 <= nbl <= n_bins:
         raise ValueError(f"window nbl={nbl!r} outside [1, n_bins={n_bins}]")
-    na1 = 0 if norm_s is None else norm_s.shape[0]
-    words = SHARED_CHAIN_TILE * (2 * nbl + 2 * seg.shape[1] + 2 * na1) + seg.shape[1]
-    if 4 * words > MAX_SHARED_SMEM:
-        raise ValueError(f"window nbl={nbl} needs {4 * words} bytes of shared memory "
-                         f"> {MAX_SHARED_SMEM}")
+    _check_tile_core(coeffs, norm_s, 4 * (CHAIN_TILE * (2 * nbl + 1) + EVENT_TILE))
 
 
 def fused_reweight_histogram_shared(
@@ -325,6 +395,7 @@ def fused_reweight_histogram_shared(
         )
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    _check_row_alignment(coeffs)
     lib = _library("reweight_shared", _SHARED_ARGTYPES)
     c, p = seg.shape
     k4, e = coeffs.shape[1], coeffs.shape[2]
@@ -342,7 +413,7 @@ def fused_reweight_histogram_shared(
             norm_s.data_ptr() if has_norm else None,
             norm_s.shape[0] if has_norm else 0,
             mc.data_ptr(), w2.data_ptr(),
-            c, p, k4, e, n_bins, EVENT_TILE, stream,
+            c, p, k4, e, n_bins, EVENT_TILE, CHAIN_TILE, stream,
         )
     _raise_on(lib, rc, "reweight_shared")
     LAUNCHES["reweight_shared"] += 1

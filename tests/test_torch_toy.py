@@ -92,20 +92,28 @@ def test_build_toy_same_fixture(jtoy, ttoy, i):
     js, ts = jtoy.samples[i], ttoy.samples[i]
     assert js.name == ts.name and js.n_bins == ts.n_bins
     assert ts.kernel_route.variant == js.kernel_route.variant == "shifted"
-    _eq(js.kin, ts.kin)
-    _eq(js.mc_weight, ts.mc_weight)
-    _eq(js.norm_idx, ts.norm_idx)
-    _eq(js.norm_s, ts.norm_s)
+    # The port lays a shifted-route sample's events out (splines/plan.py): event k of the
+    # port is JAX's event perm[k], pads are zero-weight copies, parameters are regrouped.
+    perm, pad = ts.event_perm.numpy(), ts.event_pad.numpy()
+    assert np.array_equal(np.sort(perm[~pad]), np.arange(js.n_events))
+    _eq(np.asarray(js.kin)[:, perm], ts.kin)
+    _eq(np.where(pad, 0.0, np.asarray(js.mc_weight)[perm]).astype(np.float32), ts.mc_weight)
+    _eq(np.asarray(js.norm_idx)[perm], ts.norm_idx)
+    _eq(np.asarray(js.norm_s)[:, perm], ts.norm_s)
     _eq(js.norm_applied, ts.norm_applied)
-    _eq(js.shift_static_base, ts.shift_static_base)
+    _eq(np.asarray(js.shift_static_base)[perm], ts.shift_static_base)
     assert np.array_equal(np.asarray(js.kernel_shift[2], np.float32), ts.shift_edges.numpy())
     _, j_param, _, j_stride, j_axis = js.kernel_shift
     assert ts.kernel_shift == ("scale", j_param, j_stride, j_axis)
-    for f in ("coeffs", "knots_x", "n_knots", "param_index"):
-        _eq(getattr(js.spline_table, f), getattr(ts.spline_table, f))
-    for f in ("e_grid", "event_grid_idx", "event_channel", "chan_alpha", "chan_beta",
-              "chan_anti", "nc_mask", "osc_param_idx"):
+    pperm = [list(np.asarray(js.spline_table.param_index)).index(int(p))
+             for p in ts.spline_table.param_index]
+    _eq(np.asarray(js.spline_table.coeffs)[pperm][:, :, perm], ts.spline_table.coeffs)
+    for f in ("knots_x", "n_knots", "param_index"):
+        _eq(np.asarray(getattr(js.spline_table, f))[pperm], getattr(ts.spline_table, f))
+    for f in ("e_grid", "chan_alpha", "chan_beta", "chan_anti", "osc_param_idx"):
         _eq(getattr(js.osc, f), getattr(ts.osc, f))
+    for f in ("event_grid_idx", "event_channel", "nc_mask"):
+        _eq(np.asarray(getattr(js.osc, f))[perm], getattr(ts.osc, f))
     _eq(js.binning.edges, ts.binning.edges)
     data_j = np.asarray(js.data)
     np.testing.assert_allclose(ts.data.numpy(), data_j, rtol=PROD_BUDGET,
