@@ -9,16 +9,18 @@ each kernel against its plain PyTorch version. Run from the repository root:
 
 * The toy path: the toy MR2T2 fit at the bench's full width, 100,000 events
   x 256 chains, energy grid 200; both samples on the shifted kernel (K1).
-  Its gradient path: the backward kernels (K6a, K6b; per-chain bins) on both
-  samples, the gradient of ``log_posterior_batch`` through the kernels vs the
-  plain route, and the L-BFGS fit (``run_minimizer``) from a jittered start.
+  Its gradient path: the backward kernel (K6a and K6b fused; the shifted
+  axis binned in-kernel, under the activity plan) on both samples, the
+  gradient of ``log_posterior_batch`` through the kernels vs the plain route,
+  and the L-BFGS fit (``run_minimizer``) from a jittered start.
 * The large path: the reference-scale fixture ``build_large(low_memory=True)``
   (101 parameters, 3 samples, 2,182 bins, bf16 tables, f32 statistic) at 128
   chains; numu_beam and atmo on the shared kernel (K2; K4b is its trivial
   plan), nue_beam on the shifted kernel with P = 43 under its activity plan
   (K3; also held against the same kernel under a trivial plan), atmo through
   layered-PREM oscillation. Its gradient path at the JAX bench's 64 chains:
-  K6a/K6b on shared bins (numu_beam, atmo) and per-chain bins (nue_beam),
+  the backward kernel on shared bins (numu_beam, atmo) and on the shifted
+  axis (nue_beam, also held under a trivial plan against its activity plan),
   the differentiable NLL vs the sampling NLL, the gradient vs the plain
   route, the gradient budget (``hmc_large_grad_budget``) and ChEES-HMC
   (``chees_hmc_large``).
@@ -30,7 +32,7 @@ each kernel against its plain PyTorch version. Run from the repository root:
   per-chain kernel (K5; K5b is its ``hist="blockdiag"`` form), numu_nd (a
   weight function, static bins, P = 4) on the shared kernel, whose trivial
   plan computes K4a. Its gradient at 64 chains through K5, the shared
-  kernel, K6a and K6b.
+  kernel and the backward kernel (per-chain bins on the generic route).
 
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2, a profile of 10
@@ -39,8 +41,9 @@ the exit code is not 0. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its launches on
 its path (K1 and K3: the toy and large MR2T2 runs; K2: the large MR2T2 run;
-K4b, K6a, K6b: the ChEES run; K5, K4a: the experiment's MR2T2 run; K5b: its
-run with the deterministic histogram), its largest error against the plain
+K4b and the backward kernel, which K6a and K6b share: the ChEES run; K5, K4a:
+the experiment's MR2T2 run; K5b: its run with the deterministic histogram),
+its largest error against the plain
 version, both times and its bound: the least time the card could take for
 the same work, from the bytes each call must move (every input read once,
 each output written once) at 3.35 TB/s and its f32 operations at 67
@@ -48,8 +51,10 @@ TFLOP/s, whichever is larger (H100 SXM peaks). No single PyTorch call
 computes a spline product and a histogram, so no kernel has a library time.
 
 ``python3 chip_smoke.py --kernel-times`` stops each of the toy and large
-paths after its kernel-vs-plain and kernel-timing phases and prints neither
-the kernels line nor the last line: a short run for work on a kernel.
+paths after its kernel-vs-plain, kernel-timing and grad-kernel phases (the
+large ones at 64 chains, with the backward's plan-vs-trivial check) and
+prints neither the kernels line nor the last line: a short run for work on a
+kernel.
 
 Imports nothing of JAX. Exits non-zero when no CUDA device is visible.
 """
@@ -102,11 +107,11 @@ GRAD_CHAINS = 64
 BUDGET_ITERS = 20
 CHEES_WARM = 80
 CHEES_STEPS = 60
-# Backward kernels vs their plain versions on the same inputs: pass A's
-# [C, E] fields elementwise (a product of P f32 responses, FMA-contracted
-# Horner steps: rtol 1e-5 x P, atol 1e-6 x max), nz exactly; pass B's ḡ_t
-# within 1e-5 x P of Σ_e |term| per (chain, param): a reduction over up to
-# 200k events in another order, whose terms cancel.
+# The backward kernel vs its plain passes on the same inputs: ḡ_base
+# elementwise (a product of P f32 responses, FMA-contracted Horner steps:
+# rtol 1e-5 x P, atol 1e-6 x max); ḡ_t within 1e-5 x P of Σ_e |term| per
+# (chain, param): a reduction over up to 200k events in another order, whose
+# terms cancel.
 GRAD_RTOL = 1e-5  # x P
 # The gradient of log_posterior_batch through the kernels vs autograd of the
 # plain route, as a fraction of each chain's largest component. On the CPU
@@ -120,15 +125,15 @@ GRAD_RTOL = 1e-5  # x P
 # gap, 6x the card's.
 GRAD_E2E = 5e-3
 # Kernel launches per gradient evaluation (one forward, one backward).
-TOY_GRAD_LAUNCHES = {"reweight_shifted": 2, "grad_a": 2, "grad_b": 2}
-LARGE_GRAD_LAUNCHES = {"reweight_shared": 2, "reweight_shifted": 1, "grad_a": 3, "grad_b": 3}
+TOY_GRAD_LAUNCHES = {"reweight_shifted": 2, "reweight_backward": 2}
+LARGE_GRAD_LAUNCHES = {"reweight_shared": 2, "reweight_shifted": 1, "reweight_backward": 3}
 # The experiment path (tutorial/experiment_files.py) at the toy's width.
 EXP_EVENTS = 100_000
 EXP_SEED = 42
 EXP_ROUTES = ["generic", "generic", "shared"]
 EXP_LAUNCHES = {"reweight_perchain": 2, "reweight_shared": 1}
 EXP_DET_STEPS = 50  # the same fit with the deterministic histogram (K5b)
-EXP_GRAD_LAUNCHES = {"reweight_perchain": 2, "reweight_shared": 1, "grad_a": 3, "grad_b": 3}
+EXP_GRAD_LAUNCHES = {"reweight_perchain": 2, "reweight_shared": 1, "reweight_backward": 3}
 # H100 SXM peaks (NVIDIA's data sheet): device memory and f32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -154,10 +159,11 @@ TPU_KERNELS = {
 }
 SOURCES = {"K1": "reweight_shifted", "K3": "reweight_shifted", "K2": "reweight_shared",
            "K4a": "reweight_shared", "K4b": "reweight_shared", "K5": "reweight_perchain",
-           "K5b": "reweight_perchain", "K6a": "reweight_grad", "K6b": "reweight_grad"}
+           "K5b": "reweight_perchain", "K6a": "reweight_backward", "K6b": "reweight_backward"}
 NAMES = {"K4a": "reweight_shared (trivial plan, P <= 16)",
          "K4b": "reweight_shared (trivial plan)", "K5b": "reweight_perchain_det",
-         "K6a": "reweight_grad_a", "K6b": "reweight_grad_b"}
+         "K6a": "reweight_backward (K6a and K6b fused: both rows share its launches and time)",
+         "K6b": "reweight_backward (K6a and K6b fused: both rows share its launches and time)"}
 
 
 def phase(msg: str) -> None:
@@ -541,77 +547,142 @@ def time_kernel(tag: str, sample, args, kwargs, smi: str) -> tuple[float, float,
     return km, pm, bnd
 
 
+def backward_args(sample, thetas, tables_i) -> tuple:
+    """(the backward's arguments but the cotangents, its plan kwargs) of a
+    sample's differentiable route at these chains, and the cotangents of the
+    sample's statistic from its forward."""
+    import torch
+
+    from mach3_tpu_torch.splines import grad
+
+    route = sample._diff_route()
+    args, kw = sample.diff_kernel_args(thetas, tables_i)
+    t, base_w, seg, coeffs = args[:4]
+    fwd = {"shared": grad.fused_reweight_diff, "shifted": grad.fused_reweight_diff_shifted,
+           "generic": grad.fused_reweight_diff_perchain}[route]
+    if route == "shifted":
+        bins = grad.ShiftedBins(args[4].contiguous(), *args[5:8], kw["shift_kind"],
+                                kw["stride_j"], kw["n_axis_j"])
+    else:
+        bins = args[4]
+    plan = {} if route == "generic" else dict(plan_ptr=kw["plan_ptr"], plan_idx=kw["plan_idx"])
+    mc, w2 = (v.detach().requires_grad_(True) for v in fwd(*args, **kw))
+    gmc, gw2 = (g.float().contiguous() for g in
+                torch.autograd.grad(sample._stat_sum(mc, w2).sum(), (mc, w2)))
+    return (seg, t, coeffs, base_w.detach(), bins, gmc, gw2), plan
+
+
+def check_backward(what: str, b_in, n_bins: int, plan: dict) -> tuple[float, float, float]:
+    """The backward kernel against its plain passes on ``b_in``: ḡ_base to
+    GRAD_RTOL·P elementwise, ḡ_t to GRAD_RTOL·P of Σ_e |term|; finite.
+    Returns (ḡ_base max abs error, ḡ_t max abs error, worst share of a
+    tolerance)."""
+    from mach3_tpu_torch.splines import grad
+
+    seg, t, coeffs, base_w, bins, gmc, gw2 = b_in
+    n_par = coeffs.shape[0]
+    got_t, got_base = grad.reweight_backward(*b_in, n_bins=n_bins, **plan)
+    plain_bins = bins.bins(n_bins) if isinstance(bins, grad.ShiftedBins) else bins
+    ref_a = grad.grad_pass_a_ref(seg, t, coeffs, base_w, plain_bins, gmc, gw2, n_bins=n_bins)
+    ref_t = grad.grad_pass_b_ref(seg, t, coeffs, *ref_a[1:])
+    err_base, _, worst_base = compare(got_base, ref_a[0], GRAD_RTOL * n_par, K_ATOL_FRAC,
+                                      f"{what} g_base")
+    if not bool(got_t.isfinite().all()):
+        raise AssertionError(f"{what} g_t: non-finite values")
+    err_t = (got_t - ref_t).abs().double()
+    scale = grad.pass_b_term_scale(seg, t, coeffs, *ref_a[1:])
+    worst_t = float((err_t / (GRAD_RTOL * n_par * scale + 1e-30)).max())
+    if worst_t > 1.0:
+        raise AssertionError(f"{what} g_t: error {float(err_t.max()):.3e} is {worst_t:.2f}x the "
+                             f"tolerance")
+    return err_base, float(err_t.max()), max(worst_base, worst_t)
+
+
+def backward_bounds(b_in, plan: dict) -> tuple[dict, float]:
+    """(the fused kernel's bound, the sum of the old two passes' bounds) of
+    one backward call. Fused: every input read once (the table by
+    ``coefficient_reads``; the shifted route's bins are formed, not read),
+    ḡ_base [C, E] and ḡ_t [C, P] written once; 22 f32 operations per
+    evaluated (chain, event, parameter) (response, product, slope, quotient,
+    sum) and 6 per (chain, event). The two passes moved besides three [C, E]
+    fields (sev, pnz, nz) out of pass A and into pass B, and each read the
+    rows."""
+    from mach3_tpu_torch.splines import grad
+
+    seg, t, coeffs, base_w, bins, gmc, gw2 = b_in
+    c, e = base_w.shape
+    n_par = coeffs.shape[0]
+    coef, pairs = coefficient_reads(seg, coeffs)
+    bin_args = vars(bins).values() if isinstance(bins, grad.ShiftedBins) else [bins]
+    inputs = _nbytes(seg, t, base_w, gmc, gw2, *plan.values(), *bin_args)
+    fused = bound(inputs + coef + 4 * c * (e + n_par), c * (22 * pairs + 6 * e))
+    pass_a = bound(inputs + coef + 16 * c * e, c * (7 * pairs + 6 * e))
+    pass_b = bound(_nbytes(seg, t, *plan.values()) + 12 * c * e + coef + 4 * c * n_par,
+                   15 * c * pairs)
+    return fused, pass_a["bound_ms"] + pass_b["bound_ms"]
+
+
 def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
-    """K6a and K6b against their plain versions on each sample's inputs at
-    these chains: the forward's arguments of the differentiable route and
-    the cotangents of the sample's statistic. Pass B is fed pass A's kernel
-    outputs on both sides. Returns {sample name: (A err, B err, A ms, A
-    plain ms, B ms, B plain ms, A bound, B bound)}: pass A reads (seg, t),
-    the table's rows, base_w, the bins and the cotangents and writes four
-    [C, E] fields (7 operations per evaluated (chain, event, parameter), 6
-    per (chain, event)); pass B reads the rows and three [C, E] fields and
-    writes [C, P] (15 operations per evaluated triple: response, slope,
-    product)."""
+    """The backward kernel (K6a and K6b fused) against its plain passes on
+    each sample's inputs at these chains: the forward's arguments of the
+    differentiable route and the cotangents of the sample's statistic; its
+    ḡ_t and ḡ_base bit-identical over two launches. Returns {sample name:
+    (ḡ_base err, ḡ_t err, ms, plain ms, bound, old two-pass bound)}."""
     import torch
 
     from mach3_tpu_torch.splines import grad
 
     out = {}
     for i, s in enumerate(model.samples):
-        route = s._diff_route()
-        args, kw = s.diff_kernel_args(thetas, tables[i])
-        t, base_w, seg, coeffs = args[:4]
-        fwd = {"shared": grad.fused_reweight_diff, "shifted": grad.fused_reweight_diff_shifted,
-               "generic": grad.fused_reweight_diff_perchain}[route]
-        plan = {}
-        if route == "shared":
-            bins, plan = args[4], dict(plan_ptr=kw["plan_ptr"], plan_idx=kw["plan_idx"])
-        else:
-            bins = args[-1]
-        mc, w2 = (v.detach().requires_grad_(True) for v in fwd(*args, **kw))
-        gmc, gw2 = (g.float().contiguous() for g in
-                    torch.autograd.grad(s._stat_sum(mc, w2).sum(), (mc, w2)))
-        a_in = (seg, t, coeffs, base_w, bins, gmc, gw2)
-        got_a = grad.grad_pass_a(*a_in, n_bins=s.n_bins, **plan)
-        ref_a = grad.grad_pass_a_ref(*a_in, n_bins=s.n_bins, **plan)
-        n_par = coeffs.shape[0]
-        err_a, worst_a = 0.0, 0.0
-        for got, ref, name in zip(got_a[:3], ref_a[:3], ("g_base", "sev", "pnz")):
-            e, _, r = compare(got, ref, GRAD_RTOL * n_par, K_ATOL_FRAC, f"{s.name} pass A {name}")
-            err_a, worst_a = max(err_a, e), max(worst_a, r)
-        if not torch.equal(got_a[3], ref_a[3]):
-            raise AssertionError(f"{s.name} pass A: zero counts differ from the plain version")
-        b_in = (seg, t, coeffs) + got_a[1:]
-        got_b = grad.grad_pass_b(*b_in, **plan)
-        ref_b = grad.grad_pass_b_ref(*b_in, **plan)
-        if not bool(torch.isfinite(got_b).all()):
-            raise AssertionError(f"{s.name} pass B: non-finite values")
-        err_b = (got_b - ref_b).abs().double()
-        worst_b = float((err_b / (GRAD_RTOL * n_par * grad.pass_b_term_scale(*b_in) + 1e-30))
-                        .max())
-        if worst_b > 1.0:
-            raise AssertionError(f"{s.name} pass B: error {float(err_b.max()):.3e} is "
-                                 f"{worst_b:.2f}x the tolerance")
-        a_ms = time_pair(lambda: grad.grad_pass_a(*a_in, n_bins=s.n_bins, **plan),
-                         lambda: grad.grad_pass_a_ref(*a_in, n_bins=s.n_bins, **plan))
-        b_ms = time_pair(lambda: grad.grad_pass_b(*b_in, **plan),
-                         lambda: grad.grad_pass_b_ref(*b_in, **plan))
-        c, e = base_w.shape
-        coef, pairs = coefficient_reads(seg, coeffs)
-        plan_bytes = _nbytes(*plan.values())
-        a_bnd = bound(_nbytes(*a_in[:2], *a_in[3:]) + plan_bytes + coef + 16 * c * e,
-                      c * (7 * pairs + 6 * e))
-        b_bnd = bound(_nbytes(seg, t, *got_a[1:]) + plan_bytes + coef + 4 * c * n_par,
-                      15 * c * pairs)
-        out[s.name] = (err_a, float(err_b.max())) + a_ms + b_ms + (a_bnd, b_bnd)
-        form = "shared bins, plan" if route == "shared" else "per-chain bins"
-        phase(f"[{tag}:grad-kernels] {s.name} ({form}): C={thetas.shape[0]} E={s.n_events} "
-              f"P={n_par}; pass A max abs err {err_a:.3e} (worst {worst_a:.3f} of tol), nz "
-              f"equal; pass B max abs err {float(err_b.max()):.3e} (worst {worst_b:.3f} of "
-              f"tol); grad_a {a_ms[0]:.4f} ms vs plain {a_ms[1]:.4f} ms (bound "
-              f"{a_bnd['bound_ms']:.4f}), grad_b {b_ms[0]:.4f} ms vs plain {b_ms[1]:.4f} ms "
-              f"(bound {b_bnd['bound_ms']:.4f}) | {smi}")
+        b_in, plan = backward_args(s, thetas, tables[i])
+        err_base, err_t, worst = check_backward(f"{s.name} backward", b_in, s.n_bins, plan)
+        first = grad.reweight_backward(*b_in, n_bins=s.n_bins, **plan)
+        again = grad.reweight_backward(*b_in, n_bins=s.n_bins, **plan)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"{s.name} backward: two launches differ")
+        ms = time_pair(lambda: grad.reweight_backward(*b_in, n_bins=s.n_bins, **plan),
+                       lambda: grad.reweight_backward_ref(*b_in, n_bins=s.n_bins, **plan))
+        fused, two_pass = backward_bounds(b_in, plan)
+        out[s.name] = (err_base, err_t) + ms + (fused, two_pass)
+        form = {"shared": "shared bins, plan", "shifted": "shifted axis in-kernel, plan",
+                "generic": "per-chain bins"}[s._diff_route()]
+        phase(f"[{tag}:grad-kernels] {s.name} (reweight_backward, {form}): C={thetas.shape[0]} "
+              f"E={s.n_events} P={b_in[2].shape[0]}; max abs err g_base {err_base:.3e}, g_t "
+              f"{err_t:.3e} (worst {worst:.3f} of tol); bit-identical over two launches; "
+              f"kernel {ms[0]:.4f} ms vs plain {ms[1]:.4f} ms, bound {fused['bound_ms']:.4f} ms "
+              f"({fused['bound_by']}; the two passes' bounds summed {two_pass:.4f}) | {smi}")
     return out
+
+
+def grad_plan_vs_trivial(tag: str, sample, thetas, tables_i, smi: str) -> None:
+    """The backward of a shifted-route sample under its activity plan and
+    under a trivial plan (every parameter on every tile), each against the
+    plain passes, and both kernel times. Comparisons, not the path's
+    launches."""
+    import torch
+
+    from mach3_tpu_torch.splines import grad, plan
+
+    b_in, real = backward_args(sample, thetas, tables_i)
+    if real.get("plan_ptr") is None:
+        raise AssertionError(f"{sample.name}: a shifted-route sample without an activity plan")
+    dev = b_in[0].device
+    ptr, idx = plan.trivial_active(sample.n_events, b_in[2].shape[0])
+    trivial = dict(plan_ptr=torch.as_tensor(ptr, device=dev),
+                   plan_idx=torch.as_tensor(idx, device=dev))
+    worst = max(check_backward(f"{sample.name} backward {what}", b_in, sample.n_bins, kw)[2]
+                for what, kw in (("plan", real), ("trivial plan", trivial)))
+
+    def run(kw):
+        return lambda: grad.reweight_backward(*b_in, n_bins=sample.n_bins, **kw)
+
+    t = [cuda_ms(run(trivial), 10), cuda_ms(run(real), 30), cuda_ms(run(real), 30),
+         cuda_ms(run(trivial), 10)]
+    phase(f"[{tag}:grad-plan-vs-trivial] {sample.name} (reweight_backward): the plan lists "
+          f"{int(real['plan_idx'].numel())} (tile, parameter) pairs, the trivial plan {len(idx)};"
+          f" both within {worst:.3f} of tol of the plain passes; kernel under the plan "
+          f"{0.5 * (t[1] + t[2]):.4f} ms, under the trivial plan {0.5 * (t[0] + t[3]):.4f} ms "
+          f"| {smi}")
 
 
 def diff_nll_vs_sampling(tag: str, model, thetas, tables, smi: str) -> None:
@@ -762,8 +833,8 @@ def grad_budget(model, thetas, smi: str) -> None:
           f"{grad_ms:.3f} ms; diff forward / sampling forward {fwd / fused:.3f}, gradient / "
           f"sampling forward {grad_ms / fused:.3f} | {smi}")
     phase(f"[large:grad-profile] one gradient evaluation: {sum(e.count for e in dev_ops)} "
-          f"device ops, device busy {busy:.3f} ms (grad_a {share('grad_a_kernel'):.3f}, grad_b "
-          f"{share('grad_b_kernel'):.3f}, reweight_shared {share('reweight_shared'):.3f}, "
+          f"device ops, device busy {busy:.3f} ms (reweight_backward "
+          f"{share('reweight_backward'):.3f}, reweight_shared {share('reweight_shared'):.3f}, "
           f"reweight_shifted {share('reweight_shifted'):.3f} ms) against {grad_ms:.3f} ms "
           f"unprofiled: device idle share {1.0 - busy / grad_ms:.3f}; top: "
           + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in top)
@@ -798,7 +869,7 @@ def run_chees(model, thetas, smi: str) -> dict:
     n_grad, n_logp = fit.n_grad_evals - n_grad0, fit.n_logp_evals - n_logp0
     fwd = {"reweight_shared": 2, "reweight_shifted": 1}
     want = {k: v * (n_grad + n_logp) for k, v in fwd.items()}
-    want.update(grad_a=3 * n_grad, grad_b=3 * n_grad)
+    want["reweight_backward"] = 3 * n_grad
     check_launches("large:chees", launches, want)
     st = fit.state
     if not bool(torch.isfinite(st.logp).all()):
@@ -842,7 +913,10 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
         if quick:
             for s in model.samples:
                 time_kernel("toy", s, *checked[s.name][:2], smi)
-            return {}
+    if quick:
+        backward_vs_plain("toy", model, thetas, tables, smi)
+        return {}
+    with torch.no_grad():
         prefit = model.prefit_vector()[None]
         pre_tables = model._shared_osc_tables(prefit)
         for i, s in enumerate(model.samples):
@@ -937,9 +1011,11 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
     return results, model
 
 
-def large_grad_path(model, dev, smi: str) -> tuple[dict, dict]:
-    """The gradient path on the large fixture at the bench's 64 chains;
-    returns (per-sample backward-kernel results, the ChEES run's launches)."""
+def large_grad_kernels(model, dev, smi: str) -> tuple[dict, object, tuple]:
+    """The backward kernel on the large fixture at the bench's 64 chains
+    against its plain passes, and nue_beam's under its plan against a
+    trivial plan; returns (per-sample results, the chains, their
+    oscillation tables)."""
     import numpy as np
     import torch
 
@@ -948,6 +1024,16 @@ def large_grad_path(model, dev, smi: str) -> tuple[dict, dict]:
     with torch.no_grad():
         tables = model._shared_osc_tables(thetas)
     grads = backward_vs_plain("large", model, thetas, tables, smi)
+    grad_plan_vs_trivial("large", model.samples[1], thetas, tables[1], smi)
+    return grads, thetas, tables
+
+
+def large_grad_path(model, dev, smi: str) -> tuple[dict, dict]:
+    """The gradient path on the large fixture at the bench's 64 chains;
+    returns (per-sample backward-kernel results, the ChEES run's launches)."""
+    import torch
+
+    grads, thetas, tables = large_grad_kernels(model, dev, smi)
     with torch.no_grad():
         diff_nll_vs_sampling("large", model, thetas, tables, smi)
     posterior_grad_vs_plain("large", model, thetas, LARGE_GRAD_LAUNCHES, smi)
@@ -1106,11 +1192,11 @@ def main() -> int:
     for stem, (lib, seconds, log) in built.items():
         res = [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
         phase(f"[build] {lib.name} in {seconds:.1f} s ({'built' if seconds else 'cached'}); "
-              + " | ".join(res[:4]))
+              + " | ".join(res))
 
     if sys.argv[1:] == ["--kernel-times"]:
         toy_path(dev, smi, quick=True)
-        large_path(dev, smi, quick=True)
+        large_grad_kernels(large_path(dev, smi, quick=True)[1], dev, smi)
         print(smi)
         return 0
     if sys.argv[1:]:
@@ -1125,12 +1211,10 @@ def main() -> int:
     grads, chees = large_grad_path(model, dev, smi)
     results["K4b"]["launches"] = chees["reweight_shared"]
     every = {**toy_grads, **exp_grads, **grads}
-    for k, j in (("K6a", 0), ("K6b", 1)):
-        results[k] = dict(launches=chees[f"grad_{k[-1]}"],
-                          max_abs_err=max(v[j] for v in every.values()),
-                          ms=sum(v[2 + 2 * j] for v in grads.values()),
-                          plain_ms=sum(v[3 + 2 * j] for v in grads.values()),
-                          **summed([v[6 + j] for v in grads.values()]))
+    k6 = dict(launches=chees["reweight_backward"], ms=sum(v[2] for v in grads.values()),
+              plain_ms=sum(v[3] for v in grads.values()), **summed([v[4] for v in grads.values()]))
+    results["K6a"] = dict(k6, max_abs_err=max(v[0] for v in every.values()))  # ḡ_base
+    results["K6b"] = dict(k6, max_abs_err=max(v[1] for v in every.values()))  # ḡ_t
 
     print(json.dumps({"kernels": [
         {"name": NAMES.get(k, SOURCES[k]), "route": "cuda",

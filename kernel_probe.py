@@ -15,8 +15,21 @@ alone (the kernels are the package's, unchanged):
   product and adds nothing to a histogram;
 * ``trivial plan``: every parameter listed on every tile.
 
+And the backward kernel (``csrc/reweight_backward.cu``) of each sample of
+the toy and of the fixture at the gradient path's 64 chains:
+
+* ``held``: the call of the gradient path; its phase 2 reads the rows that
+  phase 1 left in a ring of ``grad.HELD_ITEMS`` items;
+* ``streamed``: every tile copies its rows again for phase 2
+  (``HELD_ITEMS = 0``);
+* ``phase 1``: ``need_t=False``, ḡ_base alone;
+* ``one segment`` and ``trivial plan``: as above.
+
+``held`` and ``streamed`` are timed in turns streamed, held, held, streamed.
+
 The results of the variants are not compared with anything: only ``full``
-computes the sample's histogram. Run from the repository root, after
+computes the sample's histogram (``chip_smoke.py`` holds the backward to its
+plain passes). Run from the repository root, after
 ``chip_smoke.py`` has shown the kernels right:
 
     python3 kernel_probe.py        # needs one CUDA GPU and nvcc; ~1 min
@@ -65,6 +78,39 @@ def probe(tag: str, model, thetas, smi: str) -> None:
                      + f" | {smi}")
 
 
+def probe_backward(tag: str, model, thetas, smi: str) -> None:
+    import torch
+
+    from mach3_tpu_torch.splines import grad, plan
+
+    with torch.no_grad():
+        tables = model._shared_osc_tables(thetas)
+    held = grad.HELD_ITEMS
+    for i, s in enumerate(model.samples):
+        b_in, kw = cs.backward_args(s, thetas, tables[i])
+        kw = dict(kw, n_bins=s.n_bins)
+        seg = b_in[0]
+        one_seg = (seg[:1].expand_as(seg).contiguous(),) + b_in[1:]
+        ptr, idx = plan.trivial_active(s.n_events, seg.shape[1])
+        trivial = dict(kw, plan_ptr=torch.as_tensor(ptr, device=seg.device),
+                       plan_idx=torch.as_tensor(idx, device=seg.device))
+        variants = [("streamed", b_in, kw, 0), ("held", b_in, kw, held),
+                    ("phase 1", b_in, dict(kw, need_t=False), held),
+                    ("one segment", one_seg, kw, held), ("trivial plan", b_in, trivial, held),
+                    ("held", b_in, kw, held), ("streamed", b_in, kw, 0)]
+        times = {}
+        for what, a, k, items in variants:
+            grad.HELD_ITEMS = items
+            grad.reweight_backward(*a, **k)
+            times.setdefault(what, []).append(cs.cuda_ms(
+                lambda a=a, k=k: grad.reweight_backward(*a, **k), 30))
+        grad.HELD_ITEMS = held
+        cs.phase(f"[probe:{tag}:backward] {s.name} (reweight_backward, C={thetas.shape[0]}, "
+                 f"E={s.n_events}): "
+                 + ", ".join(f"{what} {sum(ms) / len(ms):.4f} ms" for what, ms in times.items())
+                 + f" | {smi}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -85,10 +131,14 @@ def main() -> int:
     thetas = torch.as_tensor(cs.jitter_init(toy, cs.N_CHAINS, np.random.default_rng(0)),
                              device=dev)
     probe("toy", toy, thetas, smi)
+    probe_backward("toy", toy, thetas, smi)
     large = build_large(seed=cs.LARGE_SEED, low_memory=True, device=dev).model
     thetas = torch.as_tensor(cs.jitter_init(large, cs.LARGE_CHAINS, np.random.default_rng(0)),
                              device=dev)
     probe("large", large, thetas, smi)
+    thetas = torch.as_tensor(cs.jitter_init(large, cs.GRAD_CHAINS, np.random.default_rng(0)),
+                             device=dev)
+    probe_backward("large", large, thetas, smi)
     return 0
 
 

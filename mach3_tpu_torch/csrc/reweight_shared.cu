@@ -21,7 +21,8 @@
 // resp == 1.0 in f32.
 //
 // Norm: log|ext| floored at 1e-30 as in the TPU kernels, so a zero norm
-// gives a ~1e-30 weight.
+// gives a ~1e-30 weight; a NaN norm gives NaN weights to the events that
+// match it.
 //
 // Layout (splines/plan.py): the events come in tiles of kEventTile = 256,
 // one per thread. Per tile the plan gives a window (start, width) and a CSR

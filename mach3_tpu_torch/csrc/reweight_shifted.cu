@@ -32,9 +32,11 @@
 // pointers) every parameter is read on every tile.
 //
 // Norm: log|ext| is floored at 1e-30 as in the TPU kernel, so a zero norm
-// gives a ~1e-30 weight, not an exact 0 (the JAX XLA route gives 0).
+// gives a ~1e-30 weight, not an exact 0 (the JAX XLA route gives 0); a NaN
+// norm gives NaN weights to the events that match it.
 //
-// Binning: x is formed with __fadd_rn/__fsub_rn/__fmul_rn, one rounding per
+// Binning (m3::shifted_bin, spline_response.cuh, which the backward kernel
+// shares): x is formed with __fadd_rn/__fsub_rn/__fmul_rn, one rounding per
 // operation in the plain version's order, so it cannot be contracted into an
 // FMA and lands in the same bin as the f32 reference. The edge count
 // is a binary search over the edges staged in shared memory; a NaN x compares
@@ -113,22 +115,6 @@ constexpr int kMaxParams = m3::kMaxTileParams;
 constexpr int kMaxNorm = 256;
 constexpr int kMaxTiles = 65535;  // gridDim.y
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
-// Shift kinds (splines/reweight.py SHIFT_KINDS); a is the per-chain
-// constant: 1 + v, or v for "offset".
-constexpr int kShiftScale = 0;        // x * (1 + v)
-constexpr int kShiftOffset = 1;       // x + v
-constexpr int kShiftAboutOne = 2;     // 1 + (x - 1) * (1 + v)
-
-__device__ __forceinline__ float shift_x(int kind, float x, float a) {
-  switch (kind) {
-    case kShiftOffset:
-      return __fadd_rn(x, a);
-    case kShiftAboutOne:
-      return __fadd_rn(1.0f, __fmul_rn(__fsub_rn(x, 1.0f), a));
-    default:
-      return __fmul_rn(x, a);
-  }
-}
 
 template <typename CoefT, bool kHasNorm>
 __global__ void __launch_bounds__(kThreads, 4) reweight_shifted_kernel(
@@ -163,8 +149,7 @@ __global__ void __launch_bounds__(kThreads, 4) reweight_shifted_kernel(
   for (int i = tid; i < n_edges; i += kThreads) sh_edges[i] = edges[i];
   if (kHasNorm) m3::norm_prepare(sh_logext, sh_neg, norm_ext, c0, nct, na1);
   for (int i = tid; i < nct; i += kThreads) {
-    const float v = shift_vals[c0 + i];
-    sh_shift[i] = shift_kind == kShiftOffset ? v : __fadd_rn(1.0f, v);
+    sh_shift[i] = m3::shift_factor(shift_kind, shift_vals[c0 + i]);
   }
   const int n_items = core.prepare(seg, tval, plan_ptr ? plan_idx + p_begin : nullptr, nact,
                                    c0, nct, P, K4);
@@ -202,23 +187,11 @@ __global__ void __launch_bounds__(kThreads, 4) reweight_shifted_kernel(
     float sw = 0.f;
     float sq = 0.f;
     for (int k = 0; k < m3::kTailEvents; ++k) {
-      const int sbk = sh_sb[ev0 + k];
       const float wv = sh_w[(ev0 + k) * m3::kWeightPitch + c];
-      if (sbk < 0 || wv == 0.f) continue;
-      const float x = shift_x(shift_kind, sh_x[ev0 + k], a);
-      int lo = 0;
-      int hi = n_edges;
-      while (lo < hi) {  // count of edges <= x (edges strictly increasing)
-        const int mid = (lo + hi) >> 1;
-        if (sh_edges[mid] <= x) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
-      }
-      const int idx = lo - 1;
-      if (idx < 0 || idx >= n_axis_j) continue;
-      const int bin = sbk + stride_j * idx;
+      if (wv == 0.f) continue;
+      const int bin = m3::shifted_bin(shift_kind, sh_x[ev0 + k], a, sh_sb[ev0 + k], sh_edges,
+                                      n_edges, stride_j, n_axis_j);
+      if (bin < 0) continue;
       if (bin != cur) {
         if (cur >= 0) {
           atomicAdd(hc + cur, sw);
@@ -296,7 +269,7 @@ extern "C" int m3_reweight_shifted(
   if (C <= 0 || E <= 0 || P <= 0 || P > kMaxParams || K4 <= 0 || K4 % 4 != 0 ||
       n_bins <= 0 || n_bins > kMaxBins || n_edges < 2 || n_edges > kMaxEdges ||
       n_axis_j != n_edges - 1 || na1 < 0 || na1 > kMaxNorm ||
-      shift_kind < kShiftScale || shift_kind > kShiftAboutOne ||
+      shift_kind < m3::kShiftScale || shift_kind > m3::kShiftAboutOne ||
       event_tile != kEventTile || chain_tile != kChainTile || n_tiles > kMaxTiles ||
       K4 / 4 > m3::kMaxKnots) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,4 +1,5 @@
-// Device helpers shared by the forward reweight kernels of this directory.
+// Device helpers shared by the reweight kernels of this directory, forward
+// and backward.
 //
 // A spline response is evaluated from its segment's 4 coefficient rows
 // seg*4 + (0..3) of coeffs[p, :, e] — (y, b, c, d) — and one f32 Horner
@@ -35,8 +36,16 @@
 //    or not; so chains split over two segments cost twice the FMA slots of
 //    chains in one.
 //
-//    Row starts must be 16-byte aligned: the table's base pointer and its
-//    row pitch E·sizeof(CoefT) are multiples of 16 (the entries check it).
+//    The forward kernels take tables whose row starts are 16-byte aligned
+//    (the table's base pointer and its row pitch E·sizeof(CoefT) multiples of
+//    16; their entries check it). The backward kernel also takes any other
+//    table (the generic route's are not laid out): with `aligned` false a
+//    stage is copied one element a thread at a time with plain loads and
+//    shared-memory stores, which the stage's barrier orders like the
+//    asynchronous copies.
+//
+//  * The shifted axis's binning (shift_x, shifted_bin), one code for the
+//    forward and the backward kernel, so both put an event in the same bin.
 
 #pragma once
 
@@ -86,9 +95,11 @@ __host__ __device__ inline size_t core_item_cap(int P, int K4) {
   return static_cast<size_t>(P) * (k < kTileChains ? k : kTileChains);
 }
 
-// Shared memory of a TileCore (a multiple of 16 bytes).
-__host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4) {
-  const size_t ring = static_cast<size_t>(kStages) * kItemsPerStage * 4 * kTileEvents * coef_size;
+// Shared memory of a TileCore whose ring has `stages` stages (a multiple of
+// 16 bytes).
+__host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4,
+                                             int stages = kStages) {
+  const size_t ring = static_cast<size_t>(stages) * kItemsPerStage * 4 * kTileEvents * coef_size;
   const size_t b = ring + static_cast<size_t>(P) * kTileChains * 8 +
                    (2 * static_cast<size_t>(P) + 1) * 4 + core_item_cap(P, K4) * 8;
   return (b + 15) & ~static_cast<size_t>(15);
@@ -96,7 +107,8 @@ __host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4) {
 
 template <typename CoefT>
 struct TileCore {
-  CoefT* ring;    // [kStages][kItemsPerStage][4][kTileEvents]
+  CoefT* ring;    // [n_slots][kItemsPerStage][4][kTileEvents]
+  int n_slots;    // stages the ring holds: kStages, or more to keep a tile's rows
   float* t;       // [nact][kTileChains]
   int* seg;       // [nact][kTileChains], -1 for a chain past the batch
   int* par;       // [nact] the tile's active parameters
@@ -104,10 +116,12 @@ struct TileCore {
   int* item_row;  // [items] first coefficient row p·K4 + 4·segment
   int* item_jm;   // [items] slot of the parameter in t << 16 | chain mask
 
-  // Takes core_bytes() of the 16-byte aligned `base`; returns what follows.
-  __device__ unsigned char* carve(unsigned char* base, int P, int K4) {
+  // Takes core_bytes(.., stages) of the 16-byte aligned `base`; returns what
+  // follows.
+  __device__ unsigned char* carve(unsigned char* base, int P, int K4, int stages = kStages) {
     ring = reinterpret_cast<CoefT*>(base);
-    base += static_cast<size_t>(kStages) * kItemsPerStage * 4 * kTileEvents * sizeof(CoefT);
+    n_slots = stages;
+    base += static_cast<size_t>(stages) * kItemsPerStage * 4 * kTileEvents * sizeof(CoefT);
     t = reinterpret_cast<float*>(base);
     base += static_cast<size_t>(P) * kTileChains * 4;
     seg = reinterpret_cast<int*>(base);
@@ -182,15 +196,28 @@ struct TileCore {
   }
 
   // Starts the copies of stage `stage`'s items: rows item_row + (0..3) of the
-  // events [e0, e0 + kTileEvents) that exist, 16 bytes a copy.
+  // events [e0, e0 + kTileEvents) that exist, 16 bytes a copy, or (aligned
+  // false) one element a thread at a time.
   __device__ __forceinline__ void copy_stage(const CoefT* __restrict__ coeffs, size_t es, int E,
-                                        int e0, int stage, int n_items) {
+                                             int e0, int stage, int n_items, bool aligned) {
+    CoefT* slot = ring + static_cast<size_t>(stage % n_slots) * kItemsPerStage * 4 * kTileEvents;
+    const int first = stage * kItemsPerStage;
+    if (!aligned) {
+#pragma unroll 4
+      for (int q = threadIdx.x; q < kItemsPerStage * 4 * kTileEvents; q += kTileEvents) {
+        const int i = q / (4 * kTileEvents);
+        const int col = q % kTileEvents;
+        if (first + i < n_items && e0 + col < E) {
+          const int r = (q / kTileEvents) % 4;
+          slot[q] = coeffs[static_cast<size_t>(item_row[first + i] + r) * es + e0 + col];
+        }
+      }
+      return;
+    }
     constexpr int kElems = 16 / sizeof(CoefT);
     constexpr int kPerRow = kTileEvents / kElems;
     constexpr int kPerItem = 4 * kPerRow;
     constexpr int kChunks = kItemsPerStage * kPerItem;
-    CoefT* slot = ring + static_cast<size_t>(stage % kStages) * kItemsPerStage * 4 * kTileEvents;
-    const int first = stage * kItemsPerStage;
 #pragma unroll
     for (int q = threadIdx.x; q < kChunks; q += kTileEvents) {
       const int i = q / kPerItem;
@@ -205,14 +232,70 @@ struct TileCore {
   }
 
   // Starts the copies of the first kStages − 1 stages, so that they are in
-  // flight while the caller forms its starting weights; multiply() follows.
+  // flight while the caller forms its starting weights; for_each_item() or
+  // multiply() follows. A second walk over the same items needs a barrier
+  // between the first walk's end and this call.
   __device__ __forceinline__ void start(const CoefT* __restrict__ coeffs, size_t es, int E,
-                                        int e0, int n_items) {
+                                        int e0, int n_items, bool aligned = true) {
     const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
     for (int g = 0; g < kStages - 1; ++g) {
-      if (g < n_stages) copy_stage(coeffs, es, E, e0, g, n_items);
+      if (g < n_stages) copy_stage(coeffs, es, E, e0, g, n_items, aligned);
       __pipeline_commit();
     }
+  }
+
+  // After start(): calls body(i, jm, y, b, c, d) for each item i of the tile
+  // in order, with jm = item_jm[i] and the item's 4 coefficients at this
+  // thread's event (e0 + threadIdx.x; garbage past E). Every thread of the
+  // block calls it (it contains barriers), whether its event exists or not;
+  // the body may use warp collectives when the whole warp calls it alike.
+  template <typename Body>
+  __device__ __forceinline__ void for_each_item(const CoefT* __restrict__ coeffs, size_t es,
+                                                int E, int e0, int n_items, bool aligned,
+                                                Body&& body) {
+    const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
+    for (int g = 0; g < n_stages; ++g) {
+      __pipeline_wait_prior(kStages - 2);
+      __syncthreads();  // stage g has landed; stage g − 1's slot is free
+      if (g + kStages - 1 < n_stages) {
+        copy_stage(coeffs, es, E, e0, g + kStages - 1, n_items, aligned);
+      }
+      __pipeline_commit();
+      visit_stage(g, n_items, body);
+    }
+    __pipeline_wait_prior(0);
+  }
+
+  // Whether a walk over n_items leaves every item's rows in the ring.
+  __device__ __forceinline__ bool holds(int n_items) const {
+    return n_items <= n_slots * kItemsPerStage;
+  }
+
+  // After a for_each_item walk over the same items that holds() them, and a
+  // barrier: the same calls of body from the rows still in the ring, with
+  // no copy and no barrier.
+  template <typename Body>
+  __device__ __forceinline__ void for_each_held_item(int n_items, Body&& body) {
+    const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
+    for (int g = 0; g < n_stages; ++g) visit_stage(g, n_items, body);
+  }
+
+  template <typename Body>
+  __device__ __forceinline__ void visit_stage(int g, int n_items, Body& body) {
+    const CoefT* slot = ring +
+        static_cast<size_t>(g % n_slots) * kItemsPerStage * 4 * kTileEvents + threadIdx.x;
+    const int first = g * kItemsPerStage;
+    const int n = min(kItemsPerStage, n_items - first);
+    for (int i = 0; i < n; ++i) {
+      const CoefT* co = slot + i * 4 * kTileEvents;
+      body(first + i, item_jm[first + i], load_coef(co), load_coef(co + kTileEvents),
+           load_coef(co + 2 * kTileEvents), load_coef(co + 3 * kTileEvents));
+    }
+  }
+
+  // The item's 16 t values, as four float4 (broadcast reads).
+  __device__ __forceinline__ const float4* item_t(int jm) const {
+    return reinterpret_cast<const float4*>(t + (jm >> 16) * kTileChains);
   }
 
   // After start(): w[c] *= Π over the tile's items of the response of this
@@ -220,36 +303,19 @@ struct TileCore {
   // calls both (multiply contains barriers), whether its event exists or not.
   __device__ __forceinline__ void multiply(const CoefT* __restrict__ coeffs, size_t es, int E,
                                            int e0, int n_items, float (&w)[kTileChains]) {
-    const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
-    for (int g = 0; g < n_stages; ++g) {
-      __pipeline_wait_prior(kStages - 2);
-      __syncthreads();  // stage g has landed; stage g − 1's slot is free
-      if (g + kStages - 1 < n_stages) copy_stage(coeffs, es, E, e0, g + kStages - 1, n_items);
-      __pipeline_commit();
-      const CoefT* slot = ring +
-          static_cast<size_t>(g % kStages) * kItemsPerStage * 4 * kTileEvents + threadIdx.x;
-      const int first = g * kItemsPerStage;
-      const int n = min(kItemsPerStage, n_items - first);
-      for (int i = 0; i < n; ++i) {
-        const int jm = item_jm[first + i];
-        const unsigned mask = static_cast<unsigned>(jm) & 0xffffu;
-        const float4* tp = reinterpret_cast<const float4*>(t + (jm >> 16) * kTileChains);
-        const CoefT* co = slot + i * 4 * kTileEvents;
-        const float y = load_coef(co);
-        const float b = load_coef(co + kTileEvents);
-        const float c = load_coef(co + 2 * kTileEvents);
-        const float d = load_coef(co + 3 * kTileEvents);
-        const float4 ta = tp[0], tb = tp[1], tc = tp[2], td = tp[3];
+    for_each_item(coeffs, es, E, e0, n_items, true,
+                  [&](int, int jm, float y, float b, float c, float d) {
+      const unsigned mask = static_cast<unsigned>(jm) & 0xffffu;
+      const float4* tp = item_t(jm);
+      const float4 ta = tp[0], tb = tp[1], tc = tp[2], td = tp[3];
 #define M3_STEP(C, T) \
   if (mask & (1u << (C))) w[C] *= fmaf(T, fmaf(T, fmaf(T, d, c), b), y);
-        M3_STEP(0, ta.x) M3_STEP(1, ta.y) M3_STEP(2, ta.z) M3_STEP(3, ta.w)
-        M3_STEP(4, tb.x) M3_STEP(5, tb.y) M3_STEP(6, tb.z) M3_STEP(7, tb.w)
-        M3_STEP(8, tc.x) M3_STEP(9, tc.y) M3_STEP(10, tc.z) M3_STEP(11, tc.w)
-        M3_STEP(12, td.x) M3_STEP(13, td.y) M3_STEP(14, td.z) M3_STEP(15, td.w)
+      M3_STEP(0, ta.x) M3_STEP(1, ta.y) M3_STEP(2, ta.z) M3_STEP(3, ta.w)
+      M3_STEP(4, tb.x) M3_STEP(5, tb.y) M3_STEP(6, tb.z) M3_STEP(7, tb.w)
+      M3_STEP(8, tc.x) M3_STEP(9, tc.y) M3_STEP(10, tc.z) M3_STEP(11, tc.w)
+      M3_STEP(12, td.x) M3_STEP(13, td.y) M3_STEP(14, td.z) M3_STEP(15, td.w)
 #undef M3_STEP
-      }
-    }
-    __pipeline_wait_prior(0);
+    });
   }
 
   // After multiply(): writes the block's weights into the ring's memory as
@@ -269,6 +335,53 @@ struct TileCore {
   }
 };
 
+// Shift kinds (splines/reweight.py SHIFT_KINDS). shift_factor is the
+// per-chain constant a of shift_x: 1 + v, or v for "offset".
+constexpr int kShiftScale = 0;     // x * (1 + v)
+constexpr int kShiftOffset = 1;    // x + v
+constexpr int kShiftAboutOne = 2;  // 1 + (x - 1) * (1 + v)
+
+__device__ __forceinline__ float shift_factor(int kind, float v) {
+  return kind == kShiftOffset ? v : __fadd_rn(1.0f, v);
+}
+
+// The shifted value, one rounding per operation in the plain version's
+// order (no FMA contraction), so it lands in the same bin as the f32
+// reference.
+__device__ __forceinline__ float shift_x(int kind, float x, float a) {
+  switch (kind) {
+    case kShiftOffset:
+      return __fadd_rn(x, a);
+    case kShiftAboutOne:
+      return __fadd_rn(1.0f, __fmul_rn(__fsub_rn(x, 1.0f), a));
+    default:
+      return __fmul_rn(x, a);
+  }
+}
+
+// The flat bin of an event on a shifted axis: static + stride·idx with idx =
+// #(edges ≤ x) − 1 by binary search over the strictly increasing edges in
+// shared memory, or −1 (dropped) when static < 0 or idx ∉ [0, n_axis). A NaN
+// x compares false everywhere: idx = −1.
+__device__ __forceinline__ int shifted_bin(int kind, float x_nom, float a, int static_bin,
+                                           const float* sh_edges, int n_edges, int stride,
+                                           int n_axis) {
+  if (static_bin < 0) return -1;
+  const float x = shift_x(kind, x_nom, a);
+  int lo = 0;
+  int hi = n_edges;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sh_edges[mid] <= x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int idx = lo - 1;
+  return (idx < 0 || idx >= n_axis) ? -1 : static_bin + stride * idx;
+}
+
 // The tail of a tile: thread (chain = tid % 16, event group = tid / 16) walks
 // 16 consecutive events of one chain. Lanes of a warp then add into 16
 // different chains' histograms, so a shared-memory float atomicAdd (a
@@ -277,9 +390,11 @@ struct TileCore {
 // (sorted events) is summed in registers and added once.
 constexpr int kTailEvents = kTileEvents / kTileChains;
 
-// The in-kernel norm product of a chain tile: log|ext| (floored at 1e-30)
-// and the sign flags of chains [c0, c0 + nct), as [na1][kTileChains] arrays
-// in shared memory. A barrier must follow before norm_factor reads them.
+// The in-kernel norm product of a chain tile: log|ext| (floored at 1e-30; a
+// NaN stays NaN, as in the plain version and the TPU kernel, so that it
+// spoils the chain's NLL) and the sign flags of chains [c0, c0 + nct), as
+// [na1][kTileChains] arrays in shared memory. A barrier must follow before
+// norm_factor reads them.
 __device__ __forceinline__ void norm_prepare(float* sh_logext, float* sh_neg,
                                              const float* __restrict__ norm_ext, int c0,
                                              int nct, int na1) {
@@ -287,7 +402,8 @@ __device__ __forceinline__ void norm_prepare(float* sh_logext, float* sh_neg,
     const int c = i / na1;
     const int k = i - c * na1;
     const float v = c < nct ? norm_ext[static_cast<size_t>(c0 + c) * na1 + k] : 1.f;
-    sh_logext[k * kTileChains + c] = logf(fmaxf(fabsf(v), 1e-30f));
+    const float a = fabsf(v);
+    sh_logext[k * kTileChains + c] = logf(a < 1e-30f ? 1e-30f : a);  // fmaxf drops a NaN
     sh_neg[k * kTileChains + c] = v < 0.f ? 1.f : 0.f;
   }
 }

@@ -559,13 +559,14 @@ class SampleModel(nn.Module):
         (``fused_reweight_diff`` on the shared route,
         ``fused_reweight_diff_shifted`` on the shifted one,
         ``fused_reweight_diff_perchain`` on the generic one): the first four
-        are (t, base_w, seg, coeffs), the last positional one the bins the
-        backward gathers at. The base weight carries the norm product (the
+        are (t, base_w, seg, coeffs), then the static bins (shared), the
+        per-chain bins of the shifted kinematics (generic) or the shift
+        arguments from which the forward and the backward kernel both bin
+        in-kernel (shifted; the shift value rounded to f32, as the plain
+        binning takes it). The base weight carries the norm product (the
         gather product, an exact 0 for a zero norm), TF1 and weight
-        functions; on the shifted route the bins are the plain binning's,
-        which the kernel's in-kernel binning reproduces (the shift value is
-        rounded to f32 on both), and the forward runs under the sample's
-        activity plan while the backward passes read every parameter."""
+        functions. On the shared and shifted routes the forward and the
+        backward run under the sample's activity plan."""
         base_w = self._base_weight(thetas, osc_grids_batch, norm=True)
         table = self.spline_table
         seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
@@ -576,12 +577,11 @@ class SampleModel(nn.Module):
                 n_bins=self.n_bins, tile_start=self.hist_tile_start,
                 tile_width=self.hist_tile_width, plan_ptr=self.hist_plan_ptr,
                 plan_idx=self.hist_plan_idx, nbl=self.hist_nbl)
-        bins = self._perchain_bins(thetas).to(torch.int32)
         if route == "generic":
-            return head + (bins,), dict(n_bins=self.n_bins)
+            return head + (self._perchain_bins(thetas).to(torch.int32),), dict(n_bins=self.n_bins)
         kind, param_index, stride_j, n_axis_j = self.kernel_shift
         return head + (thetas[:, param_index].to(FTYPE), self.kin[self.shifts[0].var_row],
-                       self.shift_static_base, self.shift_edges, bins), dict(
+                       self.shift_static_base, self.shift_edges), dict(
             n_bins=self.n_bins, shift_kind=kind, stride_j=stride_j, n_axis_j=n_axis_j,
             plan_ptr=self.hist_plan_ptr, plan_idx=self.hist_plan_idx)
 
@@ -590,7 +590,7 @@ class SampleModel(nn.Module):
     ) -> torch.Tensor:
         """[C, NP] -> [C] -logL, differentiable through the fused kernels: the
         forward is the sample's reweight kernel with the norm product in the
-        base weight, the backward the two passes of ``splines/grad.py``. A
+        base weight, the backward the kernel of ``splines/grad.py``. A
         sample with no kernel route takes :meth:`log_likelihood_batch_plain`."""
         route = self._diff_route()
         if route is None:

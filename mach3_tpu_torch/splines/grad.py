@@ -5,31 +5,43 @@ Gradient samplers (``fitters/hmc.py``) and the minimiser
 (``fitters/minimize.py``) differentiate the likelihood through the same
 forward kernels as the sampling path (``splines/reweight.py``, with the norm
 product left out of the kernel: the norm rides ``base_w`` and ordinary
-autograd). The backward is two hand-written passes, ``csrc/reweight_grad.cu``:
+autograd). The backward, :func:`reweight_backward`, is one hand-written
+kernel, ``csrc/reweight_backward.cu``, that computes both of the TPU's passes
+in one launch:
 
-* ``grad_pass_a`` — port of K6a ``_kernel_grad_a``: per (chain, event) the
-  product of the nonzero responses ``pnz``, the count of zero ones ``nz``,
-  the cotangent gather ``G = ḡ_mc[bin] + 2w·ḡ_w2[bin]`` (0 outside the bins)
-  and the fields ``ḡ_base = G·Π resp`` and ``sev = G·base``;
-* ``grad_pass_b`` — port of K6b ``_kernel_grad_b``: the exclusion products
+* K6a ``_kernel_grad_a``'s function: per (chain, event) the product of the
+  nonzero responses ``pnz``, the count of zero ones ``nz``, the cotangent
+  gather ``G = ḡ_mc[bin] + 2w·ḡ_w2[bin]`` (0 outside the bins) and
+  ``ḡ_base = G·Π resp``;
+* K6b ``_kernel_grad_b``'s function: the exclusion products
   ``Π_{q≠p} resp_q`` from (pnz, nz) without a division by zero, reduced
   against the slope of each response:
-  ``ḡ_t[c, p] = Σ_e sev·excl_p·(b + 2t·c + 3t²·d)``.
+  ``ḡ_t[c, p] = Σ_e G·base·excl_p·(b + 2t·c + 3t²·d)``.
+
+Its plain version, :func:`reweight_backward_ref`, runs the two passes
+:func:`grad_pass_a_ref` (which also returns ``sev = G·base``, pnz and nz) and
+:func:`grad_pass_b_ref`. The bins
+are the shared route's static bins [E], the generic route's per-chain bins
+[C, E], or, on the shifted route, a :class:`ShiftedBins`: the forward's shift
+arguments, from which the kernel bins each (chain, event) as the forward
+kernel does and the plain route calls ``reweight.shifted_bins_ref``. The
+shared and shifted routes hand the backward their forward's activity plan.
 
 The port's kernels take ``(seg, t)`` [C, P] instead of JAX's [C, P, K4]
 selector; ``t = value − knot[seg]``, so ``ḡ_t`` is the gradient with respect
 to the parameter value, and it equals JAX's ``ḡ_selector`` contracted with
 ``∂selector/∂t = [0, 1, 2t, 3t²]`` at the segment.
 
-On a CUDA tensor a wrapper launches its kernel (built at first use by
-``kernels/build.py``); on a CPU tensor it runs the plain PyTorch version
-beside it (``*_ref``). There is no fallback: a CUDA call that cannot build or
-launch the kernel raises. The backward is ``once_differentiable``: second
-derivatives (the minimiser's Hesse step) take the plain route.
+On a CUDA tensor :func:`reweight_backward` launches the kernel (built at
+first use by ``kernels/build.py``); on a CPU tensor it runs the plain
+versions. There is no fallback: a CUDA call that cannot build or launch the
+kernel raises. The backward is ``once_differentiable``: second derivatives
+(the minimiser's Hesse step) take the plain route.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -38,7 +50,14 @@ from ..core.precision import FTYPE
 from .eval import coefficient_rows
 from .plan import EVENT_TILE
 from .reweight import (
+    CHAIN_TILE,
+    ITEMS_PER_STAGE,
     LAUNCHES,
+    MAX_EDGES,
+    MAX_KNOTS,
+    MAX_SMEM,
+    RING_STAGES,
+    SHIFT_KINDS,
     _check_plan,
     _check_shapes,
     _check_tensors,
@@ -47,15 +66,48 @@ from .reweight import (
     fused_reweight_histogram,
     fused_reweight_histogram_shared,
     fused_reweight_histogram_shifted,
+    shifted_bins_ref,
+    tile_core_smem,
 )
 
 _C_VOIDP = ctypes.c_void_p
 _C_INT = ctypes.c_int
-_GRAD_A_ARGTYPES = (
-    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] + [_C_VOIDP] * 8 + [_C_INT] * 6
-    + [_C_VOIDP]
+_BACKWARD_ARGTYPES = (
+    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] * 4
+    + [_C_VOIDP] * 6 + [_C_INT] * 8 + [_C_VOIDP]
 )
-_GRAD_B_ARGTYPES = [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 6 + [_C_INT] * 5 + [_C_VOIDP]
+#: Where the kernel takes an event's bin from (``csrc/reweight_backward.cu``).
+BINS_SHARED, BINS_PER_CHAIN, BINS_SHIFTED = 0, 1, 2
+#: Warps of a block: each keeps 16 chains' sums per listed parameter in
+#: shared memory until the block adds them up.
+_WARPS = EVENT_TILE // 32
+#: Work items (a parameter's 4 coefficient rows at one segment) whose rows
+#: the backward's ring keeps from phase 1 for phase 2, so that a tile with
+#: at most this many reads its rows once; a tile with more copies them
+#: again. The ring shrinks to keep a block within half an SM's shared
+#: memory (two blocks an SM, as the kernel's registers allow).
+HELD_ITEMS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedBins:
+    """The shifted route's per-chain bins, as the forward's shift arguments
+    (``reweight.fused_reweight_histogram_shifted``): the backward kernel bins
+    each (chain, event) itself, with the forward kernel's code."""
+
+    shift_vals: torch.Tensor  # [C] f32 — per-chain shift-parameter value
+    x_nom: torch.Tensor  # [E] f32 — nominal values of the shifted variable
+    static_base: torch.Tensor  # [E] i32 — static-axis bin contribution (-1 invalid)
+    edges: torch.Tensor  # [n_axis_j + 1] f32 — edges of the shifted axis
+    shift_kind: str
+    stride_j: int
+    n_axis_j: int
+
+    def bins(self, n_bins: int) -> torch.Tensor:
+        """The [C, E] int32 bins of the plain route (``n_bins``: dropped)."""
+        return shifted_bins_ref(self.shift_vals, self.x_nom, self.static_base, self.edges,
+                                n_bins=n_bins, shift_kind=self.shift_kind,
+                                stride_j=self.stride_j, n_axis_j=self.n_axis_j)
 
 
 def _response_and_slope(coeffs, seg, t, p, dtype):
@@ -70,9 +122,10 @@ def _response_and_slope(coeffs, seg, t, p, dtype):
 
 def grad_pass_a_ref(seg, t, coeffs, base_w, bins, gmc, gw2, *, n_bins, plan_ptr=None,
                     plan_idx=None):
-    """Plain PyTorch version of pass A, on any device and in ``base_w``'s
-    dtype: every parameter (a plan only skips exact identities). Same
-    arguments and results as :func:`grad_pass_a`."""
+    """Plain PyTorch version of K6a's pass, on any device and in ``base_w``'s
+    dtype: every parameter (a plan only skips exact identities). Arguments
+    as :func:`reweight_backward` (bins [E] or [C, E]); returns (ḡ_base, sev =
+    G·base, pnz [C, E], nz [C, E] int32)."""
     dtype = base_w.dtype
     pnz = torch.ones_like(base_w)
     nz = torch.zeros(base_w.shape, dtype=torch.int32, device=base_w.device)
@@ -106,8 +159,8 @@ def _pass_b_sums(seg, t, coeffs, sev, pnz, nz, absolute: bool):
 
 
 def grad_pass_b_ref(seg, t, coeffs, sev, pnz, nz, *, plan_ptr=None, plan_idx=None):
-    """Plain PyTorch version of pass B, on any device and in ``sev``'s dtype.
-    Same arguments and results as :func:`grad_pass_b`."""
+    """Plain PyTorch version of K6b's pass, on any device and in ``sev``'s
+    dtype: ḡ_t [C, P] from pass A's sev, pnz and nz."""
     return _pass_b_sums(seg, t, coeffs, sev, pnz, nz, absolute=False)
 
 
@@ -118,122 +171,136 @@ def pass_b_term_scale(seg, t, coeffs, sev, pnz, nz) -> torch.Tensor:
     return _pass_b_sums(seg, t, coeffs, sev.double(), pnz.double(), nz, absolute=True)
 
 
-def _check_a(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, plan_idx):
-    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, bins=bins, gmc=gmc, gw2=gw2)
+def reweight_backward_ref(seg, t, coeffs, base_w, bins, gmc, gw2, *, n_bins, plan_ptr=None,
+                          plan_idx=None, need_t=True):
+    """Plain PyTorch version of the backward kernel, on any device: the
+    shifted route's bins by ``shifted_bins_ref``, then pass A and pass B over
+    every parameter (a plan only skips exact identities). Same arguments and
+    results as :func:`reweight_backward`."""
+    if isinstance(bins, ShiftedBins):
+        bins = bins.bins(n_bins)
+    gbase, sev, pnz, nz = grad_pass_a_ref(seg, t, coeffs, base_w, bins, gmc.to(FTYPE),
+                                          gw2.to(FTYPE), n_bins=n_bins)
+    return (grad_pass_b_ref(seg, t, coeffs, sev, pnz, nz) if need_t else None), gbase
+
+
+def backward_smem(coeffs: torch.Tensor, n_edges: int = 0, need_t: bool = True,
+                  stages: int = RING_STAGES) -> int:
+    """Bytes of shared memory a block of the backward kernel takes for this
+    table: the tile core with a ring of ``stages`` stages, with ``need_t``
+    the warps' sums (8 x 16 floats per parameter) and a slot per parameter,
+    and a shifted axis's ``n_edges`` edges and 16 shift factors."""
+    p = coeffs.shape[0]
+    sums = (_WARPS * CHAIN_TILE + 1) * p * 4 if need_t else 0
+    return (tile_core_smem(coeffs, 0, stages) + sums
+            + ((n_edges + CHAIN_TILE) * 4 if n_edges else 0))
+
+
+def _ring_stages(coeffs: torch.Tensor, n_edges: int, need_t: bool) -> int:
+    """The backward's ring: enough stages for ``HELD_ITEMS`` items (phase 2
+    only runs with ``need_t``), fewer while a block would take more than
+    half an SM's shared memory, never fewer than ``RING_STAGES``."""
+    stages = max(RING_STAGES, -(-HELD_ITEMS // ITEMS_PER_STAGE)) if need_t else RING_STAGES
+    while stages > RING_STAGES and backward_smem(coeffs, n_edges, need_t, stages) > MAX_SMEM // 2:
+        stages -= 1
+    return stages
+
+
+def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, plan_idx,
+                    need_t) -> tuple[int, bool]:
+    """Every argument of :func:`reweight_backward`; returns (bins kind, has
+    a plan)."""
+    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, gmc=gmc, gw2=gw2)
+    shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"), gmc=("C", n_bins),
+                  gw2=("C", n_bins))
+    n_edges = 0
+    if isinstance(bins, ShiftedBins):
+        kind = BINS_SHIFTED
+        named.update(shift_vals=bins.shift_vals, x_nom=bins.x_nom,
+                     static_base=bins.static_base, edges=bins.edges)
+        n_edges = bins.n_axis_j + 1
+        shapes.update(shift_vals=("C",), x_nom=("E",), static_base=("E",), edges=(n_edges,))
+        if not 2 <= n_edges <= MAX_EDGES:
+            raise ValueError(f"{n_edges} edges outside [2, {MAX_EDGES}]")
+        if bins.shift_kind not in SHIFT_KINDS:
+            raise ValueError(f"shift kind {bins.shift_kind!r} unknown to the kernel "
+                             f"({sorted(SHIFT_KINDS)})")
+    else:
+        kind = BINS_PER_CHAIN if isinstance(bins, torch.Tensor) and bins.dim() == 2 else BINS_SHARED
+        named["bins"] = bins
+        shapes["bins"] = ("C", "E") if kind == BINS_PER_CHAIN else ("E",)
     has_plan = _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
     _check_tensors(named, None, None)
-    per_chain = bins.dim() == 2
-    shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"),
-                  bins=("C", "E") if per_chain else ("E",), gmc=("C", n_bins),
-                  gw2=("C", n_bins))
     _check_shapes(named, shapes, coeffs, base_w, None, None)
     if n_bins < 1:
         raise ValueError(f"n_bins={n_bins} < 1")
-    return per_chain, has_plan
+    if coeffs.shape[1] // 4 > MAX_KNOTS:
+        raise ValueError(f"{coeffs.shape[1] // 4} knots > {MAX_KNOTS}")
+    smem = backward_smem(coeffs, n_edges, need_t)
+    if smem > MAX_SMEM:
+        raise ValueError(f"a block needs {smem} bytes of shared memory > {MAX_SMEM}")
+    return kind, has_plan
 
 
-def grad_pass_a(
+def reweight_backward(
     seg: torch.Tensor,  # [C, P] i32 — spline segment per (chain, param)
     t: torch.Tensor,  # [C, P] f32 — local coordinate in that segment
-    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16
+    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16, any row pitch
     base_w: torch.Tensor,  # [C, E] f32 — the forward's base weight
-    bins: torch.Tensor,  # [E] (shared) or [C, E] (per-chain) i32; outside [0, n_bins): no gather
-    gmc: torch.Tensor,  # [C, n_bins] f32 — cotangent of Σw
-    gw2: torch.Tensor,  # [C, n_bins] f32 — cotangent of Σw²
+    bins,  # [E] (shared) or [C, E] (per-chain) i32, outside [0, n_bins) no gather; or ShiftedBins
+    gmc: torch.Tensor,  # [C, n_bins] — cotangent of Σw
+    gw2: torch.Tensor,  # [C, n_bins] — cotangent of Σw²
     *,
     n_bins: int,
     plan_ptr: torch.Tensor | None = None,  # [T + 1] i32 — CSR offsets (tiles of EVENT_TILE)
     plan_idx: torch.Tensor | None = None,  # [nnz] i32 — each tile's active params
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pass A: (ḡ_base, sev, pnz [C, E] f32, nz [C, E] i32). Launches the
-    CUDA kernel for CUDA tensors, runs the plain version for CPU tensors,
-    raises otherwise. A plan must list every parameter that is not the
-    identity on some event of a tile."""
-    per_chain, has_plan = _check_a(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins,
-                                   plan_ptr, plan_idx)
-    dev = seg.device
-    if dev.type == "cpu":
-        return grad_pass_a_ref(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins=n_bins,
-                               plan_ptr=plan_ptr, plan_idx=plan_idx)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    lib = _library("reweight_grad", _GRAD_A_ARGTYPES, entry="reweight_grad_a")
-    c, p = seg.shape
-    k4, e = coeffs.shape[1], coeffs.shape[2]
-    gbase, sev, pnz = (torch.empty((c, e), dtype=FTYPE, device=dev) for _ in range(3))
-    nz = torch.empty((c, e), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.m3_reweight_grad_a(
-            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), int(coeffs.dtype == torch.bfloat16),
-            base_w.data_ptr(), bins.data_ptr(), int(per_chain), gmc.data_ptr(), gw2.data_ptr(),
-            plan_ptr.data_ptr() if has_plan else None, plan_idx.data_ptr() if has_plan else None,
-            gbase.data_ptr(), sev.data_ptr(), pnz.data_ptr(), nz.data_ptr(),
-            c, p, k4, e, n_bins, EVENT_TILE, stream,
-        )
-    _raise_on(lib, rc, "reweight_grad_a")
-    LAUNCHES["grad_a"] += 1
-    return gbase, sev, pnz, nz
-
-
-def grad_pass_b(
-    seg: torch.Tensor,  # [C, P] i32
-    t: torch.Tensor,  # [C, P] f32
-    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16
-    sev: torch.Tensor,  # [C, E] f32 — pass A's G·base
-    pnz: torch.Tensor,  # [C, E] f32 — pass A's product of nonzero responses
-    nz: torch.Tensor,  # [C, E] i32 — pass A's count of zero responses
-    *,
-    plan_ptr: torch.Tensor | None = None,
-    plan_idx: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Pass B: ḡ_t [C, P] f32. Launches the CUDA kernel for CUDA tensors
-    (per-tile partial sums, then a sum over tiles), runs the plain version
-    for CPU tensors, raises otherwise."""
-    named = dict(seg=seg, t=t, coeffs=coeffs, sev=sev, pnz=pnz, nz=nz)
-    has_plan = _check_plan(named, plan_ptr, plan_idx, sev.shape[-1])
-    _check_tensors(named, None, None)
-    _check_shapes(named, dict(seg=("C", "P"), t=("C", "P"), sev=("C", "E"), pnz=("C", "E"),
-                              nz=("C", "E")), coeffs, sev, None, None)
-    dev = seg.device
-    if dev.type == "cpu":
-        return grad_pass_b_ref(seg, t, coeffs, sev, pnz, nz, plan_ptr=plan_ptr,
-                               plan_idx=plan_idx)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    lib = _library("reweight_grad", _GRAD_B_ARGTYPES, entry="reweight_grad_b")
-    c, p = seg.shape
-    k4, e = coeffs.shape[1], coeffs.shape[2]
-    partial = torch.empty((-(-e // EVENT_TILE), c, p), dtype=FTYPE, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.m3_reweight_grad_b(
-            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), int(coeffs.dtype == torch.bfloat16),
-            sev.data_ptr(), pnz.data_ptr(), nz.data_ptr(),
-            plan_ptr.data_ptr() if has_plan else None, plan_idx.data_ptr() if has_plan else None,
-            partial.data_ptr(), c, p, k4, e, EVENT_TILE, stream,
-        )
-    _raise_on(lib, rc, "reweight_grad_b")
-    LAUNCHES["grad_b"] += 1
-    return partial.sum(0)
-
-
-def reweight_backward(seg, t, coeffs, base_w, bins, gmc, gw2, *, n_bins, plan_ptr=None,
-                      plan_idx=None, need_t: bool = True):
-    """Both passes: (ḡ_t [C, P] or None, ḡ_base [C, E]) for the output
-    cotangents (ḡ_mc, ḡ_w2) [C, n_bins]."""
+    need_t: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """(ḡ_t [C, P] f32 or None without ``need_t``, ḡ_base [C, E] f32) for the
+    output cotangents (ḡ_mc, ḡ_w2). Launches the CUDA kernel for CUDA
+    tensors, runs the plain passes for CPU tensors, raises otherwise. A plan
+    must list every parameter that is not the identity on some event of a
+    tile."""
     gmc, gw2 = (g.to(FTYPE).contiguous() for g in (gmc, gw2))
-    gbase, sev, pnz, nz = grad_pass_a(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins=n_bins,
-                                      plan_ptr=plan_ptr, plan_idx=plan_idx)
-    g_t = None
-    if need_t:
-        g_t = grad_pass_b(seg, t, coeffs, sev, pnz, nz, plan_ptr=plan_ptr, plan_idx=plan_idx)
-    return g_t, gbase
+    kind, has_plan = _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr,
+                                     plan_idx, need_t)
+    dev = seg.device
+    if dev.type == "cpu":
+        return reweight_backward_ref(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins=n_bins,
+                                     need_t=need_t)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    lib = _library("reweight_backward", _BACKWARD_ARGTYPES)
+    c, p = seg.shape
+    k4, e = coeffs.shape[1], coeffs.shape[2]
+    gbase = torch.empty((c, e), dtype=FTYPE, device=dev)
+    partial = (torch.empty((-(-e // EVENT_TILE), c, p), dtype=FTYPE, device=dev)
+               if need_t else None)
+    if kind == BINS_SHIFTED:
+        bins_ptr = None
+        shift = (bins.shift_vals.data_ptr(), bins.x_nom.data_ptr(), bins.static_base.data_ptr(),
+                 bins.edges.data_ptr(), bins.n_axis_j + 1, bins.stride_j, bins.n_axis_j,
+                 SHIFT_KINDS[bins.shift_kind][0])
+    else:
+        bins_ptr, shift = bins.data_ptr(), (None,) * 4 + (0,) * 4
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.m3_reweight_backward(
+            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), int(coeffs.dtype == torch.bfloat16),
+            base_w.data_ptr(), kind, bins_ptr, *shift, gmc.data_ptr(), gw2.data_ptr(),
+            plan_ptr.data_ptr() if has_plan else None, plan_idx.data_ptr() if has_plan else None,
+            gbase.data_ptr(), None if partial is None else partial.data_ptr(),
+            c, p, k4, e, n_bins, _ring_stages(coeffs, shift[4], need_t), EVENT_TILE, CHAIN_TILE,
+            stream,
+        )
+    _raise_on(lib, rc, "reweight_backward")
+    LAUNCHES["reweight_backward"] += 1
+    return (partial.sum(0) if need_t else None), gbase
 
 
 class _FusedReweightDiff(torch.autograd.Function):
     """Static (shared) bins: forward on the shared kernel under the sample's
-    plan, backward K6a + K6b with the same plan. Port of
+    plan, backward (K6a + K6b) with the same plan. Port of
     ``fused_reweight_diff`` (shared bins)."""
 
     @staticmethod
@@ -257,35 +324,40 @@ class _FusedReweightDiff(torch.autograd.Function):
 
 
 class _FusedReweightDiffShifted(torch.autograd.Function):
-    """Per-chain bins of a shifted axis: forward on the shifted kernel (which
-    bins in-kernel, under the sample's activity plan when it has one),
-    backward K6a + K6b with the per-chain bins of the plain binning, reading
-    every parameter. Port of ``fused_reweight_diff_shifted``. Bins are
-    piecewise constant in θ: the shift value gets its a.e.-zero gradient."""
+    """Per-chain bins of a shifted axis: forward on the shifted kernel and
+    backward (K6a + K6b), both binning in-kernel from the shift arguments and
+    both under the sample's activity plan when it has one. Port of
+    ``fused_reweight_diff_shifted``. Bins are piecewise constant in θ: the
+    shift value gets its a.e.-zero gradient."""
 
     @staticmethod
-    def forward(ctx, t, base_w, seg, coeffs, shift_vals, x_nom, static_base, edges, bins,
-                n_bins, shift_kind, stride_j, n_axis_j, plan_ptr, plan_idx):
+    def forward(ctx, t, base_w, seg, coeffs, shift_vals, x_nom, static_base, edges, n_bins,
+                shift_kind, stride_j, n_axis_j, plan_ptr, plan_idx):
         mc, w2 = fused_reweight_histogram_shifted(
             seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges, n_bins=n_bins,
             shift_kind=shift_kind, stride_j=stride_j, n_axis_j=n_axis_j, plan_ptr=plan_ptr,
             plan_idx=plan_idx)
-        ctx.save_for_backward(t, base_w, seg, coeffs, bins)
+        ctx.save_for_backward(t, base_w, seg, coeffs, shift_vals, x_nom, static_base, edges,
+                              plan_ptr, plan_idx)
         ctx.n_bins = n_bins
+        ctx.shift = (shift_kind, stride_j, n_axis_j)
         return mc, w2
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gmc, gw2):
-        t, base_w, seg, coeffs, bins = ctx.saved_tensors
+        t, base_w, seg, coeffs, shift_vals, x_nom, static_base, edges, plan_ptr, plan_idx = (
+            ctx.saved_tensors)
+        bins = ShiftedBins(shift_vals, x_nom, static_base, edges, *ctx.shift)
         g_t, g_base = reweight_backward(seg, t, coeffs, base_w, bins, gmc, gw2,
-                                        n_bins=ctx.n_bins, need_t=ctx.needs_input_grad[0])
-        return (g_t, g_base) + (None,) * 13
+                                        n_bins=ctx.n_bins, plan_ptr=plan_ptr, plan_idx=plan_idx,
+                                        need_t=ctx.needs_input_grad[0])
+        return (g_t, g_base) + (None,) * 12
 
 
 class _FusedReweightDiffPerchain(torch.autograd.Function):
     """Per-chain bins given as input (the generic route): forward on the
-    per-chain kernel K5, backward K6a + K6b at the same bins. Port of
+    per-chain kernel K5, backward (K6a + K6b) at the same bins. Port of
     ``fused_reweight_diff`` with per-chain bins (``pallas_grad.py:319-345``).
     Bins are integer inputs: no gradient flows to them."""
 
@@ -333,7 +405,6 @@ def fused_reweight_diff_shifted(
     x_nom: torch.Tensor,  # [E] f32
     static_base: torch.Tensor,  # [E] i32
     edges: torch.Tensor,  # [n_axis_j + 1] f32
-    bins: torch.Tensor,  # [C, E] i32 — the plain binning's per-chain bins
     *,
     n_bins: int,
     shift_kind: str,
@@ -345,8 +416,7 @@ def fused_reweight_diff_shifted(
     """Differentiable (mc, w2) [C, n_bins] of a shifted-route sample."""
     return _FusedReweightDiffShifted.apply(
         t.contiguous(), base_w.contiguous(), seg, coeffs, shift_vals.contiguous(), x_nom,
-        static_base, edges, bins.contiguous(), n_bins, shift_kind, stride_j, n_axis_j,
-        plan_ptr, plan_idx)
+        static_base, edges, n_bins, shift_kind, stride_j, n_axis_j, plan_ptr, plan_idx)
 
 
 def fused_reweight_diff_perchain(

@@ -22,7 +22,7 @@ versions.
 
 They serve the sampling path (norm product in the shifted and shared
 kernels) and, with the norm left out, the forward of the differentiable
-path, whose backward kernels K6a and K6b live in ``splines/grad.py``.
+path, whose backward kernel (K6a and K6b fused) lives in ``splines/grad.py``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel (built at first
 use by ``kernels/build.py``); on a CPU tensor it runs the plain PyTorch
@@ -77,11 +77,11 @@ ROW_ALIGN = 16
 #: A block's shared memory on Hopper.
 MAX_SMEM = 232448
 
-#: Launches of each CUDA kernel since its count was last set to 0, the two
-#: backward passes of ``splines/grad.py`` included. Only a CUDA launch adds
-#: to a count; the plain versions do not.
+#: Launches of each CUDA kernel since its count was last set to 0, the
+#: backward of ``splines/grad.py`` included. Only a CUDA launch adds to a
+#: count; the plain versions do not.
 LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0, "reweight_perchain": 0,
-            "reweight_perchain_blockdiag": 0, "grad_a": 0, "grad_b": 0}
+            "reweight_perchain_blockdiag": 0, "reweight_backward": 0}
 #: Histogram forms of ``fused_reweight_histogram``.
 HIST_FORMS = ("maskreduce", "blockdiag")
 #: Events per block of the per-chain kernels (``csrc/reweight_perchain.cu``):
@@ -113,11 +113,21 @@ def fused_reweight_histogram_shifted_ref(
     w = spline_product(coeffs, seg, t, base_w)
     if norm_ext is not None:
         w = w * norm_weight(norm_ext, norm_s)
+    bins = shifted_bins_ref(shift_vals, x_nom, static_base, edges, n_bins=n_bins,
+                            shift_kind=shift_kind, stride_j=stride_j, n_axis_j=n_axis_j)
+    return histogram(w, bins, n_bins)
+
+
+def shifted_bins_ref(shift_vals, x_nom, static_base, edges, *, n_bins, shift_kind, stride_j,
+                     n_axis_j) -> torch.Tensor:
+    """[C, E] int32 bins of the shifted route, as the kernels form them in
+    f32 (``csrc/spline_response.cuh`` ``shifted_bin``): ``static_base +
+    stride_j·idx`` with idx the shifted value's axis bin, ``n_bins`` (dropped)
+    where idx ∉ [0, n_axis_j) or ``static_base`` < 0."""
     x = SHIFT_KINDS[shift_kind][1](shift_vals[:, None], x_nom[None, :])
     idx = count_edges_le(edges, x) - 1
     valid = (idx >= 0) & (idx < n_axis_j) & (static_base >= 0)
-    bins = torch.where(valid, static_base + idx * stride_j, n_bins)
-    return histogram(w, bins, n_bins)
+    return torch.where(valid, static_base + idx * stride_j, n_bins)
 
 
 _INT_ARGS = ("seg", "static_base", "bins", "tile_start", "tile_width", "plan_ptr", "plan_idx",
@@ -168,12 +178,13 @@ def _check_shapes(named: dict, shapes: dict, coeffs, base_w, norm_ext, norm_s) -
     return c, p, e
 
 
-def tile_core_smem(coeffs: torch.Tensor, na1: int) -> int:
-    """Bytes of shared memory the tile core of a block takes for this table
-    and ``na1`` norm slots (``m3::core_bytes`` of ``csrc/spline_response.cuh``
-    plus the norm arrays); the kernel's histogram comes on top."""
+def tile_core_smem(coeffs: torch.Tensor, na1: int, stages: int = RING_STAGES) -> int:
+    """Bytes of shared memory the tile core of a block takes for this table,
+    a ring of ``stages`` stages and ``na1`` norm slots (``m3::core_bytes`` of
+    ``csrc/spline_response.cuh`` plus the norm arrays); the kernel's
+    histogram comes on top."""
     p, k4 = coeffs.shape[0], coeffs.shape[1]
-    ring = RING_STAGES * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
+    ring = stages * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
     items = p * min(k4 // 4, CHAIN_TILE)
     core = ring + p * CHAIN_TILE * 8 + (2 * p + 1) * 4 + items * 8
     return -(-core // 16) * 16 + 2 * CHAIN_TILE * na1 * 4
@@ -339,12 +350,20 @@ def fused_reweight_histogram_shared_ref(
     plan_ptr=None, plan_idx=None, nbl=None, norm_ext=None, norm_s=None,
 ):
     """Plain PyTorch version of the shared kernel, on any device: every
-    parameter, no window (the plan only skips exact identities). Same
-    arguments and results as :func:`fused_reweight_histogram_shared`."""
+    parameter, no window (the plan only skips exact identities), a bin
+    outside [0, n_bins) dropped. Same arguments and results as
+    :func:`fused_reweight_histogram_shared`."""
     w = spline_product(coeffs, seg, t, base_w)
     if norm_ext is not None:
         w = w * norm_weight(norm_ext, norm_s)
-    return histogram(w, bins.expand(w.shape), n_bins)
+    return histogram(w, _dropped_outside(bins, n_bins).expand(w.shape), n_bins)
+
+
+def _dropped_outside(bins: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """``bins`` as int64 with every bin outside [0, n_bins) at the garbage
+    bin ``n_bins``, which :func:`histogram` drops."""
+    b = bins.long()
+    return torch.where((b >= 0) & (b < n_bins), b, n_bins)
 
 
 def _check_shared(seg, t, coeffs, base_w, bins, n_bins, tile_start, tile_width, plan_ptr,
@@ -424,8 +443,7 @@ def fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, *, n_bins, hist="
     """Plain PyTorch version of both per-chain kernels, on any device. Same
     arguments and results as :func:`fused_reweight_histogram`."""
     w = spline_product(coeffs, seg, t, base_w)
-    b = bins.long()
-    return histogram(w, torch.where((b >= 0) & (b < n_bins), b, n_bins), n_bins)
+    return histogram(w, _dropped_outside(bins, n_bins), n_bins)
 
 
 def fused_reweight_histogram(

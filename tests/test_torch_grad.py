@@ -1,7 +1,7 @@
 """The gradient path of the port (``splines/grad.py``, the differentiable
 sample and model) vs the JAX package.
 
-* Pass A and pass B (K6a, K6b; plain versions on the CPU) against JAX's
+* The backward (K6a + K6b fused; on the CPU its plain passes) against JAX's
   ``_grad_backward`` in Pallas interpret mode, on synthetic inputs: shared
   and per-chain bins, P ≤ 16 and P > 16 (param-blocked in JAX), bins out of
   range, zero responses (nz = 0, 1, ≥ 2). The port's ḡ_t is held to JAX's
@@ -30,8 +30,9 @@ sample and model) vs the JAX package.
   JAX one, the ``LOW_MC_BOUND`` clamps, ``data == 0`` and ``w2 == 0``
   included: rtol 1e-9 (same f64 formulas).
 
-The ``cuda``-marked tests hold K6a/K6b to their plain versions on edge cases;
-they import no jax and run with ``--noconftest`` where a card is.
+The ``cuda``-marked tests hold the backward kernel to its plain passes on
+edge cases (more in ``tests/test_torch_backward.py``); they import no jax and
+run with ``--noconftest`` where a card is.
 """
 import types
 
@@ -215,10 +216,11 @@ JAX_CASES = {
 def test_passes_match_jax_and_own_autograd(jx, case):
     d = _inputs(**JAX_CASES[case])
     x = _port(d)
-    gbase, sev, pnz, nz = grad.grad_pass_a(x.seg, x.t, x.coeffs, x.base, x.bins, x.gmc, x.gw2,
-                                           n_bins=d.n_bins)
+    g_t, gbase = grad.reweight_backward(x.seg, x.t, x.coeffs, x.base, x.bins, x.gmc, x.gw2,
+                                        n_bins=d.n_bins)
+    nz = grad.grad_pass_a_ref(x.seg, x.t, x.coeffs, x.base, x.bins, x.gmc, x.gw2,
+                              n_bins=d.n_bins)[3]
     assert nz.dtype == torch.int32 and gbase.dtype == torch.float32
-    g_t = grad.grad_pass_b(x.seg, x.t, x.coeffs, sev, pnz, nz)
     p = x.coeffs.shape[0]
     own_t, own_base, scale = _plain_loss_grads(x, d)
     _close_t(g_t.numpy(), own_t.numpy(), scale.numpy(), SELF_RTOL * p)
@@ -343,7 +345,7 @@ def test_autograd_functions_match_plain_route(route):
         mc, w2 = grad.fused_reweight_diff(t, base, x.seg, x.coeffs, x.bins, **kw)
     else:
         mc, w2 = grad.fused_reweight_diff_shifted(
-            t, base, x.seg, x.coeffs, shift, x_nom, static, edges, x.bins, n_bins=d.n_bins,
+            t, base, x.seg, x.coeffs, shift, x_nom, static, edges, n_bins=d.n_bins,
             shift_kind="scale", stride_j=1, n_axis_j=d.n_bins)
     w = spline_product(x.coeffs, x.seg, x.t, x.base)
     mc_p, w2_p = histogram(w, x.bins.long().expand(w.shape), d.n_bins)
@@ -365,7 +367,7 @@ def test_backward_is_first_order_only():
     edges = torch.arange(d.n_bins + 1, dtype=torch.float32)
     mc, w2 = grad.fused_reweight_diff_shifted(
         t, x.base, x.seg, x.coeffs, torch.zeros(5), torch.zeros(d.n_events),
-        torch.zeros(d.n_events, dtype=torch.int32), edges, x.bins, n_bins=d.n_bins,
+        torch.zeros(d.n_events, dtype=torch.int32), edges, n_bins=d.n_bins,
         shift_kind="scale", stride_j=1, n_axis_j=d.n_bins)
     (g,) = torch.autograd.grad((x.gmc * mc).sum(), t, create_graph=True)
     with pytest.raises(RuntimeError):
@@ -376,17 +378,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     d = _inputs(seed=1)
     x = _port(d)
     a = (x.seg, x.t, x.coeffs, x.base, x.bins, x.gmc, x.gw2)
+    call = grad.reweight_backward
     with pytest.raises(TypeError):
-        grad.grad_pass_a(*a[:4], x.bins.long(), *a[5:], n_bins=d.n_bins)
+        call(*a[:4], x.bins.long(), *a[5:], n_bins=d.n_bins)
     with pytest.raises(ValueError):
-        grad.grad_pass_a(*a[:5], x.gmc[:, :-1], x.gw2, n_bins=d.n_bins)
+        call(*a[:5], x.gmc[:, :-1], x.gw2, n_bins=d.n_bins)
     with pytest.raises(ValueError):
-        grad.grad_pass_a(*a, n_bins=d.n_bins, plan_ptr=torch.zeros(3, dtype=torch.int32))
-    gbase, sev, pnz, nz = grad.grad_pass_a(*a, n_bins=d.n_bins)
+        call(*a, n_bins=d.n_bins, plan_ptr=torch.zeros(3, dtype=torch.int32))
     with pytest.raises(TypeError):
-        grad.grad_pass_b(x.seg, x.t, x.coeffs, sev, pnz, nz.float())
+        call(x.seg.long(), *a[1:], n_bins=d.n_bins)
     with pytest.raises(ValueError):
-        grad.grad_pass_b(x.seg, x.t, x.coeffs, sev[:, :-1].contiguous(), pnz, nz)
+        call(*a[:3], x.base[:, :-1].contiguous(), *a[4:], n_bins=d.n_bins)
+    with pytest.raises(ValueError):
+        call(*a, n_bins=0)
 
 
 # ------------------------------------------------- sample and model level
@@ -735,17 +739,13 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case):
     xc = _to(x, cuda_device)
     plan_c = {k: v.to(cuda_device) for k, v in plan_kw.items()}
     a = (xc.seg, xc.t, xc.coeffs, xc.base, xc.bins, xc.gmc, xc.gw2)
-    before = dict(reweight.LAUNCHES)
-    got_a = grad.grad_pass_a(*a, n_bins=d.n_bins, **plan_c)
-    got_t = grad.grad_pass_b(xc.seg, xc.t, xc.coeffs, *got_a[1:], **plan_c)
+    before = reweight.LAUNCHES["reweight_backward"]
+    got_t, got_base = grad.reweight_backward(*a, n_bins=d.n_bins, **plan_c)
     torch.cuda.synchronize()
-    assert reweight.LAUNCHES["grad_a"] == before["grad_a"] + 1
-    assert reweight.LAUNCHES["grad_b"] == before["grad_b"] + 1
+    assert reweight.LAUNCHES["reweight_backward"] == before + 1
     ref_a = grad.grad_pass_a_ref(*a, n_bins=d.n_bins, **plan_c)
     ref_t = grad.grad_pass_b_ref(xc.seg, xc.t, xc.coeffs, *ref_a[1:])
     p = x.coeffs.shape[0]
-    for got, want in zip(got_a[:3], ref_a[:3]):
-        _close_base(got.cpu().numpy(), want.cpu().numpy(), SELF_RTOL * p)
-    assert torch.equal(got_a[3], ref_a[3])
+    _close_base(got_base.cpu().numpy(), ref_a[0].cpu().numpy(), SELF_RTOL * p)
     _close_t(got_t.cpu().numpy(), ref_t.cpu().numpy(), _abs_terms(x, d).numpy(), SELF_RTOL * p)
     assert torch.isfinite(got_t).all() and got_t.abs().sum() > 0

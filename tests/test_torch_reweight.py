@@ -9,6 +9,12 @@ On the CPU the port's wrapper runs its plain PyTorch version; it is held
   interpret mode) within rtol 2e-3, atol 1e-6·max|mc|: JAX rounds every
   response deviation to bf16, the port keeps f32 (splines/eval.py).
 
+A NaN norm value makes its chain's NLL non-finite on every route, and
+leaves the other chains as they were: JAX's kernel (its ``_norm_weight``
+log-matmul) and the port's plain version spread the NaN to every event of
+the chain, the CUDA kernel to the events that match the norm; MR2T2 rejects
+a proposal whose NLL is not finite.
+
 Each shift kind of ``SHIFT_KINDS`` (``scale``, ``offset``,
 ``scale_about_one``) takes the shifted route as a sample's single shift, and
 the plain version bins every event, edge events included, exactly as the
@@ -221,6 +227,54 @@ def test_zero_norm_gives_tiny_weight_not_zero(jx):
     assert total == pytest.approx(float(mc_j.sum()), rel=1e-2)
 
 
+def _nll(stat_fn, data, mc, w2):
+    return np.asarray(stat_fn(data, mc, w2)).sum(-1)
+
+
+def test_nan_norm_spoils_only_its_chain(jx):
+    """A NaN norm value in chain 2: its NLL is non-finite in JAX's kernel
+    and in the port's plain version, every other chain's is what it was
+    without it; MR2T2 then rejects such a proposal."""
+    from mach3_tpu.samples.teststats import get_test_stat_fn as jstat
+    from mach3_tpu_torch.samples.teststats import get_test_stat_fn
+
+    d = _inputs("norm")
+    args, kwargs = _port_args(d)
+    clean = [v.double() for v in reweight.fused_reweight_histogram_shifted(*args, **kwargs)]
+    data = clean[0][0].clone()
+    d.norm_ext[2, 1] = np.nan
+    args, kwargs = _port_args(d)
+    mc, w2 = (v.double() for v in reweight.fused_reweight_histogram_shifted(*args, **kwargs))
+    mc_j, w2_j = (np.asarray(v, np.float64) for v in _jax_production(jx, d))
+    stat = get_test_stat_fn("BarlowBeeston")
+    got, want = stat(data, mc, w2).sum(-1).numpy(), stat(data, *clean).sum(-1).numpy()
+    got_j = _nll(jstat("BarlowBeeston"), jx.jnp.asarray(data.numpy()), mc_j, w2_j)
+    others = [0, 1, 3, 4]
+    assert not np.isfinite(got[2]) and not np.isfinite(got_j[2])
+    assert np.array_equal(got[others], want[others]) and np.isfinite(got_j[others]).all()
+    np.testing.assert_allclose(got_j[others], want[others], rtol=1e-3, atol=5e-3)
+    # both spread the NaN over the chain: every bin with an event
+    filled = clean[0][2] != 0
+    assert torch.isnan(mc[2][filled]).all() and np.isnan(mc_j[2][filled.numpy()]).all()
+
+
+def test_mr2t2_rejects_a_non_finite_proposal():
+    from mach3_tpu_torch.fitters.mcmc import ChainState, MCMCConfig, make_step_fn_args
+    from mach3_tpu_torch.tutorial.toy import build_toy
+
+    model = build_toy(n_events=1500, seed=11, e_grid_size=30, device="cpu").model
+    theta = model.prefit_vector().repeat(4, 1)
+    state = ChainState(theta=theta, nll=model.total_nll_batch(theta), generator=None, step=0,
+                       n_accepted=torch.zeros(4, dtype=torch.int32))
+    z = torch.zeros((4, model.flat.chol.shape[1]), dtype=torch.float64)
+    z[2] = np.nan  # chain 2 proposes NaN values, norms included
+    new, out = make_step_fn_args(MCMCConfig())(model, state, z=z,
+                                               flip_u=torch.ones_like(theta),
+                                               u_acc=torch.zeros(4, dtype=torch.float64))
+    assert out["accepted"].tolist() == [True, True, False, True]
+    assert torch.equal(new.theta, theta) and torch.equal(new.nll, state.nll)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     args, kwargs = _port_args(_inputs("norm"))
     seg, t, coeffs, base, shift, x_nom, static, edges = args
@@ -290,6 +344,27 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
     _close(w2.cpu().numpy(), w2_p.cpu().numpy(), ORACLE_RTOL)
     if case == "nan_shift":
         assert float(mc[3].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_nan_norm_spoils_only_its_chain(cuda_device):
+    """Through the kernel a NaN norm reaches the events that match it: the
+    chain's histogram and NLL are non-finite, the other chains agree with
+    the plain version."""
+    from mach3_tpu_torch.samples.teststats import get_test_stat_fn
+
+    d = _inputs("norm", n_chains=11, n_events=5000)
+    d.norm_ext[2, 1] = np.nan
+    args, kwargs = _port_args(d, cuda_device)
+    mc, w2 = reweight.fused_reweight_histogram_shifted(*args, **kwargs)
+    torch.cuda.synchronize()
+    mc_p, w2_p = reweight.fused_reweight_histogram_shifted_ref(*args, **kwargs)
+    others = [c for c in range(11) if c != 2]
+    _close(mc[others].cpu().numpy(), mc_p[others].cpu().numpy(), ORACLE_RTOL)
+    _close(w2[others].cpu().numpy(), w2_p[others].cpu().numpy(), ORACLE_RTOL)
+    data = mc_p[0].double()
+    nll = get_test_stat_fn("BarlowBeeston")(data, mc.double(), w2.double()).sum(-1).cpu()
+    assert not torch.isfinite(nll[2]) and torch.isfinite(nll[others]).all()
 
 
 @pytest.mark.cuda

@@ -297,6 +297,28 @@ def test_plain_version_matches_jax(jx, form, case):
         assert (mc[-1] < 0).any()  # odd counts of the negative norm flip signs
 
 
+def test_plain_version_drops_negative_bins(jx):
+    """A bin of −1 is dropped, as the kernel and the per-chain plain version
+    drop it: on chain 0 (where it would index before the histogram) and on
+    every later chain (where it would land in the previous chain's garbage
+    bin) alike. JAX's shared kernel (interpret mode, wide form) is fed the
+    garbage bin ``n_bins`` there, its own drop."""
+    d = _inputs("norm", n_events=600, n_params=6, seed=6)
+    neg = np.random.default_rng(6).choice(d.n_events, 40, replace=False)
+    d.bins[neg] = -1
+    args, kwargs, lo = _laid_out(d, trivial=True)
+    mc, w2 = reweight.fused_reweight_histogram_shared(*args, **kwargs)
+    garbage = (*args[:4], torch.where(args[4] < 0, d.n_bins, args[4]))
+    mc_g, w2_g = reweight.fused_reweight_histogram_shared(*garbage, **kwargs)
+    assert torch.equal(mc, mc_g) and torch.equal(w2, w2_g)
+    d.bins[neg] = d.n_bins
+    mc_j, w2_j = _jax_shared(jx, d, lo, "wide")
+    for c in (0, 2):
+        _close_to_production(mc[c].numpy(), mc_j[c])
+        _close_to_production(w2[c].numpy(), w2_j[c])
+    _close_to_production(mc.numpy(), mc_j)
+
+
 def test_plain_version_ignores_the_plan():
     """The plan only skips exact identities: any plan gives the same sums."""
     d = _inputs("norm", n_events=700, n_params=8, seed=2)

@@ -14,9 +14,8 @@ package and vs the port's own plain versions.
   f32 sums in another order).
 * The plain version ignores the plan: real and trivial plan bit for bit.
 * ``with_binning`` and the bridge rebuild the layout of a shifted sample.
-* The gradient through the laid-out nue_beam (forward under the plan,
-  backward over every parameter) vs the plain route, as
-  ``test_torch_grad.py`` holds it.
+* The gradient through the laid-out nue_beam (forward and backward under
+  the plan) vs the plain route, as ``test_torch_grad.py`` holds it.
 
 The ``cuda``-marked tests hold both CUDA kernels (``csrc/reweight_shifted.cu``,
 ``csrc/reweight_shared.cu``) to their plain versions on the tile core's edge
