@@ -171,7 +171,7 @@ __device__ __forceinline__ float reduce_scatter(const float (&acc)[kChainTile], 
 }
 
 template <typename CoefT, bool kNeedT>
-__global__ void __launch_bounds__(kThreads, 2) reweight_backward_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   m3::TileCore<CoefT> core;
   // [W][P][CT] the warps' sums
