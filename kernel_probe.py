@@ -18,14 +18,9 @@ alone (the kernels are the package's, unchanged):
 And the backward kernel (``csrc/reweight_backward.cu``) of each sample of
 the toy and of the fixture at the gradient path's 64 chains:
 
-* ``held``: the call of the gradient path; its phase 2 reads the rows that
-  phase 1 left in a ring of ``grad.HELD_ITEMS`` items;
-* ``streamed``: every tile copies its rows again for phase 2
-  (``HELD_ITEMS = 0``);
+* ``full``: the call of the gradient path;
 * ``phase 1``: ``need_t=False``, ḡ_base alone;
 * ``one segment`` and ``trivial plan``: as above.
-
-``held`` and ``streamed`` are timed in turns streamed, held, held, streamed.
 
 The results of the variants are not compared with anything: only ``full``
 computes the sample's histogram (``chip_smoke.py`` holds the backward to its
@@ -85,7 +80,6 @@ def probe_backward(tag: str, model, thetas, smi: str) -> None:
 
     with torch.no_grad():
         tables = model._shared_osc_tables(thetas)
-    held = grad.HELD_ITEMS
     for i, s in enumerate(model.samples):
         b_in, kw = cs.backward_args(s, thetas, tables[i])
         kw = dict(kw, n_bins=s.n_bins)
@@ -94,21 +88,15 @@ def probe_backward(tag: str, model, thetas, smi: str) -> None:
         ptr, idx = plan.trivial_active(s.n_events, seg.shape[1])
         trivial = dict(kw, plan_ptr=torch.as_tensor(ptr, device=seg.device),
                        plan_idx=torch.as_tensor(idx, device=seg.device))
-        variants = [("streamed", b_in, kw, 0), ("held", b_in, kw, held),
-                    ("phase 1", b_in, dict(kw, need_t=False), held),
-                    ("one segment", one_seg, kw, held), ("trivial plan", b_in, trivial, held),
-                    ("held", b_in, kw, held), ("streamed", b_in, kw, 0)]
+        variants = {"full": (b_in, kw), "phase 1": (b_in, dict(kw, need_t=False)),
+                    "one segment": (one_seg, kw), "trivial plan": (b_in, trivial)}
         times = {}
-        for what, a, k, items in variants:
-            grad.HELD_ITEMS = items
+        for what, (a, k) in variants.items():
             grad.reweight_backward(*a, **k)
-            times.setdefault(what, []).append(cs.cuda_ms(
-                lambda a=a, k=k: grad.reweight_backward(*a, **k), 30))
-        grad.HELD_ITEMS = held
+            times[what] = cs.cuda_ms(lambda a=a, k=k: grad.reweight_backward(*a, **k), 30)
         cs.phase(f"[probe:{tag}:backward] {s.name} (reweight_backward, C={thetas.shape[0]}, "
                  f"E={s.n_events}): "
-                 + ", ".join(f"{what} {sum(ms) / len(ms):.4f} ms" for what, ms in times.items())
-                 + f" | {smi}")
+                 + ", ".join(f"{what} {ms:.4f} ms" for what, ms in times.items()) + f" | {smi}")
 
 
 def main() -> int:

@@ -47,8 +47,10 @@
 //    pnz (0 for two zeros or more) in registers.
 //  * Phase 2 (K6b's function, kNeedT): the same items again, re-streamed
 //    from L2 (the 16-chain blocks of one event tile run side by side, and the
-//    tile's rows were just read; keeping them resident would cost their size
-//    in shared memory per block, which the plan does not bound). Per item and
+//    tile's rows were just read). Keeping a tile's rows in a larger ring
+//    instead (32 items, 64 KB in bf16) was faster at two blocks an SM and
+//    slower than streaming at three, which it does not leave room for
+//    (kernel_probe.py on an H100; PERF.md §6). Per item and
 //    chain of its mask: r and its slope s = b + t(2c + 3t·d), and acc[c] +=
 //    s·u/r, one MUFU reciprocal instead of an IEEE division. A warp in which
 //    some chain of some event has a zero response (rare: a response clipped
@@ -77,6 +79,12 @@
 // shared memory, never from global memory inside the loop; the plan lists
 // only the parameters a tile needs; the three [C, E] fields of the TPU's two
 // passes are gone; the reduction is 16 shuffles per parameter and warp.
+//
+// Occupancy: registers are capped at 80 a thread (three blocks of 256
+// threads an SM; a few spilled words) because a block waits more than it
+// computes: uncapped it takes 116 and two blocks, 14-25% slower on every
+// sample of the gradient path (kernel_probe.py on an H100). Branching per
+// chain on the item's mask beats computing all 16 chains and selecting.
 //
 // Everything is f32, from f32 operands (bf16 tables are upcast on load). The
 // TPU kernel rounds both operands of its pass-B dot to bf16; this one does
@@ -110,7 +118,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxParams = m3::kMaxTileParams;
 constexpr int kMaxEdges = 1025;
 constexpr int kMaxTiles = 65535;     // gridDim.y
-constexpr int kMaxRingStages = 32;
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
 constexpr unsigned kFullMask = 0xffffffffu;
 // Where an event's bin comes from (splines/grad.py BINS_*).
@@ -140,7 +147,6 @@ struct Args {
   float* gbase;
   float* partial;
   int C, P, K4, E, n_bins;
-  int ring_stages;
   bool aligned;
 };
 
@@ -175,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
   extern __shared__ __align__(16) unsigned char smem_raw[];
   m3::TileCore<CoefT> core;
   // [W][P][CT] the warps' sums
-  float* red = reinterpret_cast<float*>(core.carve(smem_raw, a.P, a.K4, a.ring_stages));
+  float* red = reinterpret_cast<float*>(core.carve(smem_raw, a.P, a.K4));
   int* slot = reinterpret_cast<int*>(red + (kNeedT ? kWarps * a.P * kChainTile : 0));  // [P]
   float* sh_edges = reinterpret_cast<float*>(slot + (kNeedT ? a.P : 0));  // [n_edges]
   float* sh_shift = sh_edges + a.n_edges;                                 // [CT] shift factors
@@ -276,9 +282,11 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
   float acc[kChainTile];
 #pragma unroll
   for (int c = 0; c < kChainTile; ++c) acc[c] = 0.f;
-  __syncthreads();  // every thread has left the ring, whose copies have landed
+  __syncthreads();  // every thread has left the ring
   if (tid < nact) slot[core.par[tid]] = tid;
-  auto phase2 = [&](int i, int jm, float y, float b, float c, float d) {
+  core.start(coeffs, es, a.E, e0, n_items, a.aligned);
+  core.for_each_item(coeffs, es, a.E, e0, n_items, a.aligned,
+                     [&](int i, int jm, float y, float b, float c, float d) {
     if (live) {
       const unsigned mask = static_cast<unsigned>(jm) & 0xffffu;
       const float c2 = c + c;
@@ -316,13 +324,7 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
 #pragma unroll
       for (int k = 0; k < kChainTile; ++k) acc[k] = 0.f;
     }
-  };
-  if (core.holds(n_items)) {
-    core.for_each_held_item(n_items, phase2);
-  } else {
-    core.start(coeffs, es, a.E, e0, n_items, a.aligned);
-    core.for_each_item(coeffs, es, a.E, e0, n_items, a.aligned, phase2);
-  }
+  });
   __syncthreads();
 
   float* out = a.partial + (static_cast<size_t>(tile) * a.C + c0) * a.P;
@@ -369,7 +371,7 @@ extern "C" int m3_reweight_backward(
     const void* static_base, const void* edges, int n_edges, int stride_j, int n_axis_j,
     int shift_kind, const void* gmc, const void* gw2, const void* plan_ptr,
     const void* plan_idx, void* gbase, void* partial, int C, int P, int K4, int E,
-    int n_bins, int ring_stages, int event_tile, int chain_tile, void* stream) {
+    int n_bins, int event_tile, int chain_tile, void* stream) {
   if (plan_ptr == nullptr || plan_idx == nullptr) plan_ptr = plan_idx = nullptr;
   const bool shifted = bins_kind == kBinsShifted;
   if (!shifted) n_edges = 0;
@@ -379,13 +381,12 @@ extern "C" int m3_reweight_backward(
       bins_kind > kBinsShifted || (!shifted && bins == nullptr) ||
       (shifted && (n_edges < 2 || n_edges > kMaxEdges || n_axis_j != n_edges - 1 ||
                    shift_kind < m3::kShiftScale || shift_kind > m3::kShiftAboutOne)) ||
-      ring_stages < m3::kStages || ring_stages > kMaxRingStages || event_tile != kEventTile ||
-      chain_tile != kChainTile || n_tiles > kMaxTiles) {
+      event_tile != kEventTile || chain_tile != kChainTile || n_tiles > kMaxTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t coef_size = coef_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   const bool need_t = partial != nullptr;
-  const size_t smem = m3::core_bytes(coef_size, P, K4, ring_stages) +
+  const size_t smem = m3::core_bytes(coef_size, P, K4) +
                       (need_t ? (static_cast<size_t>(kWarps) * kChainTile + 1) * P * 4 : 0) +
                       (shifted ? (static_cast<size_t>(n_edges) + kChainTile) * 4 : 0);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -396,7 +397,7 @@ extern "C" int m3_reweight_backward(
                n_edges, stride_j, n_axis_j, shift_kind, static_cast<const float*>(gmc),
                static_cast<const float*>(gw2), static_cast<const int*>(plan_ptr),
                static_cast<const int*>(plan_idx), static_cast<float*>(gbase),
-               static_cast<float*>(partial), C, P, K4, E, n_bins, ring_stages,
+               static_cast<float*>(partial), C, P, K4, E, n_bins,
                (static_cast<size_t>(E) * coef_size) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(coeffs) % 16 == 0};
   const dim3 grid((C + kChainTile - 1) / kChainTile, n_tiles);

@@ -95,11 +95,9 @@ __host__ __device__ inline size_t core_item_cap(int P, int K4) {
   return static_cast<size_t>(P) * (k < kTileChains ? k : kTileChains);
 }
 
-// Shared memory of a TileCore whose ring has `stages` stages (a multiple of
-// 16 bytes).
-__host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4,
-                                             int stages = kStages) {
-  const size_t ring = static_cast<size_t>(stages) * kItemsPerStage * 4 * kTileEvents * coef_size;
+// Shared memory of a TileCore (a multiple of 16 bytes).
+__host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4) {
+  const size_t ring = static_cast<size_t>(kStages) * kItemsPerStage * 4 * kTileEvents * coef_size;
   const size_t b = ring + static_cast<size_t>(P) * kTileChains * 8 +
                    (2 * static_cast<size_t>(P) + 1) * 4 + core_item_cap(P, K4) * 8;
   return (b + 15) & ~static_cast<size_t>(15);
@@ -107,8 +105,7 @@ __host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4,
 
 template <typename CoefT>
 struct TileCore {
-  CoefT* ring;    // [n_slots][kItemsPerStage][4][kTileEvents]
-  int n_slots;    // stages the ring holds: kStages, or more to keep a tile's rows
+  CoefT* ring;    // [kStages][kItemsPerStage][4][kTileEvents]
   float* t;       // [nact][kTileChains]
   int* seg;       // [nact][kTileChains], -1 for a chain past the batch
   int* par;       // [nact] the tile's active parameters
@@ -116,12 +113,10 @@ struct TileCore {
   int* item_row;  // [items] first coefficient row p·K4 + 4·segment
   int* item_jm;   // [items] slot of the parameter in t << 16 | chain mask
 
-  // Takes core_bytes(.., stages) of the 16-byte aligned `base`; returns what
-  // follows.
-  __device__ unsigned char* carve(unsigned char* base, int P, int K4, int stages = kStages) {
+  // Takes core_bytes() of the 16-byte aligned `base`; returns what follows.
+  __device__ unsigned char* carve(unsigned char* base, int P, int K4) {
     ring = reinterpret_cast<CoefT*>(base);
-    n_slots = stages;
-    base += static_cast<size_t>(stages) * kItemsPerStage * 4 * kTileEvents * sizeof(CoefT);
+    base += static_cast<size_t>(kStages) * kItemsPerStage * 4 * kTileEvents * sizeof(CoefT);
     t = reinterpret_cast<float*>(base);
     base += static_cast<size_t>(P) * kTileChains * 4;
     seg = reinterpret_cast<int*>(base);
@@ -200,7 +195,7 @@ struct TileCore {
   // false) one element a thread at a time.
   __device__ __forceinline__ void copy_stage(const CoefT* __restrict__ coeffs, size_t es, int E,
                                              int e0, int stage, int n_items, bool aligned) {
-    CoefT* slot = ring + static_cast<size_t>(stage % n_slots) * kItemsPerStage * 4 * kTileEvents;
+    CoefT* slot = ring + static_cast<size_t>(stage % kStages) * kItemsPerStage * 4 * kTileEvents;
     const int first = stage * kItemsPerStage;
     if (!aligned) {
 #pragma unroll 4
@@ -261,36 +256,17 @@ struct TileCore {
         copy_stage(coeffs, es, E, e0, g + kStages - 1, n_items, aligned);
       }
       __pipeline_commit();
-      visit_stage(g, n_items, body);
+      const CoefT* slot = ring +
+          static_cast<size_t>(g % kStages) * kItemsPerStage * 4 * kTileEvents + threadIdx.x;
+      const int first = g * kItemsPerStage;
+      const int n = min(kItemsPerStage, n_items - first);
+      for (int i = 0; i < n; ++i) {
+        const CoefT* co = slot + i * 4 * kTileEvents;
+        body(first + i, item_jm[first + i], load_coef(co), load_coef(co + kTileEvents),
+             load_coef(co + 2 * kTileEvents), load_coef(co + 3 * kTileEvents));
+      }
     }
     __pipeline_wait_prior(0);
-  }
-
-  // Whether a walk over n_items leaves every item's rows in the ring.
-  __device__ __forceinline__ bool holds(int n_items) const {
-    return n_items <= n_slots * kItemsPerStage;
-  }
-
-  // After a for_each_item walk over the same items that holds() them, and a
-  // barrier: the same calls of body from the rows still in the ring, with
-  // no copy and no barrier.
-  template <typename Body>
-  __device__ __forceinline__ void for_each_held_item(int n_items, Body&& body) {
-    const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
-    for (int g = 0; g < n_stages; ++g) visit_stage(g, n_items, body);
-  }
-
-  template <typename Body>
-  __device__ __forceinline__ void visit_stage(int g, int n_items, Body& body) {
-    const CoefT* slot = ring +
-        static_cast<size_t>(g % n_slots) * kItemsPerStage * 4 * kTileEvents + threadIdx.x;
-    const int first = g * kItemsPerStage;
-    const int n = min(kItemsPerStage, n_items - first);
-    for (int i = 0; i < n; ++i) {
-      const CoefT* co = slot + i * 4 * kTileEvents;
-      body(first + i, item_jm[first + i], load_coef(co), load_coef(co + kTileEvents),
-           load_coef(co + 2 * kTileEvents), load_coef(co + 3 * kTileEvents));
-    }
   }
 
   // The item's 16 t values, as four float4 (broadcast reads).

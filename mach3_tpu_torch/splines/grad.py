@@ -51,12 +51,10 @@ from .eval import coefficient_rows
 from .plan import EVENT_TILE
 from .reweight import (
     CHAIN_TILE,
-    ITEMS_PER_STAGE,
     LAUNCHES,
     MAX_EDGES,
     MAX_KNOTS,
     MAX_SMEM,
-    RING_STAGES,
     SHIFT_KINDS,
     _check_plan,
     _check_shapes,
@@ -74,19 +72,13 @@ _C_VOIDP = ctypes.c_void_p
 _C_INT = ctypes.c_int
 _BACKWARD_ARGTYPES = (
     [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] * 4
-    + [_C_VOIDP] * 6 + [_C_INT] * 8 + [_C_VOIDP]
+    + [_C_VOIDP] * 6 + [_C_INT] * 7 + [_C_VOIDP]
 )
 #: Where the kernel takes an event's bin from (``csrc/reweight_backward.cu``).
 BINS_SHARED, BINS_PER_CHAIN, BINS_SHIFTED = 0, 1, 2
 #: Warps of a block: each keeps 16 chains' sums per listed parameter in
 #: shared memory until the block adds them up.
 _WARPS = EVENT_TILE // 32
-#: Work items (a parameter's 4 coefficient rows at one segment) whose rows
-#: the backward's ring keeps from phase 1 for phase 2, so that a tile with
-#: at most this many reads its rows once; a tile with more copies them
-#: again. The ring shrinks to keep a block within half an SM's shared
-#: memory (two blocks an SM, as the kernel's registers allow).
-HELD_ITEMS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,26 +176,14 @@ def reweight_backward_ref(seg, t, coeffs, base_w, bins, gmc, gw2, *, n_bins, pla
     return (grad_pass_b_ref(seg, t, coeffs, sev, pnz, nz) if need_t else None), gbase
 
 
-def backward_smem(coeffs: torch.Tensor, n_edges: int = 0, need_t: bool = True,
-                  stages: int = RING_STAGES) -> int:
+def backward_smem(coeffs: torch.Tensor, n_edges: int = 0, need_t: bool = True) -> int:
     """Bytes of shared memory a block of the backward kernel takes for this
-    table: the tile core with a ring of ``stages`` stages, with ``need_t``
-    the warps' sums (8 x 16 floats per parameter) and a slot per parameter,
-    and a shifted axis's ``n_edges`` edges and 16 shift factors."""
+    table: the tile core, with ``need_t`` the warps' sums (8 x 16 floats per
+    parameter) and a slot per parameter, and a shifted axis's ``n_edges``
+    edges and 16 shift factors."""
     p = coeffs.shape[0]
     sums = (_WARPS * CHAIN_TILE + 1) * p * 4 if need_t else 0
-    return (tile_core_smem(coeffs, 0, stages) + sums
-            + ((n_edges + CHAIN_TILE) * 4 if n_edges else 0))
-
-
-def _ring_stages(coeffs: torch.Tensor, n_edges: int, need_t: bool) -> int:
-    """The backward's ring: enough stages for ``HELD_ITEMS`` items (phase 2
-    only runs with ``need_t``), fewer while a block would take more than
-    half an SM's shared memory, never fewer than ``RING_STAGES``."""
-    stages = max(RING_STAGES, -(-HELD_ITEMS // ITEMS_PER_STAGE)) if need_t else RING_STAGES
-    while stages > RING_STAGES and backward_smem(coeffs, n_edges, need_t, stages) > MAX_SMEM // 2:
-        stages -= 1
-    return stages
+    return tile_core_smem(coeffs, 0) + sums + ((n_edges + CHAIN_TILE) * 4 if n_edges else 0)
 
 
 def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, plan_idx,
@@ -290,8 +270,7 @@ def reweight_backward(
             base_w.data_ptr(), kind, bins_ptr, *shift, gmc.data_ptr(), gw2.data_ptr(),
             plan_ptr.data_ptr() if has_plan else None, plan_idx.data_ptr() if has_plan else None,
             gbase.data_ptr(), None if partial is None else partial.data_ptr(),
-            c, p, k4, e, n_bins, _ring_stages(coeffs, shift[4], need_t), EVENT_TILE, CHAIN_TILE,
-            stream,
+            c, p, k4, e, n_bins, EVENT_TILE, CHAIN_TILE, stream,
         )
     _raise_on(lib, rc, "reweight_backward")
     LAUNCHES["reweight_backward"] += 1

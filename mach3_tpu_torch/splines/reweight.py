@@ -178,13 +178,12 @@ def _check_shapes(named: dict, shapes: dict, coeffs, base_w, norm_ext, norm_s) -
     return c, p, e
 
 
-def tile_core_smem(coeffs: torch.Tensor, na1: int, stages: int = RING_STAGES) -> int:
-    """Bytes of shared memory the tile core of a block takes for this table,
-    a ring of ``stages`` stages and ``na1`` norm slots (``m3::core_bytes`` of
-    ``csrc/spline_response.cuh`` plus the norm arrays); the kernel's
-    histogram comes on top."""
+def tile_core_smem(coeffs: torch.Tensor, na1: int) -> int:
+    """Bytes of shared memory the tile core of a block takes for this table
+    and ``na1`` norm slots (``m3::core_bytes`` of ``csrc/spline_response.cuh``
+    plus the norm arrays); the kernel's histogram comes on top."""
     p, k4 = coeffs.shape[0], coeffs.shape[1]
-    ring = stages * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
+    ring = RING_STAGES * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
     items = p * min(k4 // 4, CHAIN_TILE)
     core = ring + p * CHAIN_TILE * 8 + (2 * p + 1) * 4 + items * 8
     return -(-core // 16) * 16 + 2 * CHAIN_TILE * na1 * 4
