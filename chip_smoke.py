@@ -598,28 +598,21 @@ def check_backward(what: str, b_in, n_bins: int, plan: dict) -> tuple[float, flo
     return err_base, float(err_t.max()), max(worst_base, worst_t)
 
 
-def backward_bounds(b_in, plan: dict) -> tuple[dict, float]:
-    """(the fused kernel's bound, the sum of the old two passes' bounds) of
-    one backward call. Fused: every input read once (the table by
+def backward_bound(b_in, plan: dict) -> dict:
+    """The bound of one backward call: every input read once (the table by
     ``coefficient_reads``; the shifted route's bins are formed, not read),
-    ḡ_base [C, E] and ḡ_t [C, P] written once; 22 f32 operations per
-    evaluated (chain, event, parameter) (response, product, slope, quotient,
-    sum) and 6 per (chain, event). The two passes moved besides three [C, E]
-    fields (sev, pnz, nz) out of pass A and into pass B, and each read the
-    rows."""
+    ḡ_base [C, E] and ḡ_t [C, P] written once; the f32 operations the
+    function needs, each response once: 14 per evaluated (chain, event,
+    parameter) (response 6, product 1, slope 4, quotient 1, multiply-add
+    into the sum 2) and 6 per (chain, event) (the cotangent gather)."""
     from mach3_tpu_torch.splines import grad
 
     seg, t, coeffs, base_w, bins, gmc, gw2 = b_in
     c, e = base_w.shape
-    n_par = coeffs.shape[0]
     coef, pairs = coefficient_reads(seg, coeffs)
     bin_args = vars(bins).values() if isinstance(bins, grad.ShiftedBins) else [bins]
     inputs = _nbytes(seg, t, base_w, gmc, gw2, *plan.values(), *bin_args)
-    fused = bound(inputs + coef + 4 * c * (e + n_par), c * (22 * pairs + 6 * e))
-    pass_a = bound(inputs + coef + 16 * c * e, c * (7 * pairs + 6 * e))
-    pass_b = bound(_nbytes(seg, t, *plan.values()) + 12 * c * e + coef + 4 * c * n_par,
-                   15 * c * pairs)
-    return fused, pass_a["bound_ms"] + pass_b["bound_ms"]
+    return bound(inputs + coef + 4 * c * (e + coeffs.shape[0]), c * (14 * pairs + 6 * e))
 
 
 def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
@@ -627,7 +620,7 @@ def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
     each sample's inputs at these chains: the forward's arguments of the
     differentiable route and the cotangents of the sample's statistic; its
     ḡ_t and ḡ_base bit-identical over two launches. Returns {sample name:
-    (ḡ_base err, ḡ_t err, ms, plain ms, bound, old two-pass bound)}."""
+    (ḡ_base err, ḡ_t err, ms, plain ms, bound)}."""
     import torch
 
     from mach3_tpu_torch.splines import grad
@@ -642,15 +635,15 @@ def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
             raise AssertionError(f"{s.name} backward: two launches differ")
         ms = time_pair(lambda: grad.reweight_backward(*b_in, n_bins=s.n_bins, **plan),
                        lambda: grad.reweight_backward_ref(*b_in, n_bins=s.n_bins, **plan))
-        fused, two_pass = backward_bounds(b_in, plan)
-        out[s.name] = (err_base, err_t) + ms + (fused, two_pass)
+        bnd = backward_bound(b_in, plan)
+        out[s.name] = (err_base, err_t) + ms + (bnd,)
         form = {"shared": "shared bins, plan", "shifted": "shifted axis in-kernel, plan",
                 "generic": "per-chain bins"}[s._diff_route()]
         phase(f"[{tag}:grad-kernels] {s.name} (reweight_backward, {form}): C={thetas.shape[0]} "
               f"E={s.n_events} P={b_in[2].shape[0]}; max abs err g_base {err_base:.3e}, g_t "
               f"{err_t:.3e} (worst {worst:.3f} of tol); bit-identical over two launches; "
-              f"kernel {ms[0]:.4f} ms vs plain {ms[1]:.4f} ms, bound {fused['bound_ms']:.4f} ms "
-              f"({fused['bound_by']}; the two passes' bounds summed {two_pass:.4f}) | {smi}")
+              f"kernel {ms[0]:.4f} ms vs plain {ms[1]:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}; kernel at {bnd['bound_ms'] / ms[0]:.3f} of it) | {smi}")
     return out
 
 

@@ -52,10 +52,12 @@
 //    slower than streaming at three, which it does not leave room for
 //    (kernel_probe.py on an H100; PERF.md §6). Per item and
 //    chain of its mask: r and its slope s = b + t(2c + 3t·d), and acc[c] +=
-//    s·u/r, one MUFU reciprocal instead of an IEEE division. A warp in which
-//    some chain of some event has a zero response (rare: a response clipped
-//    at 0) takes the exact rule above instead: s·u where r == 0 and that was
-//    the one zero, else 0. A parameter's items have disjoint masks and share
+//    s·u/r, one MUFU reciprocal (__fdividef) instead of an IEEE division. A
+//    warp in which some chain of some event has a zero response (rare: a
+//    response clipped at 0), or one outside [2^-126, 2^126] where the
+//    reciprocal is not within 2 ulp (phase 1 flags it), takes the exact rule
+//    above instead: s·u where r == 0 and that was the one zero, else 0, and
+//    an IEEE division u / r. A parameter's items have disjoint masks and share
 //    one acc[16]; after its last item the warp reduces acc[16] by
 //    reduce-scatter, 8 + 4 + 2 + 1 + 1 = 16 shuffles leaving chain lane / 2
 //    on lanes (lane, lane ^ 1) (a shuffle tree per chain takes 80), and the
@@ -67,14 +69,16 @@
 // What bounds it on this card (numu_beam of the reference-scale fixture, 64
 // chains, bf16 table, ~21.6 items a tile: ~10.8 listed parameters with the
 // chains on both sides of a knot):
-//  * bytes: base_w in and ḡ_base out (2 x 49 MB), the listed rows once (~33
-//    MB), the per-tile partials (6 MB): ~0.04 ms at 3.35 TB/s;
-//  * instruction slots: per item, thread and chain of the tile ~8 in phase 1
-//    (Horner, a compare, the product or the zero bits, the mask predicate)
-//    and ~9 in phase 2 (Horner, slope, reciprocal, two products), issued
-//    whether the chain sits in the item's segment or not; ~300 per (item,
-//    thread) with the shared-memory reads, ~5e9 for the call: ~0.17 ms at
-//    the card's issue rate. This is the bound that holds.
+//  * the function's bound is bytes: base_w in and ḡ_base out (2 x 49 MB),
+//    the listed rows once (~33 MB), the per-tile partials (6 MB): ~0.04 ms
+//    at 3.35 TB/s. Its f32 operations, each response once (14 per evaluated
+//    (chain, event, parameter)), take less at the card's FP32 peak;
+//  * this design's limit is instruction slots: per item, thread and chain of
+//    the tile ~9 in phase 1 (Horner, the range compare, the product or the
+//    zero bits, the mask predicate) and ~9 in phase 2 (Horner again, slope,
+//    reciprocal, two products), issued whether the chain sits in the item's
+//    segment or not; ~300 per (item, thread) with the shared-memory reads,
+//    ~5e9 for the call: ~0.17 ms at the card's issue rate.
 // What the design does about them: the coefficient rows reach a thread from
 // shared memory, never from global memory inside the loop; the plan lists
 // only the parameters a tile needs; the three [C, E] fields of the TPU's two
@@ -120,6 +124,11 @@ constexpr int kMaxEdges = 1025;
 constexpr int kMaxTiles = 65535;     // gridDim.y
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
 constexpr unsigned kFullMask = 0xffffffffu;
+// __fdividef(u, r) is within 2 ulp of u / r for kFastMin ≤ |r| ≤ kFastMax
+// (2^-126, the least normal float, and 2^126); outside it returns 0 or
+// flushes r.
+constexpr float kFastMin = 1.17549435e-38f;
+constexpr float kFastMax = 8.50705917e37f;
 // Where an event's bin comes from (splines/grad.py BINS_*).
 constexpr int kBinsShared = 0;    // bins[e]
 constexpr int kBinsPerChain = 1;  // bins[c, e]
@@ -217,19 +226,25 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
 #pragma unroll
   for (int c = 0; c < kChainTile; ++c) pnz[c] = 1.f;
   unsigned zeros = 0;  // bit c: a zero response on chain c; bit 16 + c: two
+  bool wide = false;   // a nonzero response outside [kFastMin, kFastMax] (or NaN)
   core.for_each_item(coeffs, es, a.E, e0, n_items, a.aligned,
                      [&](int, int jm, float y, float b, float c, float d) {
     const unsigned mask = static_cast<unsigned>(jm) & 0xffffu;
     const float4* tp = core.item_t(jm);
     const float4 ta = tp[0], tb = tp[1], tc = tp[2], td = tp[3];
-#define M3_STEP(C, T)                                             \
-  if (mask & (1u << (C))) {                                       \
-    const float r = fmaf(T, fmaf(T, fmaf(T, d, c), b), y);        \
-    if (r == 0.f) {                                               \
-      zeros |= ((zeros & (1u << (C))) << 16) | (1u << (C));       \
-    } else {                                                      \
-      pnz[C] *= r;                                                \
-    }                                                             \
+#define M3_STEP(C, T)                                                  \
+  if (mask & (1u << (C))) {                                            \
+    const float r = fmaf(T, fmaf(T, fmaf(T, d, c), b), y);             \
+    if (!(fabsf(r) >= kFastMin && fabsf(r) <= kFastMax)) {             \
+      if (r == 0.f) {                                                  \
+        zeros |= ((zeros & (1u << (C))) << 16) | (1u << (C));          \
+      } else {                                                         \
+        wide = true;                                                   \
+        pnz[C] *= r;                                                   \
+      }                                                                \
+    } else {                                                           \
+      pnz[C] *= r;                                                     \
+    }                                                                  \
   }
     M3_STEP(0, ta.x) M3_STEP(1, ta.y) M3_STEP(2, ta.z) M3_STEP(3, ta.w)
     M3_STEP(4, tb.x) M3_STEP(5, tb.y) M3_STEP(6, tb.z) M3_STEP(7, tb.w)
@@ -278,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
   // Phase 2: the parameters' sums over the tile's events.
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const bool exact = __any_sync(kFullMask, zeros != 0);  // the warp's rule
+  const bool exact = __any_sync(kFullMask, zeros != 0 || wide);  // the warp's rule
   float acc[kChainTile];
 #pragma unroll
   for (int c = 0; c < kChainTile; ++c) acc[c] = 0.f;
@@ -306,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
   M3_STEP(12, td.x, F(12)) M3_STEP(13, td.y, F(13)) M3_STEP(14, td.z, F(14))           \
   M3_STEP(15, td.w, F(15))
 #define M3_FAST(C) __fdividef(u[C], r)
-#define M3_EXACT(C) ((zeros & (1u << (C))) ? (r == 0.f ? u[C] : 0.f) : __fdividef(u[C], r))
+#define M3_EXACT(C) ((zeros & (1u << (C))) ? (r == 0.f ? u[C] : 0.f) : u[C] / r)
       if (exact) {
         M3_ALL(M3_EXACT)
       } else {

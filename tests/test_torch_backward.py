@@ -24,7 +24,9 @@ kernel) on the shifted route, vs the JAX package and its own plain passes.
 The ``cuda``-marked cases hold the kernel to its plain passes on the card:
 the shifted route under its plan, a trivial plan and none; its in-kernel bins
 (events on edges, one cotangent value per bin); ``need_t=False``; a bf16
-table whose rows are not 16-byte aligned; ḡ_t bit-identical over launches.
+table whose rows are not 16-byte aligned; ḡ_t bit-identical over launches;
+responses below 2^-126 (subnormal) and above 2^126 with a nonzero slope,
+where the kernel's fast reciprocal would be wrong.
 They import no jax and run with ``--noconftest`` where a card is.
 """
 import copy
@@ -322,7 +324,8 @@ def _hold(x, got, ref, what):
 
 
 CUDA_CASES = ["shifted_plan", "shifted_inkernel_bins", "need_t_false", "bf16_unaligned",
-              "bit_identical"]
+              "bit_identical", "subnormal_response", "huge_response"]
+EXTREME = {"subnormal_response": 2.0 ** -130, "huge_response": 2.0 ** 127}
 
 
 @pytest.mark.cuda
@@ -332,6 +335,16 @@ def test_cuda_backward_matches_plain_passes(cuda_device, case):
     if case == "bf16_unaligned":  # per-chain bins, rows 1,554 bytes apart
         a = [v.to(dev) for v in _small(n_params=9, n_events=777, bf16=True)]
         a[4] = torch.randint(-1, 9, (3, 777), dtype=torch.int32, device=dev)
+        x = types.SimpleNamespace(seg=a[0], t=a[1], coeffs=a[2], base=a[3], bins=a[4], gmc=a[5],
+                                  gw2=a[6], n_bins=8, plan={})
+    elif case in EXTREME:  # parameter 1 at its first knot: response = the value row, slope 1
+        a = _small(n_params=4, n_events=256)
+        a[0][:, 1], a[1][:, 1] = 0, 0.0
+        a[2][1, 0, :128], a[2][1, 1] = EXTREME[case], 1.0
+        if case == "huge_response":  # 2·base·Πr and G·base·Πr stay finite
+            a[3], a[5] = 0.01 * a[3], 0.01 * a[5]
+        a[6] = torch.zeros_like(a[6])
+        a = [v.to(dev) for v in a]
         x = types.SimpleNamespace(seg=a[0], t=a[1], coeffs=a[2], base=a[3], bins=a[4], gmc=a[5],
                                   gw2=a[6], n_bins=8, plan={})
     else:
