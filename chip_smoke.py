@@ -29,10 +29,13 @@ each kernel against its plain PyTorch version. Run from the repository root:
   samples, 19 parameters) written into a temporary directory and built by
   ``build_experiment`` at 256 chains: numu_2d (two shifts) and
   nue_nonuniform (hyper-rectangle bins with a shift, a TF1 response) on the
-  per-chain kernel (K5; K5b is its ``hist="blockdiag"`` form), numu_nd (a
-  weight function, static bins, P = 4) on the shared kernel, whose trivial
-  plan computes K4a. Its gradient at 64 chains through K5, the shared
-  kernel and the backward kernel (per-chain bins on the generic route).
+  per-chain kernel under their activity plans, binning in-kernel from their
+  bin maps (K5; K5b is its ``hist="blockdiag"`` form; the same kernel with
+  the bins given as input, the form of a shift that is torch code, is held
+  against both), numu_nd (a weight function, static bins, P = 4) on the
+  shared kernel, whose trivial plan computes K4a. Its gradient at 64 chains
+  through K5, the shared kernel and the backward kernel (the bin map
+  in-kernel on the generic route).
 
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2, a profile of 10
@@ -46,8 +49,9 @@ the experiment's MR2T2 run; K5b: its run with the deterministic histogram),
 its largest error against the plain
 version, both times and its bound: the least time the card could take for
 the same work, from the bytes each call must move (every input read once,
-each output written once) at 3.35 TB/s and its f32 operations at 67
-TFLOP/s, whichever is larger (H100 SXM peaks). No single PyTorch call
+each output written once; a bin map's kinematic rows, not the [C, E] bins it
+forms) at 3.35 TB/s and its f32 operations at 67 TFLOP/s, whichever is
+larger (H100 SXM peaks). No single PyTorch call
 computes a spline product and a histogram, so no kernel has a library time.
 
 ``python3 chip_smoke.py --kernel-times`` stops each of the toy and large
@@ -158,10 +162,11 @@ TPU_KERNELS = {
     "K6b": "mach3_tpu/splines/pallas_grad.py:123",
 }
 SOURCES = {"K1": "reweight_shifted", "K3": "reweight_shifted", "K2": "reweight_shared",
-           "K4a": "reweight_shared", "K4b": "reweight_shared", "K5": "reweight_perchain",
-           "K5b": "reweight_perchain", "K6a": "reweight_backward", "K6b": "reweight_backward"}
+           "K4a": "reweight_shared", "K4b": "reweight_shared", "K5": "reweight_shifted",
+           "K5b": "reweight_shifted", "K6a": "reweight_backward", "K6b": "reweight_backward"}
 NAMES = {"K4a": "reweight_shared (trivial plan, P <= 16)",
-         "K4b": "reweight_shared (trivial plan)", "K5b": "reweight_perchain_det",
+         "K4b": "reweight_shared (trivial plan)", "K5": "reweight_perchain (bin map)",
+         "K5b": "reweight_perchain_det (bin map)",
          "K6a": "reweight_backward (K6a and K6b fused: both rows share its launches and time)",
          "K6b": "reweight_backward (K6a and K6b fused: both rows share its launches and time)"}
 
@@ -270,24 +275,40 @@ def bound(n_bytes: float, n_ops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def bin_source_bytes(bins) -> int:
+    """Bytes a kernel must read of its per-chain bin source: a bin map's
+    tensors, of its kinematics only the rows of its shifted axes (it forms
+    the [C, E] bins itself); or the bins given."""
+    from mach3_tpu_torch.splines.reweight import PerchainBins
+
+    if not isinstance(bins, PerchainBins):
+        return _nbytes(bins)
+    rows = len(bins.axes) * bins.kin.shape[1] * bins.kin.element_size()
+    return rows + _nbytes(*(v for k, v in bins.tensors().items() if k != "kin"))
+
+
 def forward_bound(args, kwargs) -> dict:
     """Bound of one forward reweight-histogram call from its arguments
-    (any of the three kernels): every tensor argument read once, the table
-    by ``coefficient_reads``, the two [C, B] outputs written once; 7 f32
-    operations per evaluated (chain, event, parameter) (a Horner step and
-    the product), 3 per (chain, event) (w² and the two sums) and 2 per
-    (chain, matched norm) (one multiply-add). ``responses`` is the number
-    of (chain, event, parameter) responses that are not the identity: what
-    the call must evaluate, whatever plan it runs under."""
+    (any of the three kernels): every tensor argument read once (a bin map
+    by ``bin_source_bytes``), the table by ``coefficient_reads``, the two
+    [C, B] outputs written once; 7 f32 operations per evaluated (chain,
+    event, parameter) (a Horner step and the product), 3 per (chain, event)
+    (w² and the two sums) and 2 per (chain, matched norm) (one multiply-add).
+    ``responses`` is the number of (chain, event, parameter) responses that
+    are not the identity: what the call must evaluate, whatever plan it runs
+    under."""
     import torch
+
+    from mach3_tpu_torch.splines.reweight import PerchainBins
 
     seg, coeffs, base_w = args[0], args[2], args[3]
     c, e = base_w.shape
     coef, pairs = coefficient_reads(seg, coeffs)
     others = [a for i, a in enumerate(args) if i != 2] + list(kwargs.values())
+    maps = sum(bin_source_bytes(a) for a in others if isinstance(a, PerchainBins))
     norm_s = kwargs.get("norm_s")
     matches = 0 if norm_s is None else int(torch.count_nonzero(norm_s))
-    return dict(bound(_nbytes(*others) + coef + 2 * c * kwargs["n_bins"] * 4,
+    return dict(bound(_nbytes(*others) + maps + coef + 2 * c * kwargs["n_bins"] * 4,
                       c * (7 * pairs + 3 * e + 2 * matches)), responses=c * pairs)
 
 
@@ -486,8 +507,11 @@ def run_mr2t2(tag: str, model, thetas, warm: int, steps: int, chunk: int,
     return fitter, step_ms, launches
 
 
-def profile_steps(tag: str, fitter, step_ms: float, names, smi: str) -> None:
-    """Device ops, device busy time and each kernel's share over 10 steps."""
+def profile_steps(tag: str, fitter, step_ms: float, names, smi: str,
+                  op_table: bool = False) -> None:
+    """Device ops, device busy time and each kernel's share over 10 steps;
+    with ``op_table`` first the ten largest device ops by total time (name,
+    count per step, ms per step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -497,6 +521,10 @@ def profile_steps(tag: str, fitter, step_ms: float, names, smi: str) -> None:
         torch.cuda.synchronize()
     dev_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_ops) / 10e3
+    if op_table:
+        for rank, e in enumerate(sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:10]):
+            phase(f"[{tag}:profile-op] {rank + 1:2d} {e.count / 10:7.1f}/step "
+                  f"{e.self_device_time_total / 10e3:8.4f} ms/step {e.key[:110]}")
     shares = ", ".join(
         f"{n} {sum(e.self_device_time_total for e in dev_ops if n in e.key) / 10e3:.3f}"
         for n in names
@@ -535,12 +563,14 @@ def layout_info(sample) -> str:
             f"{sample.spline_table.n_spline_params}")
 
 
-def time_kernel(tag: str, sample, args, kwargs, smi: str) -> tuple[float, float, dict]:
-    """(kernel ms, plain ms, bound) of a sample's forward kernel."""
+def time_kernel(tag: str, sample, args, kwargs, smi: str,
+                form: str = "") -> tuple[float, float, dict]:
+    """(kernel ms, plain ms, bound) of a sample's forward kernel on these
+    arguments (``form`` names them when they are not the path's)."""
     _, kern, ref, _ = kernel_of(sample)
     km, pm = time_pair(lambda: kern(*args, **kwargs), lambda: ref(*args, **kwargs))
     bnd = forward_bound(args, kwargs)
-    phase(f"[{tag}:kernel-time] {sample.name}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+    phase(f"[{tag}:kernel-time] {sample.name}{form}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
           f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; kernel at "
           f"{bnd['bound_ms'] / km:.3f} of it), {response_rate(bnd, km)} "
           f"(C={args[3].shape[0]}, E={sample.n_events}, B={sample.n_bins}) | {smi}")
@@ -565,7 +595,7 @@ def backward_args(sample, thetas, tables_i) -> tuple:
                                 kw["stride_j"], kw["n_axis_j"])
     else:
         bins = args[4]
-    plan = {} if route == "generic" else dict(plan_ptr=kw["plan_ptr"], plan_idx=kw["plan_idx"])
+    plan = dict(plan_ptr=kw["plan_ptr"], plan_idx=kw["plan_idx"])
     mc, w2 = (v.detach().requires_grad_(True) for v in fwd(*args, **kw))
     gmc, gw2 = (g.float().contiguous() for g in
                 torch.autograd.grad(sample._stat_sum(mc, w2).sum(), (mc, w2)))
@@ -577,12 +607,14 @@ def check_backward(what: str, b_in, n_bins: int, plan: dict) -> tuple[float, flo
     GRAD_RTOL·P elementwise, ḡ_t to GRAD_RTOL·P of Σ_e |term|; finite.
     Returns (ḡ_base max abs error, ḡ_t max abs error, worst share of a
     tolerance)."""
+    import torch
+
     from mach3_tpu_torch.splines import grad
 
     seg, t, coeffs, base_w, bins, gmc, gw2 = b_in
     n_par = coeffs.shape[0]
     got_t, got_base = grad.reweight_backward(*b_in, n_bins=n_bins, **plan)
-    plain_bins = bins.bins(n_bins) if isinstance(bins, grad.ShiftedBins) else bins
+    plain_bins = bins if isinstance(bins, torch.Tensor) else bins.bins(n_bins)
     ref_a = grad.grad_pass_a_ref(seg, t, coeffs, base_w, plain_bins, gmc, gw2, n_bins=n_bins)
     ref_t = grad.grad_pass_b_ref(seg, t, coeffs, *ref_a[1:])
     err_base, _, worst_base = compare(got_base, ref_a[0], GRAD_RTOL * n_par, K_ATOL_FRAC,
@@ -600,7 +632,7 @@ def check_backward(what: str, b_in, n_bins: int, plan: dict) -> tuple[float, flo
 
 def backward_bound(b_in, plan: dict) -> dict:
     """The bound of one backward call: every input read once (the table by
-    ``coefficient_reads``; the shifted route's bins are formed, not read),
+    ``coefficient_reads``; a bin map's bins are formed, not read),
     ḡ_base [C, E] and ḡ_t [C, P] written once; the f32 operations the
     function needs, each response once: 14 per evaluated (chain, event,
     parameter) (response 6, product 1, slope 4, quotient 1, multiply-add
@@ -610,8 +642,8 @@ def backward_bound(b_in, plan: dict) -> dict:
     seg, t, coeffs, base_w, bins, gmc, gw2 = b_in
     c, e = base_w.shape
     coef, pairs = coefficient_reads(seg, coeffs)
-    bin_args = vars(bins).values() if isinstance(bins, grad.ShiftedBins) else [bins]
-    inputs = _nbytes(seg, t, base_w, gmc, gw2, *plan.values(), *bin_args)
+    source = bin_source_bytes(bins.bin_map() if isinstance(bins, grad.ShiftedBins) else bins)
+    inputs = _nbytes(seg, t, base_w, gmc, gw2, *plan.values()) + source
     return bound(inputs + coef + 4 * c * (e + coeffs.shape[0]), c * (14 * pairs + 6 * e))
 
 
@@ -638,7 +670,8 @@ def backward_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
         bnd = backward_bound(b_in, plan)
         out[s.name] = (err_base, err_t) + ms + (bnd,)
         form = {"shared": "shared bins, plan", "shifted": "shifted axis in-kernel, plan",
-                "generic": "per-chain bins"}[s._diff_route()]
+                "generic": ("bins given, plan" if isinstance(b_in[4], torch.Tensor)
+                            else "bin map in-kernel, plan")}[s._diff_route()]
         phase(f"[{tag}:grad-kernels] {s.name} (reweight_backward, {form}): C={thetas.shape[0]} "
               f"E={s.n_events} P={b_in[2].shape[0]}; max abs err g_base {err_base:.3e}, g_t "
               f"{err_t:.3e} (worst {worst:.3f} of tol); bit-identical over two launches; "
@@ -828,7 +861,8 @@ def grad_budget(model, thetas, smi: str) -> None:
     phase(f"[large:grad-profile] one gradient evaluation: {sum(e.count for e in dev_ops)} "
           f"device ops, device busy {busy:.3f} ms (reweight_backward "
           f"{share('reweight_backward'):.3f}, reweight_shared {share('reweight_shared'):.3f}, "
-          f"reweight_shifted {share('reweight_shifted'):.3f} ms) against {grad_ms:.3f} ms "
+          f"reweight_perchain_kernel {share('reweight_perchain_kernel'):.3f} ms) against "
+          f"{grad_ms:.3f} ms "
           f"unprofiled: device idle share {1.0 - busy / grad_ms:.3f}; top: "
           + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}" for e in top)
           + f" | {smi}")
@@ -921,7 +955,7 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
     fitter, step_ms, launches = run_mr2t2(
         "toy", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, {"reweight_shifted": 2}, smi,
         ACC_MIN)
-    profile_steps("toy", fitter, step_ms, ["reweight_shifted"], smi)
+    profile_steps("toy", fitter, step_ms, ["reweight_perchain_kernel"], smi)
     with torch.no_grad():
         times = [time_kernel("toy", s, *checked[s.name][:2], smi) for s in model.samples]
 
@@ -982,7 +1016,7 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
     fitter, step_ms, launches = run_mr2t2(
         "large", model, thetas, LARGE_WARM, LARGE_STEPS, LARGE_WARM,
         {"reweight_shared": 2, "reweight_shifted": 1}, smi, None)
-    profile_steps("large", fitter, step_ms, ["reweight_shared", "reweight_shifted"], smi)
+    profile_steps("large", fitter, step_ms, ["reweight_shared", "reweight_perchain_kernel"], smi)
     times = {}
     with torch.no_grad():
         for s in model.samples:
@@ -1035,16 +1069,15 @@ def large_grad_path(model, dev, smi: str) -> tuple[dict, dict]:
     return grads, launches
 
 
-def blockdiag_vs_plain(model, checked, smi: str) -> dict:
+def blockdiag_vs_plain(model, checked, smi: str) -> float:
     """K5b (``hist="blockdiag"``) against the plain version on each
     per-chain sample's arguments, within the kernels' tolerance, and twice:
-    bit for bit the same (no float atomics). Returns its max abs error,
-    times and bound."""
+    bit for bit the same (no float atomics). Returns its max abs error."""
     import torch
 
     from mach3_tpu_torch.splines import reweight
 
-    errs, times, bounds = [], [], []
+    errs = []
     for s in model.samples:
         if s.kernel_route.variant != "generic":
             continue
@@ -1057,17 +1090,52 @@ def blockdiag_vs_plain(model, checked, smi: str) -> dict:
         ref = reweight.fused_reweight_histogram_ref(*args, **kw)
         e1, q1, r1 = compare(got[0], ref[0], K_RTOL, K_ATOL_FRAC, f"{s.name} blockdiag mc")
         e2, q2, r2 = compare(got[1], ref[1], K_RTOL, K_ATOL_FRAC, f"{s.name} blockdiag w2")
-        km, pm = time_pair(lambda: reweight.fused_reweight_histogram(*args, **kw),
-                           lambda: reweight.fused_reweight_histogram_ref(*args, **kw))
         errs.append(max(e1, e2))
-        times.append((km, pm))
-        bounds.append(forward_bound(args, kw))
-        phase(f"[exp:blockdiag-vs-plain] {s.name} (reweight_perchain_det): max|dmc|={e1:.3e} "
-              f"max|dw2|={e2:.3e} max rel err {max(q1, q2):.3e} (worst {max(r1, r2):.3f} of "
-              f"tol); bit-identical over two runs; kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
-              f"{bounds[-1]['bound_ms']:.4f} ms | {smi}")
-    return dict(max_abs_err=max(errs), ms=sum(t[0] for t in times),
-                plain_ms=sum(t[1] for t in times), **summed(bounds))
+        phase(f"[exp:blockdiag-vs-plain] {s.name} (reweight_perchain_det, bin map, plan): "
+              f"max|dmc|={e1:.3e} max|dw2|={e2:.3e} max rel err {max(q1, q2):.3e} (worst "
+              f"{max(r1, r2):.3f} of tol); bit-identical over two runs | {smi}")
+    return max(errs)
+
+
+def bins_given_vs_plain(model, thetas, checked, smi: str) -> dict:
+    """The per-chain kernel with the bins given as input (the form of a
+    shift that is torch code), fed ``SampleModel._perchain_bins``, on each
+    generic sample's arguments: those bins equal the bin map's plain bins,
+    and both histogram forms agree with the plain version and with the bin
+    map's kernel, within the kernels' tolerance, K5b bit for bit twice.
+    Comparisons, not the path's launches. Returns {sample name: the input
+    form's arguments}."""
+    import torch
+
+    from mach3_tpu_torch.splines import reweight
+
+    out = {}
+    for s in model.samples:
+        if s.kernel_route.variant != "generic":
+            continue
+        args, kwargs, _ = checked[s.name]
+        given = s._perchain_bins(thetas).to(torch.int32).contiguous()
+        if not torch.equal(given, args[4].bins(s.n_bins)):
+            raise AssertionError(f"{s.name}: the bin map's plain bins differ from _perchain_bins")
+        a_in = args[:4] + (given,)
+        worst = 0.0
+        for hist in reweight.HIST_FORMS:
+            kw = dict(kwargs, hist=hist)
+            got = reweight.fused_reweight_histogram(*a_in, **kw)
+            ref = reweight.fused_reweight_histogram_ref(*a_in, **kw)
+            by_map = reweight.fused_reweight_histogram(*args, **kw)
+            if hist == "blockdiag":
+                again = reweight.fused_reweight_histogram(*a_in, **kw)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"{s.name}: K5b on given bins differs between runs")
+            for x, y, h in zip(got + got, ref + by_map, ("mc", "w2", "mc vs map", "w2 vs map")):
+                worst = max(worst, compare(x, y, K_RTOL, K_ATOL_FRAC, f"{s.name} given {h}")[2])
+        out[s.name] = a_in
+        phase(f"[exp:bins-given-vs-plain] {s.name} (reweight_perchain and _det, bins given "
+              f"[C, E] from _perchain_bins, equal to the bin map's plain bins): both forms vs "
+              f"plain and vs the bin map's kernel within {worst:.3f} of tol; K5b bit-identical "
+              f"twice | {smi}")
+    return out
 
 
 def exp_path(dev, smi: str) -> dict:
@@ -1103,7 +1171,8 @@ def exp_path(dev, smi: str) -> dict:
     with torch.no_grad():
         tables = model._shared_osc_tables(thetas)
         checked = kernels_vs_plain("exp", model, thetas, tables, smi)
-        k5b = blockdiag_vs_plain(model, checked, smi)
+        k5b_err = blockdiag_vs_plain(model, checked, smi)
+        given = bins_given_vs_plain(model, thetas, checked, smi)
         nd = model.samples[2]
         k4a = wide_form_vs_plain("exp", nd, checked[nd.name], smi, shuffle=True)
         _, _, asimov = model.total_nll_batch_parts(model.prefit_vector()[None])
@@ -1115,7 +1184,8 @@ def exp_path(dev, smi: str) -> dict:
 
     fitter, step_ms, launches = run_mr2t2(
         "exp", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, EXP_LAUNCHES, smi, ACC_MIN)
-    profile_steps("exp", fitter, step_ms, ["reweight_perchain", "reweight_shared"], smi)
+    profile_steps("exp", fitter, step_ms, ["reweight_perchain_kernel", "reweight_shared"], smi,
+                  op_table=True)
     generic = [s for s in model.samples if s.kernel_route.variant == "generic"]
     for s in generic:
         s.perchain_hist = "blockdiag"
@@ -1136,6 +1206,11 @@ def exp_path(dev, smi: str) -> dict:
           f"{1e3 * det_s / EXP_DET_STEPS:.3f} ms/step, launches {det_launches} | {smi}")
     with torch.no_grad():
         times = {s.name: time_kernel("exp", s, *checked[s.name][:2], smi) for s in model.samples}
+        for s in generic:
+            time_kernel("exp", s, given[s.name], checked[s.name][1], smi, " (bins given)")
+        det_times = [time_kernel("exp", s, checked[s.name][0],
+                                 dict(checked[s.name][1], hist="blockdiag"), smi, " (K5b)")
+                     for s in generic]
     del fitter
 
     thetas = torch.as_tensor(jitter_init(model, GRAD_CHAINS, np.random.default_rng(0)),
@@ -1149,13 +1224,14 @@ def exp_path(dev, smi: str) -> dict:
 
     perchain = [times[s.name] for s in generic]
     k4a["launches"] = launches["reweight_shared"]
-    k5b["launches"] = det_launches["reweight_perchain_blockdiag"]
     return {
         "K5": dict(launches=launches["reweight_perchain"],
                    max_abs_err=max(checked[s.name][2] for s in generic),
                    ms=sum(v[0] for v in perchain), plain_ms=sum(v[1] for v in perchain),
                    **summed([v[2] for v in perchain])),
-        "K5b": k5b,
+        "K5b": dict(launches=det_launches["reweight_perchain_blockdiag"], max_abs_err=k5b_err,
+                    ms=sum(v[0] for v in det_times), plain_ms=sum(v[1] for v in det_times),
+                    **summed([v[2] for v in det_times])),
         "K4a": k4a,
         "grad": grads,
     }

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the shared and shifted reweight kernels goes, on one
-NVIDIA GPU: each sample's kernel call of the reference-scale fixture
-(``build_large(low_memory=True)``, 128 chains) and of the toy (100,000 events,
-256 chains), timed with parts of its work switched off through its arguments
-alone (the kernels are the package's, unchanged):
+"""Where the time of the forward reweight kernels goes, on one NVIDIA GPU:
+each sample's kernel call of the reference-scale fixture
+(``build_large(low_memory=True)``, 128 chains), of the toy (100,000 events,
+256 chains) and of the YAML experiment (``tutorial/experiment_files.py`` at
+100,000 events, 256 chains: its two generic-route samples on the per-chain
+kernel, its shared-route one), timed with parts of its work switched off
+through its arguments alone (the kernels are the package's, unchanged):
 
 * ``full``: the call of the sampling path;
 * ``no norm``: without the in-kernel norm product (``norm_ext``/``norm_s``
@@ -13,7 +15,9 @@ alone (the kernels are the package's, unchanged):
 * ``set-up + loop``: every event dropped (garbage bin) and no norm, so
   that a block does its set-up and its response loop but forms no norm
   product and adds nothing to a histogram;
-* ``trivial plan``: every parameter listed on every tile.
+* ``trivial plan``: every parameter listed on every tile;
+* ``bins given`` (generic route): the bins [C, E] of
+  ``SampleModel._perchain_bins`` as input instead of the bin map.
 
 And the backward kernel (``csrc/reweight_backward.cu``) of each sample of
 the toy and of the fixture at the gradient path's 64 chains:
@@ -27,11 +31,13 @@ computes the sample's histogram (``chip_smoke.py`` holds the backward to its
 plain passes). Run from the repository root, after
 ``chip_smoke.py`` has shown the kernels right:
 
-    python3 kernel_probe.py        # needs one CUDA GPU and nvcc; ~1 min
+    python3 kernel_probe.py        # needs one CUDA GPU and nvcc; ~1.5 min
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
+import tempfile
 
 import chip_smoke as cs
 
@@ -59,11 +65,16 @@ def probe(tag: str, model, thetas, smi: str) -> None:
                            plan_idx=torch.as_tensor(idx, device=dev))
             if shared:
                 dropped = args[:4] + (drop,)
+            elif name == "reweight_perchain":  # the bin map's static base
+                dropped = args[:4] + (dataclasses.replace(args[4], static_base=drop),)
             else:  # x_nom, static_base, edges follow base_w and shift_vals
                 dropped = args[:6] + (drop,) + args[7:]
             variants = {"full": (args, kw), "no norm": (args, no_norm),
                         "one segment": (one_seg, kw), "set-up + loop": (dropped, no_norm),
                         "trivial plan": (args, trivial)}
+            if name == "reweight_perchain":
+                given = s._perchain_bins(thetas).to(torch.int32).contiguous()
+                variants["bins given"] = (args[:4] + (given,), kw)
             times = {}
             for what, (a, k) in variants.items():
                 kern(*a, **k)
@@ -106,8 +117,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: torch.cuda.is_available() is False: needs a CUDA GPU")
 
+    from mach3_tpu_torch.core.config import Config
     from mach3_tpu_torch.core.precision import disable_tf32
     from mach3_tpu_torch.kernels.build import build_all, kernel_stems
+    from mach3_tpu_torch.samples.experiment import build_experiment
+    from mach3_tpu_torch.tutorial.experiment_files import write_experiment
     from mach3_tpu_torch.tutorial.large import build_large
     from mach3_tpu_torch.tutorial.toy import build_toy
 
@@ -120,6 +134,13 @@ def main() -> int:
                              device=dev)
     probe("toy", toy, thetas, smi)
     probe_backward("toy", toy, thetas, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config.from_file(str(write_experiment(tmp, n_events=cs.EXP_EVENTS,
+                                                    seed=cs.EXP_SEED)))
+        exp = build_experiment(cfg, device=dev).model
+    thetas = torch.as_tensor(cs.jitter_init(exp, cs.N_CHAINS, np.random.default_rng(0)),
+                             device=dev)
+    probe("exp", exp, thetas, smi)
     large = build_large(seed=cs.LARGE_SEED, low_memory=True, device=dev).model
     thetas = torch.as_tensor(cs.jitter_init(large, cs.LARGE_CHAINS, np.random.default_rng(0)),
                              device=dev)

@@ -21,10 +21,11 @@
 //
 // which is K6a's ḡ_base and K6b's ḡ_selector[c, p, :] contracted with
 // ∂selector/∂t = [0, 1, 2t, 3t²] at the segment. The bin is bins[e] (the
-// shared route's static bins), bins[c, e] (the generic route's per-chain
-// bins) or, on the shifted route, formed here from the forward's shift
-// arguments by m3::shifted_bin (spline_response.cuh), the forward kernel's own
-// binning, in f32.
+// shared route's static bins), bins[c, e] (per-chain bins given: a sample
+// whose shifts are torch code) or, on the shifted route and the generic
+// route's named shifts, formed here from the forward's bin map by
+// m3::perchain_bin (spline_response.cuh), the forward kernel's own binning,
+// in f32.
 //
 // Why one kernel: the TPU's two passes handed three [C, E] fields (G·base,
 // pnz, nz) from pass A to pass B through device memory, 24 bytes per (chain,
@@ -95,11 +96,12 @@
 // not, as the forward kernels do not copy the forward's rounding.
 //
 // Tables: any row pitch; rows that start on 16-byte boundaries are copied by
-// 16-byte cp.async, others one element a thread (the generic route's tables
-// are not laid out). Limits: P ≤ 256, K4 / 4 ≤ 64 knots, edges ≤ 1025, and
-// the block's shared memory (the tile core; with kNeedT 8 x 16 floats per
-// parameter for the warps' sums and an int per parameter; the edges) ≤ 227
-// KB.
+// 16-byte cp.async, others one element a thread (a sample that is not laid
+// out). Limits: P ≤ 256, K4 / 4 ≤ 64 knots, the bin map's (4 shifted axes, 8
+// shifts, edges ≤ 1025 an axis), and the block's shared memory (the tile
+// core; with kNeedT 8 x 16 floats per parameter for the warps' sums and an
+// int per parameter; the map's edges, shift factors, event rows and cells)
+// ≤ 227 KB.
 //
 // Launch: grid (ceil(C / kChainTile), ceil(E / kEventTile)), kThreads
 // threads, on the caller's stream. It allocates nothing. The entry returns
@@ -120,7 +122,6 @@ constexpr int kThreads = m3::kTileEvents;
 constexpr int kEventTile = kThreads;  // one event per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxParams = m3::kMaxTileParams;
-constexpr int kMaxEdges = 1025;
 constexpr int kMaxTiles = 65535;     // gridDim.y
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -132,23 +133,24 @@ constexpr float kFastMax = 8.50705917e37f;
 // Where an event's bin comes from (splines/grad.py BINS_*).
 constexpr int kBinsShared = 0;    // bins[e]
 constexpr int kBinsPerChain = 1;  // bins[c, e]
-constexpr int kBinsShifted = 2;   // m3::shifted_bin of the shift arguments
+constexpr int kBinsMap = 2;       // m3::perchain_bin of the forward's bin map
+// A kernel's bin source (its kBins) is one of those or, for a map of one
+// axis with one shift (the shifted route's), m3::axis_bin with the map's
+// fields read from the arguments and the event's value in a register.
+constexpr int kBinsAxis = 3;
 
 struct Args {
   const int* seg;
   const float* t;
   const void* coeffs;
   const float* base_w;
-  int bins_kind;
   const int* bins;
-  const float* shift_vals;
-  const float* x_nom;
-  const int* static_base;
-  const float* edges;
-  int n_edges;
-  int stride_j;
-  int n_axis_j;
-  int shift_kind;
+  const float* kin;         // [V, E] the map's rows
+  const float* shift_vals;  // [C, map.n_shifts]
+  const int* statics;       // [E]
+  const float* edges;       // [map.n_axes][map.edge_pitch]
+  const int* cells;         // [map.n_cells]
+  m3::BinMap map;
   const float* gmc;
   const float* gw2;
   const int* plan_ptr;
@@ -185,15 +187,20 @@ __device__ __forceinline__ float reduce_scatter(const float (&acc)[kChainTile], 
   return a1 + __shfl_xor_sync(kFullMask, a1, 1);
 }
 
-template <typename CoefT, bool kNeedT>
+template <typename CoefT, bool kNeedT, int kBins>
 __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ m3::BinMap map;
   m3::TileCore<CoefT> core;
   // [W][P][CT] the warps' sums
   float* red = reinterpret_cast<float*>(core.carve(smem_raw, a.P, a.K4));
   int* slot = reinterpret_cast<int*>(red + (kNeedT ? kWarps * a.P * kChainTile : 0));  // [P]
-  float* sh_edges = reinterpret_cast<float*>(slot + (kNeedT ? a.P : 0));  // [n_edges]
-  float* sh_shift = sh_edges + a.n_edges;                                 // [CT] shift factors
+  constexpr bool by_map = kBins >= kBinsMap;
+  const m3::BinMap& am = a.map;
+  float* sh_edges = reinterpret_cast<float*>(slot + (kNeedT ? a.P : 0));  // [n_axes][pitch]
+  float* sh_fac = sh_edges + (by_map ? am.n_axes * am.edge_pitch : 0);    // [n_shifts][CT]
+  float* sh_x = sh_fac + (by_map ? am.n_shifts * kChainTile : 0);         // [n_axes][kThreads]
+  int* sh_cell = reinterpret_cast<int*>(sh_x + (by_map ? am.n_axes * kThreads : 0));
 
   const int tid = threadIdx.x;
   const int tile = blockIdx.y;
@@ -204,11 +211,9 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
   const int nact = a.plan_ptr ? a.plan_ptr[tile + 1] - p_begin : a.P;
   const CoefT* coeffs = static_cast<const CoefT*>(a.coeffs);
 
-  if (a.bins_kind == kBinsShifted) {
-    for (int i = tid; i < a.n_edges; i += kThreads) sh_edges[i] = a.edges[i];
-    for (int i = tid; i < nct; i += kThreads) {
-      sh_shift[i] = m3::shift_factor(a.shift_kind, a.shift_vals[c0 + i]);
-    }
+  if (by_map) {
+    m3::stage_bin_map(map, a.map, a.edges, a.cells, a.shift_vals, c0, nct, sh_edges, sh_cell,
+                      sh_fac);
   }
   if (kNeedT) {
     for (int i = tid; i < a.P; i += kThreads) slot[i] = -1;
@@ -256,12 +261,18 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
   // The cotangent gather: ḡ_base out, u = G·base·pnz kept for phase 2.
   if (!live) zeros = 0;
   int bin_e = -1;
-  float x_nom = 0.f;
+  float x0 = 0.f;
   if (live) {
-    if (a.bins_kind == kBinsShared) bin_e = a.bins[e];
-    if (a.bins_kind == kBinsShifted) {
-      bin_e = a.static_base[e];
-      x_nom = a.x_nom[e];
+    if (kBins == kBinsShared) bin_e = a.bins[e];
+    if (by_map) {
+      bin_e = a.statics[e];
+      if (kBins == kBinsAxis) {
+        x0 = a.kin[static_cast<size_t>(am.row[0]) * es + e];
+      } else {
+        for (int ax = 0; ax < map.n_axes; ++ax) {  // this thread's own row of sh_x
+          sh_x[ax * kThreads + tid] = a.kin[static_cast<size_t>(map.row[ax]) * es + e];
+        }
+      }
     }
   }
   float u[kChainTile];
@@ -272,11 +283,15 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
       const size_t o = static_cast<size_t>(c0 + c) * es + e;
       const float base = a.base_w[o];
       int bin = bin_e;
-      if (a.bins_kind == kBinsPerChain) {
+      if (kBins == kBinsPerChain) {
         bin = a.bins[o];
-      } else if (a.bins_kind == kBinsShifted) {
-        bin = m3::shifted_bin(a.shift_kind, x_nom, sh_shift[c], bin_e, sh_edges, a.n_edges,
-                              a.stride_j, a.n_axis_j);
+      } else if (kBins == kBinsAxis) {
+        bin = m3::axis_bin(am.kind[0], x0, sh_fac[c], bin_e, sh_edges, am.n_edges[0],
+                           am.stride[0]);
+        if (am.n_cells > 0 && bin >= 0) bin = bin < am.n_cells ? sh_cell[bin] : -1;
+      } else if (kBins == kBinsMap) {
+        bin = m3::perchain_bin(map, sh_x + tid, kThreads, sh_fac + c, kChainTile, bin_e,
+                               sh_edges, sh_cell);
       }
       const float r = (zeros & (1u << c)) ? 0.f : pnz[c];
       float g = 0.f;
@@ -354,9 +369,9 @@ __global__ void __launch_bounds__(kThreads, 3) reweight_backward_kernel(const Ar
   }
 }
 
-template <typename CoefT, bool kNeedT>
+template <typename CoefT, bool kNeedT, int kBins>
 cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream, const Args& a) {
-  auto kernel = reweight_backward_kernel<CoefT, kNeedT>;
+  auto kernel = reweight_backward_kernel<CoefT, kNeedT, kBins>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -366,50 +381,67 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream, const Args& a) {
   return cudaGetLastError();
 }
 
+template <int kBins>
+cudaError_t dispatch(bool bf16, bool need_t, size_t smem, dim3 grid, cudaStream_t s,
+                     const Args& a) {
+  if (bf16) {
+    return need_t ? launch<__nv_bfloat16, true, kBins>(smem, grid, s, a)
+                  : launch<__nv_bfloat16, false, kBins>(smem, grid, s, a);
+  }
+  return need_t ? launch<float, true, kBins>(smem, grid, s, a)
+                : launch<float, false, kBins>(smem, grid, s, a);
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. coeffs is f32 (coef_bf16 == 0) or bf16, of any
 // row pitch. bins_kind 0: bins [E] int32; 1: bins [C, E] int32; 2: bins
-// null and the forward's shift arguments (shift_vals [C], x_nom [E],
-// static_base [E], edges [n_edges], stride_j, n_axis_j = n_edges − 1,
-// shift_kind), which are ignored otherwise. plan_ptr / plan_idx (CSR over
-// tiles of event_tile events) may both be null: every parameter on every
-// tile. Writes gbase [C, E] f32 and, unless partial is null (no ḡ_t wanted),
-// partial [ceil(E / event_tile), C, P] f32: every entry, 0 for a parameter a
-// tile's plan does not list; ḡ_t is its sum over the first axis.
-// event_tile and chain_tile must equal the kernel's. Returns a cudaError_t
-// code: cudaErrorInvalidValue for sizes the kernel does not take, otherwise
-// cudaGetLastError() right after the launch.
+// null and the forward's bin map (the host descriptor desc, as the forward
+// entries of reweight_shifted.cu take it: m3::parse_bin_map; kin [V, E],
+// shift_vals [C, n_shifts], static_base [E], edges [n_axes, edge_pitch],
+// cells [n_cells] or null), which is ignored otherwise. plan_ptr / plan_idx
+// (CSR over tiles of event_tile events) may both be null: every parameter on
+// every tile. Writes gbase [C, E] f32 and, unless partial is null (no ḡ_t
+// wanted), partial [ceil(E / event_tile), C, P] f32: every entry, 0 for a
+// parameter a tile's plan does not list; ḡ_t is its sum over the first
+// axis. event_tile and chain_tile must equal the kernel's. Returns a
+// cudaError_t code: cudaErrorInvalidValue for sizes the kernel does not
+// take, otherwise cudaGetLastError() right after the launch.
 extern "C" int m3_reweight_backward(
     const void* seg, const void* t, const void* coeffs, int coef_bf16, const void* base_w,
-    int bins_kind, const void* bins, const void* shift_vals, const void* x_nom,
-    const void* static_base, const void* edges, int n_edges, int stride_j, int n_axis_j,
-    int shift_kind, const void* gmc, const void* gw2, const void* plan_ptr,
-    const void* plan_idx, void* gbase, void* partial, int C, int P, int K4, int E,
-    int n_bins, int event_tile, int chain_tile, void* stream) {
+    int bins_kind, const void* bins, const void* kin, const void* shift_vals,
+    const void* static_base, const void* edges, const void* cells, const int* desc,
+    const void* gmc, const void* gw2, const void* plan_ptr, const void* plan_idx, void* gbase,
+    void* partial, int C, int P, int K4, int E, int n_bins, int event_tile, int chain_tile,
+    void* stream) {
   if (plan_ptr == nullptr || plan_idx == nullptr) plan_ptr = plan_idx = nullptr;
-  const bool shifted = bins_kind == kBinsShifted;
-  if (!shifted) n_edges = 0;
+  const bool by_map = bins_kind == kBinsMap;
+  m3::BinMap map{};
   const int n_tiles = E > 0 ? (E + kEventTile - 1) / kEventTile : 0;
   if (C <= 0 || E <= 0 || P <= 0 || P > kMaxParams || K4 <= 0 || K4 % 4 != 0 ||
       K4 / 4 > m3::kMaxKnots || n_bins <= 0 || bins_kind < kBinsShared ||
-      bins_kind > kBinsShifted || (!shifted && bins == nullptr) ||
-      (shifted && (n_edges < 2 || n_edges > kMaxEdges || n_axis_j != n_edges - 1 ||
-                   shift_kind < m3::kShiftScale || shift_kind > m3::kShiftAboutOne)) ||
+      bins_kind > kBinsMap || (!by_map && bins == nullptr) ||
+      (by_map && (!m3::parse_bin_map(desc, &map) || kin == nullptr || static_base == nullptr ||
+                  edges == nullptr || (map.n_shifts > 0 && shift_vals == nullptr) ||
+                  (map.n_cells > 0 && cells == nullptr))) ||
       event_tile != kEventTile || chain_tile != kChainTile || n_tiles > kMaxTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t coef_size = coef_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   const bool need_t = partial != nullptr;
-  const size_t smem = m3::core_bytes(coef_size, P, K4) +
-                      (need_t ? (static_cast<size_t>(kWarps) * kChainTile + 1) * P * 4 : 0) +
-                      (shifted ? (static_cast<size_t>(n_edges) + kChainTile) * 4 : 0);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      m3::core_bytes(coef_size, P, K4) +
+      (need_t ? (static_cast<size_t>(kWarps) * kChainTile + 1) * P * 4 : 0) +
+      (by_map ? 4 * (static_cast<size_t>(map.n_axes) * map.edge_pitch +
+                     static_cast<size_t>(map.n_shifts) * kChainTile +
+                     static_cast<size_t>(map.n_axes) * kThreads + map.n_cells)
+              : 0);
+  if (smem + sizeof(m3::BinMap) > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int*>(seg), static_cast<const float*>(t), coeffs,
-               static_cast<const float*>(base_w), bins_kind, static_cast<const int*>(bins),
-               static_cast<const float*>(shift_vals), static_cast<const float*>(x_nom),
+               static_cast<const float*>(base_w), static_cast<const int*>(bins),
+               static_cast<const float*>(kin), static_cast<const float*>(shift_vals),
                static_cast<const int*>(static_base), static_cast<const float*>(edges),
-               n_edges, stride_j, n_axis_j, shift_kind, static_cast<const float*>(gmc),
+               static_cast<const int*>(cells), map, static_cast<const float*>(gmc),
                static_cast<const float*>(gw2), static_cast<const int*>(plan_ptr),
                static_cast<const int*>(plan_idx), static_cast<float*>(gbase),
                static_cast<float*>(partial), C, P, K4, E, n_bins,
@@ -417,14 +449,17 @@ extern "C" int m3_reweight_backward(
                    reinterpret_cast<uintptr_t>(coeffs) % 16 == 0};
   const dim3 grid((C + kChainTile - 1) / kChainTile, n_tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (coef_bf16) {
-    err = need_t ? launch<__nv_bfloat16, true>(smem, grid, s, a)
-                 : launch<__nv_bfloat16, false>(smem, grid, s, a);
-  } else {
-    err = need_t ? launch<float, true>(smem, grid, s, a) : launch<float, false>(smem, grid, s, a);
+  const int kind = by_map && map.n_axes == 1 && map.n_shifts == 1 ? kBinsAxis : bins_kind;
+  switch (kind) {
+    case kBinsShared:
+      return static_cast<int>(dispatch<kBinsShared>(coef_bf16, need_t, smem, grid, s, a));
+    case kBinsPerChain:
+      return static_cast<int>(dispatch<kBinsPerChain>(coef_bf16, need_t, smem, grid, s, a));
+    case kBinsAxis:
+      return static_cast<int>(dispatch<kBinsAxis>(coef_bf16, need_t, smem, grid, s, a));
+    default:
+      return static_cast<int>(dispatch<kBinsMap>(coef_bf16, need_t, smem, grid, s, a));
   }
-  return static_cast<int>(err);
 }
 
 extern "C" const char* m3_error_string(int code) {

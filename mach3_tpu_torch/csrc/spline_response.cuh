@@ -7,23 +7,20 @@
 // trusted to lie in [0, n_knots − 2], as find_segments clamps it (the tile
 // core below clamps it into the table besides).
 //
-// Two forms:
-//
-//  * spline_weight: one (chain, event) at a time, straight from global
-//    memory (reweight_perchain.cu).
-//
 //  * TileCore: the response product of one tile of kTileEvents events (one
 //    per thread) by kTileChains chains, parameter-outer, with the chains'
-//    running products in registers (reweight_shared.cu, reweight_shifted.cu).
+//    running products in registers (reweight_shared.cu, reweight_shifted.cu,
+//    reweight_backward.cu).
 //    The work of a tile is a list of items (active parameter, segment, the
 //    16-bit mask of the tile's chains that sit in that segment): only
 //    segments some chain is in are listed, ascending, so a parameter whose
 //    chains straddle a knot gives two items. An item's 4 coefficient rows for
 //    the tile's events (2 KB in bf16, 4 KB in f32) are copied into shared
 //    memory with 16-byte cp.async, kItemsPerStage items to a stage, in a ring
-//    of kStages stages: the rows of the next two stages are in flight while
-//    this one's are used, the addresses depend on no chain, and each row
-//    leaves L2 once per block instead of once per chain. A thread then reads
+//    of kRing stages (kStages = 3 by default): the rows of the next
+//    kRing − 1 stages are in flight while this one's are used, the addresses
+//    depend on no chain, and each row leaves L2 once per block instead of
+//    once per chain. A thread then reads
 //    its event's 4 coefficients from shared memory (consecutive lanes,
 //    consecutive events: no bank conflict), the item's 16 t values as four
 //    broadcast float4 reads, and multiplies the response into w[c] for each
@@ -36,16 +33,20 @@
 //    or not; so chains split over two segments cost twice the FMA slots of
 //    chains in one.
 //
-//    The forward kernels take tables whose row starts are 16-byte aligned
-//    (the table's base pointer and its row pitch E·sizeof(CoefT) multiples of
-//    16; their entries check it). The backward kernel also takes any other
-//    table (the generic route's are not laid out): with `aligned` false a
-//    stage is copied one element a thread at a time with plain loads and
-//    shared-memory stores, which the stage's barrier orders like the
-//    asynchronous copies.
+//    Tables whose row starts are 16-byte aligned (the table's base pointer
+//    and its row pitch E·sizeof(CoefT) multiples of 16: any laid-out table)
+//    are copied by cp.async. The per-chain forward form and the backward
+//    kernel also take any other table (a sample that is not laid out): with
+//    `aligned` false a stage is copied one element a thread at a time with
+//    plain loads and shared-memory stores, which the stage's barrier orders
+//    like the asynchronous copies.
 //
-//  * The shifted axis's binning (shift_x, shifted_bin), one code for the
-//    forward and the backward kernel, so both put an event in the same bin.
+//  * The per-chain binning (BinMap, perchain_bin): named shifts applied to
+//    the binned axes they move, an edge search per such axis, a static part
+//    for the axes no shift moves and an optional cell -> bin map. One code
+//    for the forward and the backward kernel, so both put an event in the
+//    same bin; a single shifted axis (the shifted route) is its simplest
+//    case.
 
 #pragma once
 
@@ -62,28 +63,10 @@ __device__ __forceinline__ float load_coef(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// w · Π_p resp_p for event e of one chain; seg/t are that chain's [P] rows.
-template <typename CoefT>
-__device__ __forceinline__ float spline_weight(
-    const CoefT* __restrict__ coeffs, const int* seg, const float* t, int P,
-    int K4, size_t es, int e, float w) {
-  for (int p = 0; p < P; ++p) {
-    const float tp = t[p];
-    const CoefT* co = coeffs +
-        (static_cast<size_t>(p) * K4 + static_cast<size_t>(seg[p]) * 4) * es + e;
-    const float y = load_coef(co);
-    const float b = load_coef(co + es);
-    const float c = load_coef(co + 2 * es);
-    const float d = load_coef(co + 3 * es);
-    w *= y + tp * (b + tp * (c + tp * d));
-  }
-  return w;
-}
-
 constexpr int kTileEvents = 256;   // events of a tile = threads of a block
 constexpr int kTileChains = 16;    // chains of a block, products in registers
 constexpr int kItemsPerStage = 4;  // items copied and used between two barriers
-constexpr int kStages = 3;         // ring depth
+constexpr int kStages = 3;         // ring depth (a TileCore's default)
 constexpr int kMaxKnots = 64;      // K4 / 4: segments fit one 64-bit mask
 constexpr int kMaxTileParams = kTileEvents;  // one thread lists one parameter
 constexpr int kWeightPitch = kTileChains + 1;  // floats per event of the parked weights
@@ -95,17 +78,19 @@ __host__ __device__ inline size_t core_item_cap(int P, int K4) {
   return static_cast<size_t>(P) * (k < kTileChains ? k : kTileChains);
 }
 
-// Shared memory of a TileCore (a multiple of 16 bytes).
-__host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4) {
-  const size_t ring = static_cast<size_t>(kStages) * kItemsPerStage * 4 * kTileEvents * coef_size;
+// Shared memory of a TileCore of `stages` ring stages (a multiple of 16 bytes).
+__host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4,
+                                             int stages = kStages) {
+  const size_t ring = static_cast<size_t>(stages) * kItemsPerStage * 4 * kTileEvents * coef_size;
   const size_t b = ring + static_cast<size_t>(P) * kTileChains * 8 +
                    (2 * static_cast<size_t>(P) + 1) * 4 + core_item_cap(P, K4) * 8;
   return (b + 15) & ~static_cast<size_t>(15);
 }
 
-template <typename CoefT>
+template <typename CoefT, int kRing = kStages>
 struct TileCore {
-  CoefT* ring;    // [kStages][kItemsPerStage][4][kTileEvents]
+  static_assert(kRing >= 2, "a stage is copied while the one before it is used");
+  CoefT* ring;    // [kRing][kItemsPerStage][4][kTileEvents]
   float* t;       // [nact][kTileChains]
   int* seg;       // [nact][kTileChains], -1 for a chain past the batch
   int* par;       // [nact] the tile's active parameters
@@ -116,7 +101,7 @@ struct TileCore {
   // Takes core_bytes() of the 16-byte aligned `base`; returns what follows.
   __device__ unsigned char* carve(unsigned char* base, int P, int K4) {
     ring = reinterpret_cast<CoefT*>(base);
-    base += static_cast<size_t>(kStages) * kItemsPerStage * 4 * kTileEvents * sizeof(CoefT);
+    base += static_cast<size_t>(kRing) * kItemsPerStage * 4 * kTileEvents * sizeof(CoefT);
     t = reinterpret_cast<float*>(base);
     base += static_cast<size_t>(P) * kTileChains * 4;
     seg = reinterpret_cast<int*>(base);
@@ -195,7 +180,7 @@ struct TileCore {
   // false) one element a thread at a time.
   __device__ __forceinline__ void copy_stage(const CoefT* __restrict__ coeffs, size_t es, int E,
                                              int e0, int stage, int n_items, bool aligned) {
-    CoefT* slot = ring + static_cast<size_t>(stage % kStages) * kItemsPerStage * 4 * kTileEvents;
+    CoefT* slot = ring + static_cast<size_t>(stage % kRing) * kItemsPerStage * 4 * kTileEvents;
     const int first = stage * kItemsPerStage;
     if (!aligned) {
 #pragma unroll 4
@@ -226,14 +211,14 @@ struct TileCore {
     }
   }
 
-  // Starts the copies of the first kStages − 1 stages, so that they are in
+  // Starts the copies of the first kRing − 1 stages, so that they are in
   // flight while the caller forms its starting weights; for_each_item() or
   // multiply() follows. A second walk over the same items needs a barrier
   // between the first walk's end and this call.
   __device__ __forceinline__ void start(const CoefT* __restrict__ coeffs, size_t es, int E,
                                         int e0, int n_items, bool aligned = true) {
     const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
-    for (int g = 0; g < kStages - 1; ++g) {
+    for (int g = 0; g < kRing - 1; ++g) {
       if (g < n_stages) copy_stage(coeffs, es, E, e0, g, n_items, aligned);
       __pipeline_commit();
     }
@@ -250,14 +235,14 @@ struct TileCore {
                                                 Body&& body) {
     const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
     for (int g = 0; g < n_stages; ++g) {
-      __pipeline_wait_prior(kStages - 2);
+      __pipeline_wait_prior(kRing - 2);
       __syncthreads();  // stage g has landed; stage g − 1's slot is free
-      if (g + kStages - 1 < n_stages) {
-        copy_stage(coeffs, es, E, e0, g + kStages - 1, n_items, aligned);
+      if (g + kRing - 1 < n_stages) {
+        copy_stage(coeffs, es, E, e0, g + kRing - 1, n_items, aligned);
       }
       __pipeline_commit();
       const CoefT* slot = ring +
-          static_cast<size_t>(g % kStages) * kItemsPerStage * 4 * kTileEvents + threadIdx.x;
+          static_cast<size_t>(g % kRing) * kItemsPerStage * 4 * kTileEvents + threadIdx.x;
       const int first = g * kItemsPerStage;
       const int n = min(kItemsPerStage, n_items - first);
       for (int i = 0; i < n; ++i) {
@@ -278,8 +263,9 @@ struct TileCore {
   // thread's event (e0 + threadIdx.x) for chain c. Every thread of the block
   // calls both (multiply contains barriers), whether its event exists or not.
   __device__ __forceinline__ void multiply(const CoefT* __restrict__ coeffs, size_t es, int E,
-                                           int e0, int n_items, float (&w)[kTileChains]) {
-    for_each_item(coeffs, es, E, e0, n_items, true,
+                                           int e0, int n_items, float (&w)[kTileChains],
+                                           bool aligned = true) {
+    for_each_item(coeffs, es, E, e0, n_items, aligned,
                   [&](int, int jm, float y, float b, float c, float d) {
       const unsigned mask = static_cast<unsigned>(jm) & 0xffffu;
       const float4* tp = item_t(jm);
@@ -300,7 +286,7 @@ struct TileCore {
   // banks) and returns them. Every thread of the block calls it; what the
   // caller wrote to shared memory before is visible after.
   __device__ __forceinline__ float* park(const float (&w)[kTileChains]) {
-    static_assert(sizeof(CoefT) * kStages * kItemsPerStage * 4 >= sizeof(float) * kWeightPitch,
+    static_assert(sizeof(CoefT) * kRing * kItemsPerStage * 4 >= sizeof(float) * kWeightPitch,
                   "the ring holds the parked weights");
     __syncthreads();  // every thread has left the ring
     float* sh_w = reinterpret_cast<float*>(ring);
@@ -335,27 +321,142 @@ __device__ __forceinline__ float shift_x(int kind, float x, float a) {
   }
 }
 
-// The flat bin of an event on a shifted axis: static + stride·idx with idx =
-// #(edges ≤ x) − 1 by binary search over the strictly increasing edges in
-// shared memory, or −1 (dropped) when static < 0 or idx ∉ [0, n_axis). A NaN
-// x compares false everywhere: idx = −1.
-__device__ __forceinline__ int shifted_bin(int kind, float x_nom, float a, int static_bin,
-                                           const float* sh_edges, int n_edges, int stride,
-                                           int n_axis) {
-  if (static_bin < 0) return -1;
-  const float x = shift_x(kind, x_nom, a);
+constexpr int kMaxMapAxes = 4;    // shifted binned axes of a bin map
+constexpr int kMaxMapShifts = 8;  // shifts of a bin map
+constexpr int kMaxMapEdges = 1025;  // edges of one axis
+
+// A sample's per-chain binning (splines/reweight.py PerchainBins): the
+// binned axes that named shifts move, each with its kinematic row, edges
+// and stride in the flat index, and the shifts grouped by axis (an axis's
+// shifts in the order they apply; shifts of different axes commute).
+// `statics` (per event) holds the part of the flat index that the axes no
+// shift moves give, −1 where one of them is out of range; `cells` maps a
+// flat cell index to its bin (a hyper-rectangle binning; a cell in a gap
+// maps to n_bins or past it, dropped), or is absent (n_cells = 0).
+struct BinMap {
+  int n_axes;
+  int n_shifts;
+  int edge_pitch;              // floats per axis row of the edges
+  int n_cells;
+  int row[kMaxMapAxes];        // kinematic row of each axis
+  int n_edges[kMaxMapAxes];    // its strictly increasing edges (n_edges − 1 cells)
+  int stride[kMaxMapAxes];     // its stride in the flat index
+  int first[kMaxMapAxes + 1];  // the shifts of axis a: [first[a], first[a + 1])
+  int kind[kMaxMapShifts];     // each shift's kind
+};
+
+// On the host: the map of the descriptor the Python wrappers pass (n_axes,
+// n_shifts, edge_pitch, n_cells, then (kinematic row, n_edges, stride) per
+// axis and (axis, kind) per shift, the shifts grouped by axis in ascending
+// order); false for one the kernels do not take.
+inline bool parse_bin_map(const int* desc, BinMap* m) {
+  if (desc == nullptr) return false;
+  *m = BinMap{};
+  m->n_axes = desc[0];
+  m->n_shifts = desc[1];
+  m->edge_pitch = desc[2];
+  m->n_cells = desc[3];
+  if (m->n_axes < 1 || m->n_axes > kMaxMapAxes || m->n_shifts < 0 ||
+      m->n_shifts > kMaxMapShifts || m->edge_pitch < 2 || m->n_cells < 0) {
+    return false;
+  }
+  const int* ax = desc + 4;
+  for (int a = 0; a < m->n_axes; ++a) {
+    m->row[a] = ax[3 * a];
+    m->n_edges[a] = ax[3 * a + 1];
+    m->stride[a] = ax[3 * a + 2];
+    if (m->row[a] < 0 || m->n_edges[a] < 2 || m->n_edges[a] > m->edge_pitch ||
+        m->n_edges[a] > kMaxMapEdges || m->stride[a] < 0) {
+      return false;
+    }
+  }
+  const int* sh = ax + 3 * m->n_axes;
+  int axis = 0;
+  m->first[0] = 0;
+  for (int s = 0; s < m->n_shifts; ++s) {
+    const int a = sh[2 * s];
+    if (a < axis || a >= m->n_axes || sh[2 * s + 1] < kShiftScale ||
+        sh[2 * s + 1] > kShiftAboutOne) {
+      return false;
+    }
+    while (axis < a) m->first[++axis] = s;
+    m->kind[s] = sh[2 * s + 1];
+  }
+  while (axis < m->n_axes) m->first[++axis] = m->n_shifts;
+  return true;
+}
+
+
+// #(edges ≤ x) by binary search over n strictly increasing edges; a NaN x
+// compares false everywhere and counts 0, +inf counts every finite edge.
+__device__ __forceinline__ int edges_le(const float* edges, int n, float x) {
   int lo = 0;
-  int hi = n_edges;
+  int hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (sh_edges[mid] <= x) {
+    if (edges[mid] <= x) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  const int idx = lo - 1;
-  return (idx < 0 || idx >= n_axis) ? -1 : static_bin + stride * idx;
+  return lo;
+}
+
+// The bin of a map of one axis with one shift (the shifted route's): static
+// + stride·idx with idx = edges_le(x shifted) − 1, or −1 when static < 0 or
+// idx ∉ [0, n_edges − 1).
+__device__ __forceinline__ int axis_bin(int kind, float x_nom, float a, int static_bin,
+                                        const float* edges, int n_edges, int stride) {
+  if (static_bin < 0) return -1;
+  const int idx = edges_le(edges, n_edges, shift_x(kind, x_nom, a)) - 1;
+  return (idx < 0 || idx >= n_edges - 1) ? -1 : static_bin + stride * idx;
+}
+
+// Stages a block's bin map in shared memory: the description (sh_map), the
+// edges and cells, and the shift factors of chains [c0, c0 + nct) as
+// [n_shifts][kTileChains] (1 for a chain past the batch). Every thread of the
+// block calls it; it contains a barrier.
+__device__ __forceinline__ void stage_bin_map(BinMap& sh_map, const BinMap& m,
+                                              const float* __restrict__ edges,
+                                              const int* __restrict__ cells,
+                                              const float* __restrict__ shift_vals, int c0,
+                                              int nct, float* sh_edges, int* sh_cell,
+                                              float* sh_fac) {
+  const int tid = threadIdx.x;
+  if (tid == 0) sh_map = m;
+  for (int i = tid; i < m.n_axes * m.edge_pitch; i += kTileEvents) sh_edges[i] = edges[i];
+  for (int i = tid; i < m.n_cells; i += kTileEvents) sh_cell[i] = cells[i];
+  __syncthreads();
+  for (int i = tid; i < sh_map.n_shifts * kTileChains; i += kTileEvents) {
+    const int s = i / kTileChains;
+    const int c = i - s * kTileChains;
+    sh_fac[i] = c < nct ? shift_factor(sh_map.kind[s],
+                                       shift_vals[static_cast<size_t>(c0 + c) * sh_map.n_shifts + s])
+                        : 1.f;
+  }
+}
+
+// The flat bin of one (chain, event), or −1 (dropped) when static_bin < 0 or
+// an axis index idx = edges_le − 1 ∉ [0, n_edges − 1); the caller drops a
+// result ≥ n_bins too (a gap cell), and a flat index past the cell map. x[a·x_pitch]: the event's nominal value
+// on axis a; fac[s·fac_pitch]: the chain's shift_factor of shift s; edges:
+// axis a's at a·edge_pitch; cells: the cell map (unread when n_cells = 0).
+// The axes are in shared memory; each shift rounds as the plain route does.
+__device__ __forceinline__ int perchain_bin(const BinMap& m, const float* x, int x_pitch,
+                                            const float* fac, int fac_pitch, int static_bin,
+                                            const float* edges, const int* cells) {
+  if (static_bin < 0) return -1;
+  int flat = static_bin;
+  for (int a = 0; a < m.n_axes; ++a) {
+    float v = x[a * x_pitch];
+    for (int s = m.first[a]; s < m.first[a + 1]; ++s) v = shift_x(m.kind[s], v, fac[s * fac_pitch]);
+    const int idx = edges_le(edges + a * m.edge_pitch, m.n_edges[a], v) - 1;
+    if (idx < 0 || idx >= m.n_edges[a] - 1) return -1;
+    flat += m.stride[a] * idx;
+  }
+  if (m.n_cells == 0) return flat;
+  return flat < m.n_cells ? cells[flat] : -1;
 }
 
 // The tail of a tile: thread (chain = tid % 16, event group = tid / 16) walks

@@ -5,9 +5,9 @@ The reference's sample-init pipeline (``Samples/SampleHandlerFD.cpp:169-202``):
 MC into a struct-of-arrays, norm parameters matched to events once
 (``CalcNormsBins``, ``:637-747``), oscillation channels wired — beam
 (``:1047-1122``) or atmospheric through PREM — then the static tensors of a
-:class:`SampleModel`. A sample on the shared or the shifted route gets its
-events laid out for its kernel (``splines/plan.py``; JAX ``events.py:428-598``
-lays out the shared route only).
+:class:`SampleModel`. A sample on the shared, shifted or generic route gets
+its events laid out for its kernel (``splines/plan.py``; JAX
+``events.py:428-598`` lays out the shared route only).
 """
 from __future__ import annotations
 
@@ -24,11 +24,22 @@ from ..osc.prem import PRODUCTION_HEIGHT_KM, path_through_earth
 from ..params.parameterset import ParamMeta
 from ..splines.monolith import DenseSplineTable, dense_table_activity
 from ..splines.plan import shared_layout, shifted_layout
-from ..splines.reweight import SHIFT_KINDS
+from ..splines.reweight import (
+    MAX_EDGES,
+    MAX_MAP_AXES,
+    MAX_MAP_CELLS,
+    MAX_MAP_SHIFTS,
+    MAX_SMEM,
+    SHIFT_KINDS,
+    bin_map_floats,
+    perchain_ring,
+    perchain_smem_bytes,
+    tile_core_smem,
+)
 from ..splines.tf1 import TF1Table
 from .binning import NonUniformBinning, SampleBinning
 from .routing import choose_kernel_route
-from .sample import AtmoOscConfig, OscConfig, SampleModel, ShiftSpec, WeightSpec
+from .sample import AtmoOscConfig, BinMap, OscConfig, SampleModel, ShiftSpec, WeightSpec
 from .teststats import TestStatistic
 
 _log = get_logger("samples")
@@ -319,15 +330,15 @@ def apply_shared_layout(name: str, arrays: dict, n_bins: int) -> dict:
 
 
 def apply_shifted_layout(name: str, arrays: dict) -> dict:
-    """Lay a shifted-route sample's events out for the shifted kernel
-    (``plan.shifted_layout``): parameters regrouped, events sorted by
-    activity group (no bin sort: the kernel bins per chain) and padded with
-    zero-weight copies, and the per-tile plan. ``arrays`` and the result as
-    in :func:`_take_events`."""
+    """Lay a shifted-route or generic-route sample's events out for the
+    per-chain kernel (``plan.shifted_layout``): parameters regrouped, events
+    sorted by activity group (no bin sort: the kernel bins per chain) and
+    padded with zero-weight copies, and the per-tile plan. ``arrays`` and the
+    result as in :func:`_take_events`."""
     table = arrays["spline_table"]
     act = dense_table_activity(table)
     lay = shifted_layout(act)
-    _log_layout(name, "shifted layout", lay, act.shape[0])
+    _log_layout(name, "per-chain layout", lay, act.shape[0])
     return _take_events(arrays, table, lay)
 
 
@@ -403,35 +414,113 @@ def build_sample_model(
         stat_dtype=stat_dtype, use_kernel=use_kernel)
 
 
-def _shift_bins(shifts, binning, kin: np.ndarray) -> tuple:
-    """The bin map of a sample: (static_bins [E], None, None, None) when no
-    shift moves a binned axis; (None, kernel_shift, shift_static_base [E],
-    shift_edges) for exactly one shift of a kind the kernel knows on one
-    axis of a rectangular binning (that axis is binned in the kernel, the
-    others' summed contribution is precomputed here, -1 where one is out of
-    range); else all None: per-chain bins, the generic route."""
+def _binning_axes(binning) -> tuple[list, np.ndarray | None]:
+    """([(edges [n + 1] f32, n, stride)] per axis, cell -> bin map or None):
+    the axes of the flat index of a rectangular binning (its bins) or of a
+    hyper-rectangle one (its refined cells, and their map to bins)."""
+    if isinstance(binning, NonUniformBinning):
+        axes = [(binning.cell_edges[a, :n + 1].numpy(), n, binning.cell_strides[a])
+                for a, n in enumerate(binning.n_cells_axis)]
+        return axes, binning.cell_to_bin.numpy()
+    return [(binning.axis_edges(a).numpy(), n, binning.strides[a])
+            for a, n in enumerate(binning.n_bins_axis)], None
+
+
+def _static_part(axes: list, rows: list, kin: np.ndarray, moved) -> np.ndarray:
+    """[E] int32: Σ stride·idx over the axes not in ``moved``, with idx the
+    nominal value's axis bin (f32 edges and values, as the plain binning
+    compares), -1 where one of them is out of range."""
+    static_base = np.zeros(kin.shape[1], np.int64)
+    valid = np.ones(kin.shape[1], bool)
+    for a, (edges, n_a, stride) in enumerate(axes):
+        if a in moved:
+            continue
+        idx = np.searchsorted(edges, kin[rows[a]], side="right") - 1
+        valid &= (idx >= 0) & (idx < n_a)
+        static_base += np.clip(idx, 0, n_a - 1) * stride
+    return np.where(valid, static_base, -1).astype(np.int32)
+
+
+def _bin_map(name: str, shifted_binned: list, binning, kin: np.ndarray):
+    """(:class:`BinMap`, static base [E]) of a sample whose binned axes only
+    shifts of named kinds move, or None (with the reason logged): a shift
+    that is torch code, or a map past the kernels' limits."""
+    rows = list(binning.axis_vars)
+    unnamed = [s for s in shifted_binned if s.kind not in SHIFT_KINDS]
+    axes, cells = _binning_axes(binning)
+    moved = sorted({rows.index(s.var_row) for s in shifted_binned})
+    order = [s for a in moved for s in shifted_binned if rows.index(s.var_row) == a]
+    why = None
+    if unnamed:
+        why = f"{len(unnamed)} shift(s) of no kernel kind"
+    elif len(moved) > MAX_MAP_AXES or len(order) > MAX_MAP_SHIFTS:
+        why = f"{len(moved)} shifted axes, {len(order)} shifts"
+    elif any(len(axes[a][0]) > MAX_EDGES for a in moved):
+        why = f"an axis of more than {MAX_EDGES} edges"
+    elif cells is not None and len(cells) > MAX_MAP_CELLS:
+        why = f"{len(cells)} cells > {MAX_MAP_CELLS}"
+    if why is not None:
+        _log.info("%s: per-chain bins given to the kernel as input (%s)", name, why)
+        return None
+    pitch = max(len(axes[a][0]) for a in moved)
+    edges = np.full((len(moved), pitch), np.inf, np.float32)
+    for i, a in enumerate(moved):
+        edges[i, :len(axes[a][0])] = axes[a][0]
+    bin_map = BinMap(
+        edges, cells, [s.param_index for s in order],
+        [(rows[a], len(axes[a][0]), axes[a][2]) for a in moved],
+        [(moved.index(rows.index(s.var_row)), s.kind) for s in order])
+    return bin_map, _static_part(axes, rows, kin, set(moved))
+
+
+def _shift_bins(name: str, shifts, binning, kin: np.ndarray) -> tuple:
+    """The bin map of a sample: (static_bins [E], None, None, None, None)
+    when no shift moves a binned axis; (None, kernel_shift,
+    shift_static_base [E], shift_edges, None) for exactly one shift of a
+    kind the kernel knows on one axis of a rectangular binning (that axis is
+    binned in the kernel, the others' summed contribution is precomputed
+    here, -1 where one is out of range); else per-chain bins, the generic
+    route: (None, None, shift_static_base [E], None, bin_map) when every
+    shift of a binned axis is of a named kind (:func:`_bin_map`), all None
+    when the kernel takes the bins as input."""
     binned_rows = list(binning.axis_vars)
     shifted_binned = [s for s in shifts if s.var_row in binned_rows]
     if not shifted_binned:
-        return binning.find_bins(torch.from_numpy(kin)).numpy(), None, None, None
+        return binning.find_bins(torch.from_numpy(kin)).numpy(), None, None, None, None
     if not (isinstance(binning, SampleBinning) and len(shifts) == 1
             and shifts[0].kind in SHIFT_KINDS):
-        return None, None, None, None
+        found = _bin_map(name, shifted_binned, binning, kin)
+        if found is None:
+            return None, None, None, None, None
+        return None, None, found[1], None, found[0]
     s = shifts[0]
     axis_j = binned_rows.index(s.var_row)
-    static_base = np.zeros(kin.shape[1], np.int64)
-    valid = np.ones(kin.shape[1], bool)
-    for a, r in enumerate(binned_rows):
-        if a == axis_j:
-            continue
-        n_a = binning.n_bins_axis[a]
-        idx = np.searchsorted(binning.axis_edges(a).numpy(), kin[r], side="right") - 1
-        valid &= (idx >= 0) & (idx < n_a)
-        static_base += np.clip(idx, 0, n_a - 1) * binning.strides[a]
+    axes, _ = _binning_axes(binning)
     kernel_shift = (s.kind, int(s.param_index), binning.strides[axis_j],
                     binning.n_bins_axis[axis_j])
-    return (None, kernel_shift, np.where(valid, static_base, -1).astype(np.int32),
-            binning.axis_edges(axis_j))
+    return (None, kernel_shift, _static_part(axes, binned_rows, kin, {axis_j}),
+            binning.axis_edges(axis_j), None)
+
+
+def _map_fits(name: str, arrays: dict, bin_map: BinMap, n_bins: int) -> bool:
+    """Whether both histogram forms of the per-chain kernel hold this bin
+    map with the sample's table and norm slots in a block's shared memory;
+    logs the choice either way."""
+    table, norm_s = arrays["spline_table"], arrays.get("norm_s")
+    n_cells = 0 if bin_map.cell_to_bin is None else bin_map.cell_to_bin.shape[0]
+    floats = bin_map_floats(len(bin_map.axes), bin_map.edges.shape[1], len(bin_map.shifts),
+                            n_cells)
+    need = (tile_core_smem(table.coeffs, 0 if norm_s is None else norm_s.shape[0],
+                           perchain_ring(table.coeffs))
+            + perchain_smem_bytes(n_bins, floats, given=False, det=True))
+    if need > MAX_SMEM:
+        _log.info("%s: per-chain bins given to the kernel as input (a block would need %d bytes "
+                  "of shared memory for the bin map)", name, need)
+        return False
+    _log.info("%s: per-chain bins formed in the kernel from a bin map: %d shifted axes, %d "
+              "named shifts%s", name, len(bin_map.axes), len(bin_map.shifts),
+              f", {n_cells} cells" if n_cells else "")
+    return True
 
 
 def assemble_sample(
@@ -451,11 +540,11 @@ def assemble_sample(
     ``kin``, ``mc_weight``, ``norm_idx``, ``norm_s``, ``weight_mask``, and
     the ``spline_table``, ``osc`` and ``tf1_table`` modules) under
     ``binning``: its bin map (:func:`_shift_bins`), its kernel route and, on
-    the shared and shifted routes, its event layout and plan (``event_perm``
+    the shared, shifted and generic routes, its event layout and plan (``event_perm``
     and ``event_pad`` of an earlier layout may ride in ``arrays``).
     ``build_sample_model`` and ``SampleModel.with_binning`` end here."""
-    static_bins, kernel_shift, shift_static_base, shift_edges = _shift_bins(
-        shifts, binning, np.asarray(arrays["kin"]))
+    static_bins, kernel_shift, shift_static_base, shift_edges, bin_map = _shift_bins(
+        name, shifts, binning, np.asarray(arrays["kin"]))
     route = choose_kernel_route(
         binning.n_bins,
         arrays["spline_table"],
@@ -463,10 +552,13 @@ def assemble_sample(
         has_kernel_shift=kernel_shift is not None,
         requested=use_kernel,
     )
+    if bin_map is not None and not (route.use_kernel and route.variant == "generic"
+                                    and _map_fits(name, arrays, bin_map, binning.n_bins)):
+        bin_map = shift_static_base = None
     arrays = dict(arrays, static_bins=static_bins, shift_static_base=shift_static_base)
     if route.use_kernel and route.variant == "shared":
         arrays = apply_shared_layout(name, arrays, binning.n_bins)
-    elif route.use_kernel and route.variant == "shifted":
+    elif route.use_kernel and route.variant in ("shifted", "generic"):
         arrays = apply_shifted_layout(name, arrays)
     return SampleModel(
         name,
@@ -480,5 +572,6 @@ def assemble_sample(
         kernel_route=route,
         kernel_shift=kernel_shift,
         shift_edges=shift_edges,
+        bin_map=bin_map,
         **arrays,
     )

@@ -12,10 +12,12 @@ properties: which reweight variant a sample takes.
   the CUDA kernel's run-time loop over P replaces).
 * ``shared``  — static bins, dense table, up to ``MAX_KERNEL_BINS`` bins: the
   shared CUDA kernel (K2), over the event layout of ``splines/plan.py``.
-* ``generic`` — per-chain bins given as input (several shifts, a custom
+* ``generic`` — per-chain bins of any other kind (several shifts, a custom
   binning with a shift, or a shift with no kernel kind), P <= 16 and up to
   ``MAX_PERCHAIN_BINS`` bins: the per-chain CUDA kernel (K5; K5b is its
-  ``hist="blockdiag"`` form).
+  ``hist="blockdiag"`` form), binning in-kernel from the sample's bin map
+  when every shift of a binned axis is of a named kind, else fed the bins
+  as input (``samples/events._shift_bins``).
 * ``xla``     — plain torch ops (the JAX package computes that route
   outside Pallas too).
 """

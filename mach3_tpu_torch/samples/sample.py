@@ -10,8 +10,10 @@ one function of a chain batch of proposed parameter vectors [C, NP]:
 
 On the ``shifted``, ``shared`` and ``generic`` routes the middle line is a
 fused CUDA kernel (``splines/reweight.py``: in-kernel binning of one shifted
-axis, static bins, or per-chain bins computed here as plain torch ops); the
-``xla`` route and the unbatched ``reweight`` run it as plain torch ops.
+axis, static bins, or per-chain bins — formed in the kernel from a
+:class:`BinMap` when every shift of a binned axis is a named kind, else
+computed here as plain torch ops); the ``xla`` route and the unbatched
+``reweight`` run it as plain torch ops.
 Static arrays are registered buffers, so ``SampleModel.to(device)`` moves a
 sample.
 """
@@ -34,6 +36,7 @@ from ..splines.grad import (
 )
 from ..splines.reweight import (
     SHIFT_KINDS,
+    PerchainBins,
     fused_reweight_histogram,
     fused_reweight_histogram_shared,
     fused_reweight_histogram_shifted,
@@ -273,6 +276,39 @@ def _buffer(x, dtype):
     return None if x is None else torch.as_tensor(x, dtype=dtype).contiguous()
 
 
+class BinMap(nn.Module):
+    """The per-chain binning of a generic-route sample whose binned axes are
+    moved by named shifts only, as the kernels evaluate it
+    (``reweight.PerchainBins``, ``csrc/spline_response.cuh`` ``perchain_bin``):
+    the moved axes, each with its kinematic row, edges and stride in the
+    flat index, and the shifts on them grouped by axis (an axis's in the
+    order the sample applies them; shifts of different axes commute).
+
+    Buffers: ``edges`` [NA, K] f32 padded with +inf, ``cell_to_bin``
+    [n_cells] i32 (a hyper-rectangle binning's cell -> bin, ``n_bins`` for a
+    gap) or None, ``param_index`` [NSH] i64 (each shift's parameter). On the
+    host: ``axes`` ((kin row, n_edges, stride), ...) and ``shifts`` ((axis,
+    kind), ...). The part of the flat index that the other axes give is the
+    sample's ``shift_static_base``, laid out with its events."""
+
+    def __init__(self, edges, cell_to_bin, param_index, axes, shifts):
+        super().__init__()
+        self.register_buffer("edges", _buffer(edges, FTYPE))
+        self.register_buffer("cell_to_bin", _buffer(cell_to_bin, torch.int32))
+        self.register_buffer("param_index", _buffer(param_index, torch.long))
+        self.axes = tuple(tuple(int(v) for v in ax) for ax in axes)
+        self.shifts = tuple((int(a), str(kind)) for a, kind in shifts)
+
+    def bins(self, thetas: torch.Tensor, kin: torch.Tensor,
+             static_base: torch.Tensor) -> PerchainBins:
+        """The map at a chain batch: each shift's value rounded to f32, as
+        ``SampleModel._shifted_kinematics`` takes it (no gradient: bins are
+        piecewise constant in θ)."""
+        vals = thetas.detach().index_select(1, self.param_index).to(FTYPE).contiguous()
+        return PerchainBins(vals, kin, static_base, self.edges, self.cell_to_bin, self.axes,
+                            self.shifts)
+
+
 class SampleModel(nn.Module):
     """Static arrays + config of one binned sample.
 
@@ -280,13 +316,16 @@ class SampleModel(nn.Module):
     (compressed) extended norm vector, data [B] f64, and optionally norm_s
     [NA+1, E] f32 (match counts of the in-kernel norm product), norm_applied
     [NA] (global indices of the sample's norm params), static_bins [E]
-    (bins that no shift moves), shift_static_base [E] i32 and shift_edges
-    [n_axis + 1] f32 (the shifted route's static-axis bins and shifted-axis
-    edges), weight_mask [Nw, E] bool (the events of each weight function).
-    ``kernel_shift`` = (kind, param_index, stride, n_axis); ``tf1_table`` a
+    (bins that no shift moves), shift_static_base [E] i32 (the part of the
+    flat bin index that the axes no shift moves give, -1 where one is out of
+    range: the shifted route's and a bin map's), shift_edges [n_axis + 1] f32
+    (the shifted route's shifted-axis edges), weight_mask [Nw, E] bool (the
+    events of each weight function). ``kernel_shift`` = (kind, param_index,
+    stride, n_axis); ``bin_map`` a :class:`BinMap` (a generic-route sample
+    whose binned axes only named shifts move) or None; ``tf1_table`` a
     :class:`~mach3_tpu_torch.splines.tf1.TF1Table`.
 
-    On the shared and shifted routes the events are laid out by
+    On the shared, shifted and generic routes the events are laid out by
     ``splines/plan.py`` and the kernel's per-tile plan is kept as
     hist_plan_ptr [T + 1] / hist_plan_idx [nnz] i32 (CSR lists of each event
     tile's active spline params) and, on the shared route, hist_tile_start /
@@ -326,6 +365,7 @@ class SampleModel(nn.Module):
         hist_nbl: int | None = None,
         event_perm=None,
         event_pad=None,
+        bin_map: BinMap | None = None,
     ):
         super().__init__()
         if (weight_mask is None) != (not weight_fns):
@@ -358,6 +398,7 @@ class SampleModel(nn.Module):
         self.stat_dtype = stat_dtype
         self.kernel_route = kernel_route or KernelRoute(False, "xla", reason="no route")
         self.kernel_shift = kernel_shift
+        self.bin_map = bin_map
         #: The generic route's histogram form: ``"maskreduce"`` (K5) or
         #: ``"blockdiag"`` (K5b, the same sums in a fixed order).
         self.perchain_hist = "maskreduce"
@@ -506,19 +547,33 @@ class SampleModel(nn.Module):
             kwargs.update(norm_ext=self._norm_ext_batch(thetas), norm_s=self.norm_s)
         return args, kwargs
 
+    def perchain_bins(self, thetas: torch.Tensor):
+        """The generic route's bins at a chain batch, as its kernels take
+        them: the sample's bin map (:class:`BinMap`), or, for a shift that
+        is torch code, [C, E] int32 bins of the shifted kinematics by plain
+        torch ops (the JAX package computes those in XLA)."""
+        if self.bin_map is not None:
+            return self.bin_map.bins(thetas, self.kin, self.shift_static_base)
+        return self._perchain_bins(thetas).to(torch.int32).contiguous()
+
     def perchain_kernel_args(
         self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
     ) -> tuple[tuple, dict]:
         """Arguments of the generic-route kernel call for a chain batch: the
-        per-chain bins of the shifted kinematics as plain torch ops (the JAX
-        package computes them in XLA too), the norm product in the base
-        weight (JAX ``sample.py:497-510``)."""
-        base_w = self._base_weight(thetas, osc_grids_batch, norm=True)
+        bins of :meth:`perchain_bins`, the norm product in the kernel when
+        the sample has its match counts (else in the base weight, as JAX
+        ``sample.py:497-510`` has it), the activity plan of a laid-out
+        sample."""
+        norm_in_kernel = self.norm_s is not None
+        base_w = self._base_weight(thetas, osc_grids_batch, norm=not norm_in_kernel)
         table = self.spline_table
         seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
-        bins = self._perchain_bins(thetas).to(torch.int32)
+        kwargs = dict(n_bins=self.n_bins, hist=self.perchain_hist, plan_ptr=self.hist_plan_ptr,
+                      plan_idx=self.hist_plan_idx)
+        if norm_in_kernel:
+            kwargs.update(norm_ext=self._norm_ext_batch(thetas), norm_s=self.norm_s)
         return (seg.contiguous(), t.contiguous(), table.coeffs, base_w.contiguous(),
-                bins.contiguous()), dict(n_bins=self.n_bins, hist=self.perchain_hist)
+                self.perchain_bins(thetas)), kwargs
 
     def reweight_batch(
         self, thetas: torch.Tensor, osc_grids_batch: tuple | None = None
@@ -559,14 +614,13 @@ class SampleModel(nn.Module):
         (``fused_reweight_diff`` on the shared route,
         ``fused_reweight_diff_shifted`` on the shifted one,
         ``fused_reweight_diff_perchain`` on the generic one): the first four
-        are (t, base_w, seg, coeffs), then the static bins (shared), the
-        per-chain bins of the shifted kinematics (generic) or the shift
-        arguments from which the forward and the backward kernel both bin
-        in-kernel (shifted; the shift value rounded to f32, as the plain
-        binning takes it). The base weight carries the norm product (the
-        gather product, an exact 0 for a zero norm), TF1 and weight
-        functions. On the shared and shifted routes the forward and the
-        backward run under the sample's activity plan."""
+        are (t, base_w, seg, coeffs), then the static bins (shared), the bins
+        of :meth:`perchain_bins` (generic) or the shift arguments from which
+        the forward and the backward kernel both bin in-kernel (shifted; the
+        shift value rounded to f32, as the plain binning takes it). The base
+        weight carries the norm product (the gather product, an exact 0 for
+        a zero norm), TF1 and weight functions. The forward and the backward
+        run under the sample's activity plan."""
         base_w = self._base_weight(thetas, osc_grids_batch, norm=True)
         table = self.spline_table
         seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
@@ -578,7 +632,8 @@ class SampleModel(nn.Module):
                 tile_width=self.hist_tile_width, plan_ptr=self.hist_plan_ptr,
                 plan_idx=self.hist_plan_idx, nbl=self.hist_nbl)
         if route == "generic":
-            return head + (self._perchain_bins(thetas).to(torch.int32),), dict(n_bins=self.n_bins)
+            return head + (self.perchain_bins(thetas),), dict(
+                n_bins=self.n_bins, plan_ptr=self.hist_plan_ptr, plan_idx=self.hist_plan_idx)
         kind, param_index, stride_j, n_axis_j = self.kernel_shift
         return head + (thetas[:, param_index].to(FTYPE), self.kin[self.shifts[0].var_row],
                        self.shift_static_base, self.shift_edges), dict(

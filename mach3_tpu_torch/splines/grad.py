@@ -20,12 +20,14 @@ in one launch:
 
 Its plain version, :func:`reweight_backward_ref`, runs the two passes
 :func:`grad_pass_a_ref` (which also returns ``sev = G·base``, pnz and nz) and
-:func:`grad_pass_b_ref`. The bins
-are the shared route's static bins [E], the generic route's per-chain bins
-[C, E], or, on the shifted route, a :class:`ShiftedBins`: the forward's shift
-arguments, from which the kernel bins each (chain, event) as the forward
-kernel does and the plain route calls ``reweight.shifted_bins_ref``. The
-shared and shifted routes hand the backward their forward's activity plan.
+:func:`grad_pass_b_ref`. The bins are the shared route's static bins [E],
+per-chain bins given [C, E] (a generic-route sample whose shifts are torch
+code), or a bin map from which the kernel bins each (chain, event) as the
+forward kernel does: the generic route's ``reweight.PerchainBins`` or the
+shifted route's :class:`ShiftedBins` (the forward's shift arguments, a map
+of one axis). The plain route bins them by ``reweight.perchain_bins_ref`` /
+``shifted_bins_ref``. Every route hands the backward its forward's activity
+plan.
 
 The port's kernels take ``(seg, t)`` [C, P] instead of JAX's [C, P, K4]
 selector; ``t = value − knot[seg]``, so ``ḡ_t`` is the gradient with respect
@@ -50,12 +52,13 @@ from ..core.precision import FTYPE
 from .eval import coefficient_rows
 from .plan import EVENT_TILE
 from .reweight import (
+    BIN_MAP_BYTES,
     CHAIN_TILE,
     LAUNCHES,
-    MAX_EDGES,
     MAX_KNOTS,
     MAX_SMEM,
-    SHIFT_KINDS,
+    PerchainBins,
+    _check_bin_source,
     _check_plan,
     _check_shapes,
     _check_tensors,
@@ -71,11 +74,11 @@ from .reweight import (
 _C_VOIDP = ctypes.c_void_p
 _C_INT = ctypes.c_int
 _BACKWARD_ARGTYPES = (
-    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] * 4
-    + [_C_VOIDP] * 6 + [_C_INT] * 7 + [_C_VOIDP]
+    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] + [_C_INT] + [_C_VOIDP] * 6
+    + [ctypes.POINTER(_C_INT)] + [_C_VOIDP] * 6 + [_C_INT] * 7 + [_C_VOIDP]
 )
 #: Where the kernel takes an event's bin from (``csrc/reweight_backward.cu``).
-BINS_SHARED, BINS_PER_CHAIN, BINS_SHIFTED = 0, 1, 2
+BINS_SHARED, BINS_PER_CHAIN, BINS_MAP = 0, 1, 2
 #: Warps of a block: each keeps 16 chains' sums per listed parameter in
 #: shared memory until the block adds them up.
 _WARPS = EVENT_TILE // 32
@@ -100,6 +103,13 @@ class ShiftedBins:
         return shifted_bins_ref(self.shift_vals, self.x_nom, self.static_base, self.edges,
                                 n_bins=n_bins, shift_kind=self.shift_kind,
                                 stride_j=self.stride_j, n_axis_j=self.n_axis_j)
+
+    def bin_map(self) -> PerchainBins:
+        """The same bins as a bin map of one axis and one shift, as the
+        kernels take it."""
+        return PerchainBins(self.shift_vals[:, None], self.x_nom[None], self.static_base,
+                            self.edges[None], None, ((0, self.n_axis_j + 1, self.stride_j),),
+                            ((0, self.shift_kind),))
 
 
 def _response_and_slope(coeffs, seg, t, p, dtype):
@@ -169,21 +179,24 @@ def reweight_backward_ref(seg, t, coeffs, base_w, bins, gmc, gw2, *, n_bins, pla
     shifted route's bins by ``shifted_bins_ref``, then pass A and pass B over
     every parameter (a plan only skips exact identities). Same arguments and
     results as :func:`reweight_backward`."""
-    if isinstance(bins, ShiftedBins):
+    if isinstance(bins, (ShiftedBins, PerchainBins)):
         bins = bins.bins(n_bins)
     gbase, sev, pnz, nz = grad_pass_a_ref(seg, t, coeffs, base_w, bins, gmc.to(FTYPE),
                                           gw2.to(FTYPE), n_bins=n_bins)
     return (grad_pass_b_ref(seg, t, coeffs, sev, pnz, nz) if need_t else None), gbase
 
 
-def backward_smem(coeffs: torch.Tensor, n_edges: int = 0, need_t: bool = True) -> int:
+def backward_smem(coeffs: torch.Tensor, bins=None, need_t: bool = True) -> int:
     """Bytes of shared memory a block of the backward kernel takes for this
     table: the tile core, with ``need_t`` the warps' sums (8 x 16 floats per
-    parameter) and a slot per parameter, and a shifted axis's ``n_edges``
-    edges and 16 shift factors."""
+    parameter) and a slot per parameter, and a bin map's edges, shift
+    factors, event rows and cells and its description."""
     p = coeffs.shape[0]
     sums = (_WARPS * CHAIN_TILE + 1) * p * 4 if need_t else 0
-    return tile_core_smem(coeffs, 0) + sums + ((n_edges + CHAIN_TILE) * 4 if n_edges else 0)
+    by_map = 0
+    if isinstance(bins, PerchainBins):
+        by_map = 4 * (bins.smem_floats() - EVENT_TILE)  # no static parts staged
+    return tile_core_smem(coeffs, 0) + sums + by_map + BIN_MAP_BYTES
 
 
 def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, plan_idx,
@@ -193,18 +206,9 @@ def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, pl
     named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, gmc=gmc, gw2=gw2)
     shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"), gmc=("C", n_bins),
                   gw2=("C", n_bins))
-    n_edges = 0
-    if isinstance(bins, ShiftedBins):
-        kind = BINS_SHIFTED
-        named.update(shift_vals=bins.shift_vals, x_nom=bins.x_nom,
-                     static_base=bins.static_base, edges=bins.edges)
-        n_edges = bins.n_axis_j + 1
-        shapes.update(shift_vals=("C",), x_nom=("E",), static_base=("E",), edges=(n_edges,))
-        if not 2 <= n_edges <= MAX_EDGES:
-            raise ValueError(f"{n_edges} edges outside [2, {MAX_EDGES}]")
-        if bins.shift_kind not in SHIFT_KINDS:
-            raise ValueError(f"shift kind {bins.shift_kind!r} unknown to the kernel "
-                             f"({sorted(SHIFT_KINDS)})")
+    if isinstance(bins, PerchainBins):
+        kind = BINS_MAP
+        _check_bin_source(named, shapes, bins)
     else:
         kind = BINS_PER_CHAIN if isinstance(bins, torch.Tensor) and bins.dim() == 2 else BINS_SHARED
         named["bins"] = bins
@@ -216,7 +220,7 @@ def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, pl
         raise ValueError(f"n_bins={n_bins} < 1")
     if coeffs.shape[1] // 4 > MAX_KNOTS:
         raise ValueError(f"{coeffs.shape[1] // 4} knots > {MAX_KNOTS}")
-    smem = backward_smem(coeffs, n_edges, need_t)
+    smem = backward_smem(coeffs, bins, need_t)
     if smem > MAX_SMEM:
         raise ValueError(f"a block needs {smem} bytes of shared memory > {MAX_SMEM}")
     return kind, has_plan
@@ -227,7 +231,7 @@ def reweight_backward(
     t: torch.Tensor,  # [C, P] f32 — local coordinate in that segment
     coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16, any row pitch
     base_w: torch.Tensor,  # [C, E] f32 — the forward's base weight
-    bins,  # [E] (shared) or [C, E] (per-chain) i32, outside [0, n_bins) no gather; or ShiftedBins
+    bins,  # [E] (shared) or [C, E] (per-chain) i32, outside [0, n_bins) no gather; or a bin map
     gmc: torch.Tensor,  # [C, n_bins] — cotangent of Σw
     gw2: torch.Tensor,  # [C, n_bins] — cotangent of Σw²
     *,
@@ -240,8 +244,10 @@ def reweight_backward(
     output cotangents (ḡ_mc, ḡ_w2). Launches the CUDA kernel for CUDA
     tensors, runs the plain passes for CPU tensors, raises otherwise. A plan
     must list every parameter that is not the identity on some event of a
-    tile."""
+    tile. A bin map is a ``reweight.PerchainBins`` or a :class:`ShiftedBins`."""
     gmc, gw2 = (g.to(FTYPE).contiguous() for g in (gmc, gw2))
+    if isinstance(bins, ShiftedBins):
+        bins = bins.bin_map()
     kind, has_plan = _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr,
                                      plan_idx, need_t)
     dev = seg.device
@@ -256,18 +262,18 @@ def reweight_backward(
     gbase = torch.empty((c, e), dtype=FTYPE, device=dev)
     partial = (torch.empty((-(-e // EVENT_TILE), c, p), dtype=FTYPE, device=dev)
                if need_t else None)
-    if kind == BINS_SHIFTED:
-        bins_ptr = None
-        shift = (bins.shift_vals.data_ptr(), bins.x_nom.data_ptr(), bins.static_base.data_ptr(),
-                 bins.edges.data_ptr(), bins.n_axis_j + 1, bins.stride_j, bins.n_axis_j,
-                 SHIFT_KINDS[bins.shift_kind][0])
+    if kind == BINS_MAP:
+        cells = bins.cell_to_bin
+        source = (None, bins.kin.data_ptr(), bins.shift_vals.data_ptr(),
+                  bins.static_base.data_ptr(), bins.edges.data_ptr(),
+                  None if cells is None else cells.data_ptr(), bins.descriptor())
     else:
-        bins_ptr, shift = bins.data_ptr(), (None,) * 4 + (0,) * 4
+        source = (bins.data_ptr(),) + (None,) * 6
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.m3_reweight_backward(
             seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), int(coeffs.dtype == torch.bfloat16),
-            base_w.data_ptr(), kind, bins_ptr, *shift, gmc.data_ptr(), gw2.data_ptr(),
+            base_w.data_ptr(), kind, *source, gmc.data_ptr(), gw2.data_ptr(),
             plan_ptr.data_ptr() if has_plan else None, plan_idx.data_ptr() if has_plan else None,
             gbase.data_ptr(), None if partial is None else partial.data_ptr(),
             c, p, k4, e, n_bins, EVENT_TILE, CHAIN_TILE, stream,
@@ -335,25 +341,30 @@ class _FusedReweightDiffShifted(torch.autograd.Function):
 
 
 class _FusedReweightDiffPerchain(torch.autograd.Function):
-    """Per-chain bins given as input (the generic route): forward on the
-    per-chain kernel K5, backward (K6a + K6b) at the same bins. Port of
-    ``fused_reweight_diff`` with per-chain bins (``pallas_grad.py:319-345``).
-    Bins are integer inputs: no gradient flows to them."""
+    """Per-chain bins (the generic route): forward on the per-chain kernel
+    K5, backward (K6a + K6b) at the same bins, both binning in-kernel from a
+    bin map (or reading the bins given) and both under the sample's activity
+    plan when it has one. Port of ``fused_reweight_diff`` with per-chain bins
+    (``pallas_grad.py:319-345``). Bins are piecewise constant in θ: no
+    gradient flows to them."""
 
     @staticmethod
-    def forward(ctx, t, base_w, seg, coeffs, bins, n_bins):
-        mc, w2 = fused_reweight_histogram(seg, t, coeffs, base_w, bins, n_bins=n_bins)
-        ctx.save_for_backward(t, base_w, seg, coeffs, bins)
+    def forward(ctx, t, base_w, seg, coeffs, bins, n_bins, plan_ptr, plan_idx):
+        mc, w2 = fused_reweight_histogram(seg, t, coeffs, base_w, bins, n_bins=n_bins,
+                                          plan_ptr=plan_ptr, plan_idx=plan_idx)
+        ctx.save_for_backward(t, base_w, seg, coeffs, plan_ptr, plan_idx)
+        ctx.bins = bins  # integer bins or a bin map: no gradient, no version to check
         ctx.n_bins = n_bins
         return mc, w2
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gmc, gw2):
-        t, base_w, seg, coeffs, bins = ctx.saved_tensors
-        g_t, g_base = reweight_backward(seg, t, coeffs, base_w, bins, gmc, gw2,
-                                        n_bins=ctx.n_bins, need_t=ctx.needs_input_grad[0])
-        return (g_t, g_base) + (None,) * 4
+        t, base_w, seg, coeffs, plan_ptr, plan_idx = ctx.saved_tensors
+        g_t, g_base = reweight_backward(seg, t, coeffs, base_w, ctx.bins, gmc, gw2,
+                                        n_bins=ctx.n_bins, plan_ptr=plan_ptr, plan_idx=plan_idx,
+                                        need_t=ctx.needs_input_grad[0])
+        return (g_t, g_base) + (None,) * 6
 
 
 def fused_reweight_diff(
@@ -403,10 +414,14 @@ def fused_reweight_diff_perchain(
     base_w: torch.Tensor,  # [C, E] f32 — differentiable (MC x osc x norm x TF1 x weight fns)
     seg: torch.Tensor,  # [C, P] i32
     coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16
-    bins: torch.Tensor,  # [C, E] i32 — per-chain bins (outside [0, n_bins) dropped)
+    bins,  # reweight.PerchainBins, or [C, E] i32 per-chain bins (outside [0, n_bins) dropped)
     *,
     n_bins: int,
+    plan_ptr: torch.Tensor | None = None,  # the forward's activity plan
+    plan_idx: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable (mc, w2) [C, n_bins] of a generic-route sample."""
+    if isinstance(bins, torch.Tensor):
+        bins = bins.contiguous()
     return _FusedReweightDiffPerchain.apply(t.contiguous(), base_w.contiguous(), seg, coeffs,
-                                            bins.contiguous(), n_bins)
+                                            bins, n_bins, plan_ptr, plan_idx)

@@ -1,4 +1,4 @@
-"""Build-time event layout and tile plan of the shared and shifted routes
+"""Build-time event layout and tile plan of the shared, shifted and generic routes
 (port of the layout step of ``mach3_tpu/samples/events.py:428-598`` and of its
 helpers ``param_block_order`` / ``event_block_signature`` /
 ``param_block_plan`` / ``hist_tile_plan`` / ``plan_window_cuts``,
@@ -23,10 +23,11 @@ the table's activity pattern (``dense_table_activity``) and the static bins:
 A tile's active list is exact: the parameters active on some event of the
 tile, nothing else (an inactive pair multiplies by exactly 1.0).
 
-The shifted-axis kernel (``csrc/reweight_shifted.cu``) finds each event's bin
-per chain, so its layout (:func:`shifted_layout`) has no bin sort and no
-window: steps 1 and 2 without the bin key (events keep their order within a
-group), each group padded to ``EVENT_TILE``, and the CSR list of step 4.
+The per-chain kernel of the shifted and generic routes
+(``csrc/reweight_shifted.cu``) finds each event's bin per chain, so their
+layout (:func:`shifted_layout`) has no bin sort and no window: steps 1 and 2
+without the bin key (events keep their order within a group), each group
+padded to ``EVENT_TILE``, and the CSR list of step 4.
 Every row of a laid-out table starts on a 16-byte boundary (``EVENT_TILE``
 events of 2 or 4 bytes), which the kernels' 16-byte asynchronous copies need.
 
@@ -60,13 +61,13 @@ MAX_WINDOW = 256
 
 @dataclasses.dataclass
 class SharedLayout:
-    """The layout of one shared-route or shifted-route sample.
+    """The layout of one shared-route, shifted-route or generic-route sample.
 
     param_perm [P]: new parameter order; event_perm [E'] and pad_mask [E']:
     the events (old indices, pads repeat the last event of their cut), E' a
     multiple of ``EVENT_TILE``; plan_ptr [T + 1], plan_idx [nnz] (int32):
     each tile's active parameters; tile_start [T], tile_width [T] and nbl:
-    the shared kernel's histogram windows (None on the shifted route)."""
+    the shared kernel's histogram windows (None on the per-chain routes)."""
 
     param_perm: np.ndarray
     event_perm: np.ndarray

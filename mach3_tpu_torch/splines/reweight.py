@@ -7,22 +7,26 @@ versions.
   is K1 with P streamed in VMEM blocks, which the CUDA kernel's list of work
   items per event tile makes unnecessary), under the activity plan of
   ``plan.shifted_layout`` when the caller has one. CUDA source
-  ``csrc/reweight_shifted.cu``.
+  ``csrc/reweight_shifted.cu``, the same kernel as the per-chain form's.
 * ``fused_reweight_histogram_shared``: static bins, events laid out in tiles
   by ``splines/plan.py``, a histogram window and a list of active parameters
   per tile. Port of K2 ``_kernel_shared_blocked_sorted``; under
   ``plan.trivial_plan`` (every parameter, the whole bin axis) it computes
   K4a ``_kernel_shared`` and K4b ``_kernel_shared_blocked``. CUDA source
   ``csrc/reweight_shared.cu``.
-* ``fused_reweight_histogram``: per-chain bins given as input [C, E]. Port
-  of K5 ``_kernel_maskreduce`` (``hist="maskreduce"``, float atomics) and of
-  K5b ``_kernel`` (``hist="blockdiag"``, another histogram with the same
-  output: here a deterministic one). CUDA source
-  ``csrc/reweight_perchain.cu``.
+* ``fused_reweight_histogram``: per-chain bins, formed in the kernel from a
+  :class:`PerchainBins` bin map (named shifts of the binned axes) or given
+  as input [C, E] (shifts that are torch code). Port of K5
+  ``_kernel_maskreduce`` (``hist="maskreduce"``, float atomics) and of K5b
+  ``_kernel`` (``hist="blockdiag"``, another histogram with the same output:
+  here a deterministic one), under the activity plan of
+  ``plan.shifted_layout`` when the caller has one. CUDA source
+  ``csrc/reweight_shifted.cu`` (entries ``m3_reweight_perchain`` and
+  ``m3_reweight_perchain_det``).
 
-They serve the sampling path (norm product in the shifted and shared
-kernels) and, with the norm left out, the forward of the differentiable
-path, whose backward kernel (K6a and K6b fused) lives in ``splines/grad.py``.
+They serve the sampling path (norm product in the kernels) and, with the
+norm left out, the forward of the differentiable path, whose backward kernel
+(K6a and K6b fused) lives in ``splines/grad.py``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel (built at first
 use by ``kernels/build.py``); on a CPU tensor it runs the plain PyTorch
@@ -39,6 +43,7 @@ Differences from the JAX production route, by design:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -57,25 +62,35 @@ SHIFT_KINDS = {
     "scale_about_one": (2, lambda v, x: 1.0 + (x - 1.0) * (1.0 + v)),
 }
 
-#: Bin-count limit of the shifted kernel's shared-memory histogram (``routing.py``).
+#: Bin-count limit of the per-chain kernel's shared-memory histogram
+#: (``routing.py``); edges of one binned axis.
 MAX_BINS = 512
 MAX_EDGES = 1025
+#: A bin map's limits (``csrc/spline_response.cuh`` ``BinMap``): shifted
+#: binned axes, shifts on them, entries of its cell map.
+MAX_MAP_AXES = 4
+MAX_MAP_SHIFTS = 8
+MAX_MAP_CELLS = 8192
 MAX_PARAMS = 256
 MAX_NORM = 256
 #: Bin-count limit of the shared kernel.
 MAX_SHARED_BINS = 4096
 #: The tile of the shared and shifted kernels (``csrc/spline_response.cuh``):
 #: ``EVENT_TILE`` events (one per thread) by ``CHAIN_TILE`` chains, whose
-#: coefficient rows pass through a ring of ``RING_STAGES`` stages of
+#: coefficient rows pass through a ring of ``RING_STAGES`` stages (the
+#: per-chain kernel's: ``PERCHAIN_F32_RING`` for an f32 table) of
 #: ``ITEMS_PER_STAGE`` (parameter, segment) items in shared memory; a table
 #: has at most ``MAX_KNOTS`` knots, and its rows start on 16-byte boundaries.
 CHAIN_TILE = 16
 RING_STAGES = 3
+PERCHAIN_F32_RING = 2
 ITEMS_PER_STAGE = 4
 MAX_KNOTS = 64
 ROW_ALIGN = 16
-#: A block's shared memory on Hopper.
+#: A block's shared memory on Hopper, and what a kernel of the per-chain
+#: binning keeps of it for its bin map's description (``m3::BinMap``).
 MAX_SMEM = 232448
+BIN_MAP_BYTES = 128
 
 #: Launches of each CUDA kernel since its count was last set to 0, the
 #: backward of ``splines/grad.py`` included. Only a CUDA launch adds to a
@@ -84,9 +99,12 @@ LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0, "reweight_perchain": 0,
             "reweight_perchain_blockdiag": 0, "reweight_backward": 0}
 #: Histogram forms of ``fused_reweight_histogram``.
 HIST_FORMS = ("maskreduce", "blockdiag")
-#: Events per block of the per-chain kernels (``csrc/reweight_perchain.cu``):
-#: the deterministic form writes one partial histogram per such tile.
-PERCHAIN_EVENTS_PER_BLOCK = 2048
+#: Event tiles a block of the per-chain kernel walks: the atomics form
+#: flushes its histogram once for them; the deterministic form writes one
+#: partial histogram per such run of tiles (2048 events, so that the partials
+#: stay few).
+PERCHAIN_TILES = 2
+PERCHAIN_DET_TILES = 8
 
 _C_VOIDP = ctypes.c_void_p
 _C_INT = ctypes.c_int
@@ -130,8 +148,85 @@ def shifted_bins_ref(shift_vals, x_nom, static_base, edges, *, n_bins, shift_kin
     return torch.where(valid, static_base + idx * stride_j, n_bins)
 
 
+@dataclasses.dataclass(frozen=True)
+class PerchainBins:
+    """Per-chain bins as a bin map that the kernels evaluate per (chain,
+    event) (``csrc/spline_response.cuh`` ``perchain_bin``): the binned axes
+    that named shifts move, each binned by its edges after its shifts, plus
+    the part of the flat index the other axes give, through the cell map of
+    a hyper-rectangle binning. :func:`perchain_bins_ref` is its plain form,
+    equal to the plain binning of the shifted kinematics
+    (``SampleModel._perchain_bins``)."""
+
+    shift_vals: torch.Tensor  # [C, NSH] f32 — each shift's value per chain
+    kin: torch.Tensor  # [V, E] f32 — nominal kinematics; rows named by ``axes``
+    static_base: torch.Tensor  # [E] i32 — the unshifted axes' flat part (-1 out of range)
+    edges: torch.Tensor  # [NA, K] f32 — each shifted axis's edges, +inf padded
+    cell_to_bin: torch.Tensor | None  # [n_cells] i32 — flat cell -> bin (n_bins: a gap)
+    axes: tuple  # ((kin row, n_edges, stride), ...) per shifted axis
+    shifts: tuple  # ((axis, kind), ...) grouped by axis, each axis's in the order they apply
+
+    def bins(self, n_bins: int) -> torch.Tensor:
+        """The [C, E] int32 bins of the plain route (``n_bins``: dropped)."""
+        return perchain_bins_ref(self, n_bins)
+
+    def tensors(self) -> dict:
+        """The tensors the kernels read, by name (``cell_to_bin`` when there
+        is one)."""
+        named = dict(shift_vals=self.shift_vals, kin=self.kin, static_base=self.static_base,
+                     edges=self.edges)
+        if self.cell_to_bin is not None:
+            named["cell_to_bin"] = self.cell_to_bin
+        return named
+
+    def descriptor(self):
+        """The host descriptor of ``m3::parse_bin_map``: n_axes, n_shifts,
+        edge pitch, n_cells, (row, n_edges, stride) per axis, (axis, kind
+        code) per shift, as a ctypes int array."""
+        n_cells = 0 if self.cell_to_bin is None else self.cell_to_bin.shape[0]
+        desc = [len(self.axes), len(self.shifts), self.edges.shape[1], n_cells]
+        desc += [v for ax in self.axes for v in ax]
+        desc += [v for a, kind in self.shifts for v in (a, SHIFT_KINDS[kind][0])]
+        return (_C_INT * len(desc))(*desc)
+
+    def smem_floats(self) -> int:
+        """Floats of shared memory the map takes in a block of the forward
+        kernel (:func:`bin_map_floats`)."""
+        n_cells = 0 if self.cell_to_bin is None else self.cell_to_bin.shape[0]
+        return bin_map_floats(len(self.axes), self.edges.shape[1], len(self.shifts), n_cells)
+
+
+def bin_map_floats(n_axes: int, edge_pitch: int, n_shifts: int, n_cells: int) -> int:
+    """Floats of shared memory a bin map takes in a block of the forward
+    kernel: the edges, 16 chains' shift factors, 256 events' rows and static
+    parts, the cells."""
+    return n_axes * edge_pitch + n_shifts * CHAIN_TILE + (n_axes + 1) * EVENT_TILE + n_cells
+
+
+def perchain_bins_ref(bins: PerchainBins, n_bins: int) -> torch.Tensor:
+    """[C, E] int32 bins of a bin map as the kernels form them in f32
+    (``csrc/spline_response.cuh`` ``perchain_bin``): each shifted axis's row
+    moved by its shifts in order, ``idx = #(edges <= x) − 1``, ``static_base +
+    Σ stride·idx`` through the cell map; ``n_bins`` (dropped) where some idx
+    ∉ [0, n_edges − 1) or ``static_base`` < 0, and for a gap cell."""
+    c = bins.shift_vals.shape[0]
+    valid = (bins.static_base >= 0).expand(c, -1)
+    flat = bins.static_base.expand(c, -1)
+    for a, (row, n_edges, stride) in enumerate(bins.axes):
+        x = bins.kin[row].expand(c, -1)
+        for j, (axis, kind) in enumerate(bins.shifts):
+            if axis == a:
+                x = SHIFT_KINDS[kind][1](bins.shift_vals[:, j, None], x)
+        idx = count_edges_le(bins.edges[a, :n_edges], x) - 1
+        valid = valid & (idx >= 0) & (idx < n_edges - 1)
+        flat = flat + idx * stride
+    if bins.cell_to_bin is not None:
+        flat = bins.cell_to_bin[torch.where(valid, flat, 0).long()]
+    return torch.where(valid, flat, n_bins).to(torch.int32)
+
+
 _INT_ARGS = ("seg", "static_base", "bins", "tile_start", "tile_width", "plan_ptr", "plan_idx",
-             "nz")
+             "nz", "cell_to_bin")
 
 
 def _check_tensors(named: dict, norm_ext, norm_s) -> None:
@@ -178,24 +273,30 @@ def _check_shapes(named: dict, shapes: dict, coeffs, base_w, norm_ext, norm_s) -
     return c, p, e
 
 
-def tile_core_smem(coeffs: torch.Tensor, na1: int) -> int:
+def tile_core_smem(coeffs: torch.Tensor, na1: int, stages: int = RING_STAGES) -> int:
     """Bytes of shared memory the tile core of a block takes for this table
     and ``na1`` norm slots (``m3::core_bytes`` of ``csrc/spline_response.cuh``
     plus the norm arrays); the kernel's histogram comes on top."""
     p, k4 = coeffs.shape[0], coeffs.shape[1]
-    ring = RING_STAGES * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
+    ring = stages * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
     items = p * min(k4 // 4, CHAIN_TILE)
     core = ring + p * CHAIN_TILE * 8 + (2 * p + 1) * 4 + items * 8
     return -(-core // 16) * 16 + 2 * CHAIN_TILE * na1 * 4
 
 
-def _check_tile_core(coeffs: torch.Tensor, norm_s, hist_bytes: int) -> None:
+def perchain_ring(coeffs: torch.Tensor) -> int:
+    """Ring stages of the per-chain kernel's tile core for this table."""
+    return PERCHAIN_F32_RING if coeffs.dtype == FTYPE else RING_STAGES
+
+
+def _check_tile_core(coeffs: torch.Tensor, norm_s, hist_bytes: int,
+                     stages: int = RING_STAGES) -> None:
     """What the tile core asks of a table: at most ``MAX_KNOTS`` knots and a
     block's shared memory (``hist_bytes`` of it the kernel's histogram)
     within the card's."""
     if coeffs.shape[1] // 4 > MAX_KNOTS:
         raise ValueError(f"{coeffs.shape[1] // 4} knots > {MAX_KNOTS}")
-    smem = tile_core_smem(coeffs, 0 if norm_s is None else norm_s.shape[0]) + hist_bytes
+    smem = tile_core_smem(coeffs, 0 if norm_s is None else norm_s.shape[0], stages) + hist_bytes
     if smem > MAX_SMEM:
         raise ValueError(f"a block needs {smem} bytes of shared memory > {MAX_SMEM}")
 
@@ -243,8 +344,9 @@ def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
         raise ValueError(f"{n_axis_j + 1} edges outside [2, {MAX_EDGES}]")
     if shift_kind not in SHIFT_KINDS:
         raise ValueError(f"shift kind {shift_kind!r} unknown to the kernel ({sorted(SHIFT_KINDS)})")
-    _check_tile_core(coeffs, norm_s,
-                     4 * (CHAIN_TILE * (2 * n_bins + 2) + edges.shape[0] + 2 * EVENT_TILE))
+    _check_tile_core(coeffs, norm_s, BIN_MAP_BYTES
+                     + 4 * (CHAIN_TILE * (2 * n_bins + 2) + edges.shape[0] + 2 * EVENT_TILE),
+                     perchain_ring(coeffs))
     return has_plan
 
 
@@ -267,8 +369,10 @@ _SHIFTED_ARGTYPES = (
     [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] + [_C_VOIDP] * 4
     + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 10 + [_C_VOIDP]
 )
-_PERCHAIN_ARGTYPES = [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 4 + [_C_INT] * 5 + [_C_VOIDP]
-_PERCHAIN_DET_ARGTYPES = [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 3 + [_C_INT] * 6 + [_C_VOIDP]
+_PERCHAIN_HEAD = ([_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 7 + [ctypes.POINTER(_C_INT)]
+                  + [_C_VOIDP] * 4 + [_C_INT] * 9 + [_C_VOIDP])
+_PERCHAIN_ARGTYPES = _PERCHAIN_HEAD + [_C_VOIDP] * 2
+_PERCHAIN_DET_ARGTYPES = _PERCHAIN_HEAD + [_C_VOIDP]
 _SHARED_ARGTYPES = (
     [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 6 + [_C_INT] + [_C_VOIDP] * 2
     + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 7 + [_C_VOIDP]
@@ -438,62 +542,137 @@ def fused_reweight_histogram_shared(
     return mc, w2
 
 
-def fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, *, n_bins, hist="maskreduce"):
-    """Plain PyTorch version of both per-chain kernels, on any device. Same
-    arguments and results as :func:`fused_reweight_histogram`."""
+def fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, *, n_bins, hist="maskreduce",
+                                 plan_ptr=None, plan_idx=None, norm_ext=None, norm_s=None):
+    """Plain PyTorch version of both per-chain kernels, on any device: every
+    parameter (the plan only skips exact identities), a bin map's bins by
+    :func:`perchain_bins_ref`. Same arguments and results as
+    :func:`fused_reweight_histogram`."""
     w = spline_product(coeffs, seg, t, base_w)
+    if norm_ext is not None:
+        w = w * norm_weight(norm_ext, norm_s)
+    if isinstance(bins, PerchainBins):
+        bins = bins.bins(n_bins)
     return histogram(w, _dropped_outside(bins, n_bins), n_bins)
+
+
+def _check_bin_source(named: dict, shapes: dict, bins) -> int:
+    """Adds the per-chain bin source to ``named`` and ``shapes`` and checks a
+    bin map against the kernels' limits; returns the floats of shared memory
+    the map takes in a block (0 for bins given as [C, E])."""
+    if not isinstance(bins, PerchainBins):
+        named["bins"] = bins
+        shapes["bins"] = ("C", "E")
+        return 0
+    named.update(bins.tensors())
+    n_rows, pitch = bins.kin.shape[0], bins.edges.shape[-1]
+    shapes.update(shift_vals=("C", len(bins.shifts)), kin=(n_rows, "E"), static_base=("E",),
+                  edges=(len(bins.axes), pitch))
+    if bins.cell_to_bin is not None:
+        shapes["cell_to_bin"] = (bins.cell_to_bin.shape[0],)
+        if bins.cell_to_bin.shape[0] > MAX_MAP_CELLS:
+            raise ValueError(f"{bins.cell_to_bin.shape[0]} cells > {MAX_MAP_CELLS}")
+    if not 1 <= len(bins.axes) <= MAX_MAP_AXES or len(bins.shifts) > MAX_MAP_SHIFTS:
+        raise ValueError(f"a bin map of {len(bins.axes)} axes and {len(bins.shifts)} shifts: the "
+                         f"kernels take 1-{MAX_MAP_AXES} and at most {MAX_MAP_SHIFTS}")
+    for row, n_edges, stride in bins.axes:
+        if not (0 <= row < n_rows and 2 <= n_edges <= min(pitch, MAX_EDGES) and stride >= 0):
+            raise ValueError(f"bin map axis (row {row}, {n_edges} edges, stride {stride}) "
+                             f"outside {n_rows} rows, [2, {min(pitch, MAX_EDGES)}] edges")
+    axes = [a for a, _ in bins.shifts]
+    if axes != sorted(axes) or any(not 0 <= a < len(bins.axes) for a in axes):
+        raise ValueError(f"bin map shifts must be grouped by axis in ascending order: {axes}")
+    for _, kind in bins.shifts:
+        if kind not in SHIFT_KINDS:
+            raise ValueError(f"shift kind {kind!r} unknown to the kernel ({sorted(SHIFT_KINDS)})")
+    return bins.smem_floats()
+
+
+def perchain_smem_bytes(n_bins: int, map_floats: int, given: bool, det: bool) -> int:
+    """Shared memory a block of the per-chain kernel takes besides its tile
+    core (``tile_core_smem``): the [16][2·B + 1] histogram, a bin map's
+    ``map_floats`` and its description, and the parked bins [256][17] of
+    bins ``given`` as input or of the deterministic tail ``det``."""
+    parked = EVENT_TILE * (CHAIN_TILE + 1) if (given or det) else 0
+    return BIN_MAP_BYTES + 4 * (CHAIN_TILE * (2 * n_bins + 1) + map_floats + parked)
 
 
 def fused_reweight_histogram(
     seg: torch.Tensor,  # [C, P] i32 — spline segment per (chain, param)
     t: torch.Tensor,  # [C, P] f32 — local coordinate in that segment
-    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16
-    base_w: torch.Tensor,  # [C, E] f32 — mc_weight x osc x norm (x TF1 x weight fns)
-    bins: torch.Tensor,  # [C, E] i32 — per-chain bins (outside [0, n_bins) dropped)
+    coeffs: torch.Tensor,  # [P, K4, E] f32 or bf16, any row pitch
+    base_w: torch.Tensor,  # [C, E] f32 — mc_weight x osc (x norm unless in-kernel) x TF1 x fns
+    bins,  # PerchainBins, or [C, E] i32 per-chain bins (outside [0, n_bins) dropped)
     *,
     n_bins: int,
     hist: str = "maskreduce",
+    plan_ptr: torch.Tensor | None = None,  # [T + 1] i32 — CSR offsets (tiles of EVENT_TILE)
+    plan_idx: torch.Tensor | None = None,  # [nnz] i32 — each tile's active spline params
+    norm_ext: torch.Tensor | None = None,  # [C, NA1] f32 extended norm values
+    norm_s: torch.Tensor | None = None,  # [NA1, E] f32 match counts
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(mc [C, n_bins], w2 [C, n_bins]) f32 over per-chain bins. ``hist``
-    picks the kernel: ``"maskreduce"`` (K5: shared-memory float atomics) or
-    ``"blockdiag"`` (K5b: per-warp histograms summed in a fixed order, the
-    same result on every run). Launches the CUDA kernel for CUDA tensors,
-    runs the plain version for CPU tensors, raises otherwise."""
-    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, bins=bins)
-    _check_tensors(named, None, None)
-    c, p, e = _check_shapes(named, dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"),
-                                        bins=("C", "E")), coeffs, base_w, None, None)
+    """(mc [C, n_bins], w2 [C, n_bins]) f32 over per-chain bins, formed in the
+    kernel from a :class:`PerchainBins` map or given. ``hist`` picks the
+    histogram: ``"maskreduce"`` (K5: shared-memory float atomics) or
+    ``"blockdiag"`` (K5b: per-chain sums in a fixed order, the same result
+    on every run). Launches the CUDA kernel for CUDA tensors, runs the plain
+    version for CPU tensors, raises otherwise. A plan
+    (``plan.shifted_layout``) must list every parameter that is not the
+    identity on some event of a tile; without one the kernel reads every
+    parameter on every tile."""
+    named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w)
+    shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"))
+    map_floats = _check_bin_source(named, shapes, bins)
+    has_plan = _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
+    _check_tensors(named, norm_ext, norm_s)
+    c, p, e = _check_shapes(named, shapes, coeffs, base_w, norm_ext, norm_s)
     if not 1 <= n_bins <= MAX_BINS:
         raise ValueError(f"n_bins={n_bins} outside [1, {MAX_BINS}]")
     if hist not in HIST_FORMS:
         raise ValueError(f"hist={hist!r}: the per-chain kernels are {HIST_FORMS}")
+    by_map, det = isinstance(bins, PerchainBins), hist == "blockdiag"
+    _check_tile_core(coeffs, norm_s, perchain_smem_bytes(n_bins, map_floats, not by_map, det),
+                     perchain_ring(coeffs))
     dev = seg.device
     if dev.type == "cpu":
-        return fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, n_bins=n_bins, hist=hist)
+        return fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, n_bins=n_bins,
+                                            hist=hist, norm_ext=norm_ext, norm_s=norm_s)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    k4 = coeffs.shape[1]
-    bf16 = int(coeffs.dtype == torch.bfloat16)
+    if by_map:
+        cells = bins.cell_to_bin
+        source = (None, bins.kin.data_ptr(), bins.shift_vals.data_ptr(),
+                  bins.static_base.data_ptr(), bins.edges.data_ptr(),
+                  None if cells is None else cells.data_ptr(), bins.descriptor())
+    else:
+        source = (bins.data_ptr(),) + (None,) * 6
+    has_norm = norm_ext is not None
+    entry = "reweight_perchain_det" if det else "reweight_perchain"
+    lib = _library("reweight_shifted", _PERCHAIN_DET_ARGTYPES if det else _PERCHAIN_ARGTYPES,
+                   entry=entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if hist == "maskreduce":
-            lib = _library("reweight_perchain", _PERCHAIN_ARGTYPES)
+        head = (seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(),
+                int(coeffs.dtype == torch.bfloat16), base_w.data_ptr(), *source,
+                plan_ptr.data_ptr() if has_plan else None,
+                plan_idx.data_ptr() if has_plan else None,
+                norm_ext.data_ptr() if has_norm else None,
+                norm_s.data_ptr() if has_norm else None,
+                norm_s.shape[0] if has_norm else 0,
+                c, p, coeffs.shape[1], e, n_bins, EVENT_TILE, CHAIN_TILE,
+                PERCHAIN_DET_TILES if det else PERCHAIN_TILES, stream)
+        if det:
+            n_blocks = -(-(-(-e // EVENT_TILE)) // PERCHAIN_DET_TILES)
+            partial = torch.empty((n_blocks, 2, c, n_bins), dtype=FTYPE, device=dev)
+            rc = lib.m3_reweight_perchain_det(*head, partial.data_ptr())
+        else:
             mc = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
             w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
-            rc = lib.m3_reweight_perchain(
-                seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), bf16, base_w.data_ptr(),
-                bins.data_ptr(), mc.data_ptr(), w2.data_ptr(), c, p, k4, e, n_bins, stream)
-            _raise_on(lib, rc, "reweight_perchain")
-            LAUNCHES["reweight_perchain"] += 1
-            return mc, w2
-        lib = _library("reweight_perchain", _PERCHAIN_DET_ARGTYPES, entry="reweight_perchain_det")
-        n_tiles = -(-e // PERCHAIN_EVENTS_PER_BLOCK)
-        partial = torch.empty((n_tiles, 2, c, n_bins), dtype=FTYPE, device=dev)
-        rc = lib.m3_reweight_perchain_det(
-            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), bf16, base_w.data_ptr(),
-            bins.data_ptr(), partial.data_ptr(), n_tiles, c, p, k4, e, n_bins, stream)
-    _raise_on(lib, rc, "reweight_perchain_det")
+            rc = lib.m3_reweight_perchain(*head, mc.data_ptr(), w2.data_ptr())
+    _raise_on(lib, rc, entry)
+    if not det:
+        LAUNCHES["reweight_perchain"] += 1
+        return mc, w2
     LAUNCHES["reweight_perchain_blockdiag"] += 1
     mc, w2 = partial.sum(0)
     return mc, w2

@@ -17,8 +17,16 @@ same files (``write_experiment`` at 3,000 events).
   ``eval_dense(exact=True)``, shifts formed with the f32 value as the port
   forms them). Measured: ≤ 1.5e-3 from the XLA route, ≤ 3.8e-6 from the
   oracle, at |NLL| up to ~1e3.
-* The port's kernel routes (the shared route's layout included) against its
-  own plain route: rtol 1e-6, atol 1e-5.
+* The port's kernel routes (the shared and generic routes' layouts
+  included) against its own plain route: rtol 1e-6, atol 1e-5.
+* The generic samples' bin maps (their bins formed in the kernel), on the
+  bridge's copy of JAX's samples, against JAX's
+  ``binning.find_bins(_shifted_kinematics)`` per chain, through the layout's
+  ``event_perm``: equal but for events whose shifted value lies within one
+  f32 ulp of an edge (JAX shifts with the f64 value, the port with the f32
+  one: ROADMAP Queue 3), which are counted and must be few. The laid-out
+  generic samples' histograms through the kernel route within the
+  production budget 2e-3 of JAX's XLA route.
 * The gradient of the per-chain samples through ``fused_reweight_diff_perchain``
   (plain versions, hand-written backward) and of ``log_posterior_batch``
   against ``jax.grad`` of the f32 oracle above: 2e-3 of each chain's
@@ -54,6 +62,7 @@ from mach3_tpu_torch.core.config import Config
 from mach3_tpu_torch.core.exceptions import ConfigError
 from mach3_tpu_torch.samples.binning import NonUniformBinning
 from mach3_tpu_torch.samples.experiment import build_experiment
+from mach3_tpu_torch.splines.reweight import SHIFT_KINDS
 from mach3_tpu_torch.tutorial.experiment_files import nue_bins, write_experiment
 
 torch.set_num_threads(1)
@@ -217,6 +226,65 @@ def test_nlls_match_jax(jexp, texp):
                                    err_msg=ts.name)
         gaps[ts.name] = (float(np.abs(got - xla).max()), float(np.abs(got - oracle).max()))
     print("NLL gaps (JAX XLA route, f32 oracle):", gaps)
+
+
+def _jax_chain_bins(js, jth):
+    return np.asarray(jax.vmap(lambda th: js.binning.find_bins(js._shifted_kinematics(th)))(jth))
+
+
+@pytest.mark.parametrize("idx", [0, 1], ids=["numu_2d", "nue_nonuniform"])
+def test_bin_map_bins_match_jax(jexp, texp, idx):
+    from mach3_tpu_torch import bridge
+
+    js = jexp.samples[idx]
+    bs = bridge._sample(js)
+    assert bs.bin_map is not None and bs.hist_plan_ptr is not None
+    th = _chains(texp.model, n_chains=12, seed=8, frac=0.5)  # the same prior as JAX's
+    p = bs.bin_map.param_index.numpy()
+    th[1, p] = 0.0  # unshifted: JAX's and the port's values agree exactly
+    want = _jax_chain_bins(js, jnp.asarray(th))
+    got = bs.perchain_bins(torch.from_numpy(th)).bins(bs.n_bins).numpy()
+    real = ~bs.event_pad.numpy()
+    perm = bs.event_perm.numpy()[real]
+    assert np.array_equal(np.sort(perm), np.arange(js.n_events))  # each event once
+    mine = np.empty_like(want)
+    mine[:, perm] = got[:, real]
+    differ = np.argwhere(mine != want)
+    # each difference: an event whose f32-shifted value is within an ulp of an edge
+    kin = np.asarray(js.kin)
+    for c, e in differ:
+        near = False
+        for a, (row, n_edges, _) in enumerate(bs.bin_map.axes):
+            x = np.float32(kin[row, e])
+            for j, (axis, kind) in enumerate(bs.bin_map.shifts):
+                if axis == a:
+                    v = np.float32(th[c, p[j]])
+                    x = np.float32(SHIFT_KINDS[kind][1](torch.tensor([[v]]),
+                                                        torch.tensor([[x]]))[0, 0])
+            edges = bs.bin_map.edges[a, :n_edges].numpy()
+            near |= bool(np.any(np.abs(edges - x) <= np.spacing(np.abs(edges))))
+        assert near, (c, e)
+    assert len(differ) <= 1e-3 * want.size, len(differ)
+    assert not np.any(mine[1] != want[1])
+    print(f"{js.name}: {len(differ)} of {want.size} (chain, event) bins differ, each within an "
+          f"ulp of an edge")
+
+
+def test_laid_out_generic_histograms_match_jax(jexp, texp):
+    jm, tm = jexp.model, texp.model
+    th = _chains(tm, seed=9)
+    jth = jnp.asarray(th)
+    jtables = jm._shared_osc_tables(jth)
+    ttables = tm._shared_osc_tables(torch.from_numpy(th))
+    for i in (0, 1):
+        js, ts = jm.samples[i], tm.samples[i]
+        assert ts.bin_map is not None and ts.n_events % 256 == 0 and ts.n_events > js.n_events
+        mc, w2 = (v.numpy() for v in ts.reweight_batch(torch.from_numpy(th), ttables[i]))
+        mc_j, w2_j = (np.asarray(v) for v in jax.vmap(
+            js.reweight, in_axes=(0, 0 if jtables[i] is not None else None))(jth, jtables[i]))
+        for got, want in ((mc, mc_j), (w2, w2_j)):
+            np.testing.assert_allclose(got, want, rtol=PROD_BUDGET,
+                                       atol=1e-6 * float(np.abs(want).max()), err_msg=ts.name)
 
 
 def test_kernel_routes_match_own_plain_route(texp, tplain):

@@ -1,5 +1,5 @@
-"""The per-chain-bins reweight-histogram (K5, K5b) and the unblocked shared
-form (K4a) of the port vs the JAX package.
+"""The per-chain-bins reweight-histogram (K5, K5b), its bin map, and the
+unblocked shared form (K4a) of the port vs the JAX package.
 
 * K5/K5b: the port's ``fused_reweight_histogram_ref`` (the wrapper on CPU
   tensors; one plain version for both histogram forms) vs JAX's
@@ -21,20 +21,43 @@ form (K4a) of the port vs the JAX package.
   norm makes bins whose weights cancel (there JAX's bf16 rounding is 1.8% of
   one such bin's content; elsewhere ≤ 2.8e-4 relative).
 
+* The bin map (``reweight.PerchainBins``, the generic route's in-kernel
+  binning): ``perchain_bins_ref`` equals ``SampleModel._perchain_bins`` (the
+  plain binning of the shifted kinematics) exactly on the experiment's
+  numu_2d (two shifted axes) and nue_nonuniform (hyper-rectangle cells)
+  laid out at 1,500 events, with events on edges (also reached through a
+  shift value chosen to land there), shifted below the first and past the
+  last edge, in a gap cell, NaN and ±inf kinematics, and on a sample with
+  two shifts on one row; a synthetic map equals a numpy binning. The
+  generic route's sampling forward with a map calls neither
+  ``_perchain_bins`` nor ``_norm_weights`` (the norm product is in the
+  kernel); a shift that is torch code keeps the bins [C, E] as input. The
+  layout's plan lists every parameter that is not the identity on a tile.
+
 The ``cuda``-marked tests hold the CUDA kernels to the plain version on edge
 cases (B = 512, P = 16, one event, every bin out of range, C not a multiple
-of the chain tile, bf16 tables) and K5b to itself bit for bit; they import
-no jax and run with ``--noconftest`` where a card is.
+of the chain tile, E not a multiple of the event tile, bf16 tables; the bin
+map with edge events, NaN and ±inf values, cells and gaps, under a plan and
+with the norm in the kernel) and K5b to itself bit for bit; they import no
+jax and run with ``--noconftest`` where a card is.
 """
+import copy
 import types
 
 import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.samples.events import EventData, build_sample_model
+from mach3_tpu_torch.samples.sample import SampleModel, ShiftSpec
 from mach3_tpu_torch.splines import plan, reweight
 from mach3_tpu_torch.splines.eval import find_segments
-from mach3_tpu_torch.splines.monolith import SplineParamSpec, build_dense_table
+from mach3_tpu_torch.splines.monolith import (
+    DenseSplineTable,
+    SplineParamSpec,
+    build_dense_table,
+    dense_table_activity,
+)
 
 torch.set_num_threads(1)
 
@@ -225,6 +248,293 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert reweight.LAUNCHES == before  # the plain version is not a launch
 
 
+# ------------------------------------------------ the bin map (generic route)
+
+
+@pytest.fixture(scope="module")
+def exp_model(tmp_path_factory):
+    """The experiment of ``tutorial/experiment_files.py`` at 1,500 events,
+    built by the port on the CPU (its generic samples laid out)."""
+    from mach3_tpu_torch.core.config import Config
+    from mach3_tpu_torch.samples.experiment import build_experiment
+    from mach3_tpu_torch.tutorial.experiment_files import write_experiment
+
+    path = write_experiment(tmp_path_factory.mktemp("exp"), n_events=1500, seed=3)
+    return build_experiment(Config.from_file(str(path)), device="cpu").model
+
+
+def _sample(model, name):
+    return next(s for s in model.samples if s.name == name)
+
+
+def _landing(x: np.ndarray, kind: str, v: float) -> np.ndarray:
+    """f32 values that the shift (kind, v) moves exactly onto the f32
+    values ``x`` (those it cannot are dropped)."""
+    x = x.astype(np.float32)
+    v32, one = np.float32(v), np.float32(1.0)
+    if kind == "scale":
+        pre = x / (one + v32)
+    elif kind == "offset":
+        pre = x - v32
+    else:
+        pre = one + (x - one) / (one + v32)
+    fn = reweight.SHIFT_KINDS[kind][1]
+    back = fn(torch.tensor(v32)[None, None], torch.from_numpy(pre)[None])[0].numpy()
+    return pre[back == x]
+
+
+@pytest.mark.parametrize("name", ["numu_2d", "nue_nonuniform"])
+def test_perchain_bins_ref_is_the_plain_binning(exp_model, name):
+    """On the laid-out sample, with its events moved onto edges (some only
+    reach one through chain 1's shift value), into a gap cell, to NaN and
+    ±inf, and chains whose shifts push events past both ends."""
+    s = copy.deepcopy(_sample(exp_model, name))
+    bm = s.bin_map
+    assert s.kernel_route.variant == "generic" and bm is not None and s.hist_plan_ptr is not None
+    rng = np.random.default_rng(5)
+    kin = s.kin.numpy().copy()
+    real = np.flatnonzero(~s.event_pad.numpy())
+    picks = iter(np.array_split(rng.permutation(real), 8))
+    for a, (row, n_edges, _) in enumerate(bm.axes):
+        edges = bm.edges[a, :n_edges].numpy()
+        on = next(picks)
+        kin[row, on] = edges[rng.integers(0, n_edges, len(on))]
+        kind = next(k for ax, k in bm.shifts if ax == a)
+        land = _landing(edges, kind, 0.125)
+        to = next(picks)[:len(land)]
+        kin[row, to] = land[rng.integers(0, len(land), len(to))]
+    odd = next(picks)[:8]
+    kin[bm.axes[0][0], odd] = [np.nan, np.inf, -np.inf, np.nan, np.inf, -np.inf, 0.5, 0.5]
+    static_rows = [r for r in s.binning.axis_vars if r not in [ax[0] for ax in bm.axes]]
+    for r in static_rows:  # a non-finite value on an axis no shift moves
+        kin[r, odd[6:]] = [np.nan, np.inf]
+    if name == "nue_nonuniform":  # e_reco < 0.3, cos_theta < 0: no bin there
+        gap = next(picks)[:20]
+        kin[bm.axes[0][0], gap] = 0.1
+        kin[static_rows[0], gap] = -0.5
+    s.kin = torch.from_numpy(kin)
+    s = s.with_binning(s.binning)  # rebuilds the static part and the map from the new values
+    assert s.bin_map is not None
+    th = exp_model.prefit_vector().double().repeat(6, 1)
+    th[3:] += 0.05 * torch.from_numpy(rng.normal(size=(3, th.shape[1])))
+    p = s.bin_map.param_index
+    th[0, p] = 0.0  # events on edges sit on them
+    th[1, p] = 0.125  # the landing events move onto edges
+    th[2, p] = torch.tensor([-0.9, 3.0][:len(p)], dtype=th.dtype)  # far below / past the edges
+    got = s.perchain_bins(th).bins(s.n_bins)
+    want = s._perchain_bins(th)
+    assert got.dtype == torch.int32 and got.shape == want.shape == (6, s.n_events)
+    assert torch.equal(got.long(), want)
+    assert (want[0] < s.n_bins).any() and (want[0] == s.n_bins).any()
+    assert (want[2] == s.n_bins).sum() > (want[0] == s.n_bins).sum()
+    assert (want[:, odd[:6]] == s.n_bins).all()
+    if name == "nue_nonuniform":
+        assert (want[0, gap] == s.n_bins).all()
+
+
+def _two_shift_sample(order=("scale", "offset"), n=3000, seed=9):
+    """Two shifts on one row (x) and one on another (y) of a 2-D binning, a
+    unit spline table: the generic route with a bin map."""
+    rng = np.random.default_rng(seed)
+    ex, ey = np.linspace(0.0, 3.0, 13), np.linspace(0.0, 1.0, 5)
+    x = np.concatenate([ex, ex + 0.125, rng.uniform(-0.5, 3.5, n - 26)])
+    y = np.concatenate([ey, rng.uniform(-0.1, 1.1, n - 5)])
+    events = EventData(kinematics={"x": x, "y": y}, mode=np.zeros(n, np.int32),
+                       target=np.full(n, 12, np.int32), pdg=np.full(n, 14, np.int32),
+                       preosc_pdg=np.full(n, 14, np.int32), mc_weight=np.ones(n))
+    unit = SplineParamSpec("s", 0, np.array([-1.0, 0.0, 1.0]), np.arange(n), np.ones((n, 3)))
+    shifts = tuple(ShiftSpec.named(k, 1 + i, 0) for i, k in enumerate(order))
+    shifts += (ShiftSpec.named("scale_about_one", 3, 1),)
+    return build_sample_model("two", events, ["x", "y"], [ex, ey], ["x", "y"], n_total_params=4,
+                              spline_table=build_dense_table([unit], n), shifts=shifts)
+
+
+@pytest.mark.parametrize("order", [("scale", "offset"), ("offset", "scale")])
+def test_two_shifts_on_one_row_bin_as_the_plain_route(order):
+    s = _two_shift_sample(order)
+    assert s.kernel_route.variant == "generic" and s.bin_map is not None
+    assert s.bin_map.shifts == ((0, order[0]), (0, order[1]), (1, "scale_about_one"))
+    th = np.zeros((10, 4))
+    th[:, 1] = [0.0, 0.25, -0.25, 0.5, 0.125, -0.375, 0.1, -0.3, 1e-7, 0.0]
+    th[:, 2] = [0.0, 0.125, 0.25, -0.5, 0.0, 0.375, -0.1, 0.3, -1e-7, 0.25]
+    th[:, 3] = [0.0, 0.5, -0.5, 0.25, 0.1, 0.0, -0.25, 0.75, 0.0, 0.0]
+    th = torch.from_numpy(th)
+    got, want = s.perchain_bins(th).bins(s.n_bins), s._perchain_bins(th)
+    assert torch.equal(got.long(), want)
+    mc, w2 = s.reweight_batch(th)  # the kernel's plain version on the CPU
+    mc_p, w2_p = s.reweight_batch_plain(th)
+    assert torch.equal(mc, mc_p) and torch.equal(w2, w2_p)
+    assert float(mc.sum()) > 0.4 * 10 * 3000
+
+
+def test_registered_shift_keeps_bins_as_input():
+    s = _two_shift_sample()
+    custom = ShiftSpec(None, lambda v, x, kin: x * (1.0 + v), 1, 0)  # torch code, no kind
+    s = build_sample_model(
+        "custom", EventData(kinematics={"x": s.kin[0].numpy(), "y": s.kin[1].numpy()},
+                            mode=np.zeros(s.n_events, np.int32),
+                            target=np.full(s.n_events, 12, np.int32),
+                            pdg=np.full(s.n_events, 14, np.int32),
+                            preosc_pdg=np.full(s.n_events, 14, np.int32),
+                            mc_weight=s.mc_weight.numpy()),
+        ["x", "y"], [np.linspace(0.0, 3.0, 13), np.linspace(0.0, 1.0, 5)], ["x", "y"],
+        n_total_params=4, spline_table=s.spline_table, shifts=(custom, s.shifts[1]))
+    assert s.kernel_route.variant == "generic" and s.bin_map is None
+    th = torch.zeros((3, 4), dtype=torch.float64)
+    th[1, 1], th[2, 2] = 0.25, -0.125
+    args, kw = s.perchain_kernel_args(th)
+    assert isinstance(args[4], torch.Tensor) and args[4].dtype == torch.int32
+    assert torch.equal(args[4].long(), s._perchain_bins(th))
+    mc, _ = s.reweight_batch(th)
+    assert torch.equal(mc, s.reweight_batch_plain(th)[0])
+
+
+@pytest.mark.parametrize("name", ["numu_2d", "nue_nonuniform"])
+def test_named_shifts_path_calls_neither_plain_binning_nor_norm_gather(exp_model, name,
+                                                                        monkeypatch):
+    s = _sample(exp_model, name)
+    th = exp_model.prefit_vector().double().repeat(4, 1)
+    th[1:] += 0.05 * torch.from_numpy(np.random.default_rng(2).normal(size=(3, th.shape[1])))
+    mc_p, w2_p = s.reweight_batch_plain(th)
+
+    def forbidden(*a, **k):
+        raise AssertionError("called on the sampling path")
+
+    monkeypatch.setattr(SampleModel, "_perchain_bins", forbidden)
+    monkeypatch.setattr(SampleModel, "_norm_weights", forbidden)
+    args, kw = s.perchain_kernel_args(th)
+    assert isinstance(args[4], reweight.PerchainBins) and kw["norm_s"] is s.norm_s
+    mc, w2 = s.reweight_batch(th)
+    _close(mc.numpy(), mc_p.numpy(), 2e-5, ATOL_FRAC)
+    _close(w2.numpy(), w2_p.numpy(), 2e-5, ATOL_FRAC)
+
+
+@pytest.mark.parametrize("name", ["numu_2d", "nue_nonuniform"])
+def test_plan_lists_every_non_identity_parameter(exp_model, name):
+    s = _sample(exp_model, name)
+    e = s.n_events
+    assert e % plan.EVENT_TILE == 0 and (s.mc_weight[s.event_pad] == 0).all()
+    act = dense_table_activity(s.spline_table)  # laid-out order
+    ptr, idx = s.hist_plan_ptr.numpy(), s.hist_plan_idx.numpy()
+    for t in range(e // plan.EVENT_TILE):
+        need = set(np.flatnonzero(act[:, t * plan.EVENT_TILE:(t + 1) * plan.EVENT_TILE].any(1)))
+        assert need <= set(idx[ptr[t]:ptr[t + 1]].tolist()), t
+    assert ptr[-1] < act.shape[0] * (e // plan.EVENT_TILE)  # the plan skips something
+
+
+def _map_inputs(n_chains=7, n_events=2000, n_bins=None, cells=True, bf16=False, seed=0,
+                n_params=4):
+    """A synthetic bin map over two axes (x: 12 cells, a scale; y: 4 cells,
+    an offset then a scale_about_one) and a static axis of 3, with events on
+    edges, NaN and ±inf values, static parts out of range; with ``cells`` a
+    cell -> bin map with gaps onto ``n_bins`` bins, else the flat index is
+    the bin (144 bins)."""
+    d = _inputs(n_params=n_params, n_chains=n_chains, n_events=n_events, bf16=bf16, seed=seed,
+                n_bins=24)
+    rng = np.random.default_rng(seed + 100)
+    ex, ey = np.arange(13) * 0.25, np.arange(5) * 0.25
+    x = rng.uniform(-0.3, 3.3, n_events)
+    y = rng.uniform(-0.1, 1.1, n_events)
+    x[::4] = ex[rng.integers(0, 13, len(x[::4]))]
+    y[1::5] = ey[rng.integers(0, 5, len(y[1::5]))]
+    x[7::97], y[11::89] = np.nan, np.inf
+    x[13::101] = -np.inf
+    static = rng.integers(0, 3, n_events).astype(np.int32)
+    static[rng.random(n_events) < 0.03] = -1
+    n_flat = 12 * 4 * 3
+    cell_to_bin = None
+    if cells:
+        n_bins = n_bins or 24
+        cell_to_bin = rng.integers(0, n_bins, n_flat).astype(np.int32)
+        cell_to_bin[rng.random(n_flat) < 0.1] = n_bins  # gaps
+    else:
+        n_bins = n_flat
+    shift = rng.normal(scale=0.05, size=(n_chains, 3)).astype(np.float32)
+    shift[0] = 0.0
+    shift[1] = [1.0, 0.25, 0.5]
+    shift[2] = [-0.9, 2.0, -0.99]
+    edges = np.full((2, 13), np.inf, np.float32)
+    edges[0], edges[1, :5] = ex, ey
+    d.map = dict(kin=np.stack([y, x]).astype(np.float32), shift=shift, static=static,
+                 edges=edges, cell_to_bin=cell_to_bin, axes=((1, 13, 12), (0, 5, 3)),
+                 shifts=((0, "scale"), (1, "offset"), (1, "scale_about_one")))
+    d.n_bins = n_bins
+    return d
+
+
+def _map_of(d, device="cpu"):
+    m = d.map
+    return reweight.PerchainBins(
+        torch.as_tensor(m["shift"], device=device), torch.as_tensor(m["kin"], device=device),
+        torch.as_tensor(m["static"], device=device), torch.as_tensor(m["edges"], device=device),
+        None if m["cell_to_bin"] is None else torch.as_tensor(m["cell_to_bin"], device=device),
+        m["axes"], m["shifts"])
+
+
+def _numpy_bins(d):
+    """The map's bins by numpy, in f32: the oracle of perchain_bins_ref."""
+    m = d.map
+    one = np.float32(1.0)
+    sv = m["shift"]
+    x = m["kin"][1][None] * (one + sv[:, :1])
+    y = m["kin"][0][None] + sv[:, 1:2]
+    y = one + (y - one) * (one + sv[:, 2:3])
+    flat = np.broadcast_to(m["static"], x.shape).astype(np.int64)
+    valid = flat >= 0
+    for v, edges, n, stride in ((x, m["edges"][0], 12, 12), (y, m["edges"][1, :5], 4, 3)):
+        idx = (edges[None, None, :] <= v[..., None]).sum(-1) - 1
+        valid &= (idx >= 0) & (idx < n)
+        flat = flat + idx * stride
+    if m["cell_to_bin"] is not None:
+        flat = m["cell_to_bin"][np.where(valid, flat, 0)]
+    return np.where(valid, flat, d.n_bins)
+
+
+@pytest.mark.parametrize("cells", [True, False], ids=["cells", "flat"])
+def test_perchain_bins_ref_matches_a_numpy_binning(cells):
+    d = _map_inputs(cells=cells)
+    got = _map_of(d).bins(d.n_bins).numpy()
+    want = _numpy_bins(d)
+    assert np.array_equal(got, want)
+    assert (want < d.n_bins).mean() > 0.3 and (want == d.n_bins).any()
+    args, kwargs = _port_args(d)
+    mc, w2 = reweight.fused_reweight_histogram(*args[:4], _map_of(d), n_bins=d.n_bins)
+    mc_g, w2_g = reweight.fused_reweight_histogram(*args[:4], torch.from_numpy(want.astype(
+        np.int32)), n_bins=d.n_bins)
+    assert torch.equal(mc, mc_g) and torch.equal(w2, w2_g)
+
+
+MAP_CHECKS = {
+    "five_axes": lambda m: dataclasses_replace(m, axes=m.axes * 3, edges=m.edges.repeat(3, 1)[:5]),
+    "nine_shifts": lambda m: dataclasses_replace(m, shifts=((0, "scale"),) * 9,
+                                                 shift_vals=m.shift_vals.repeat(1, 3)),
+    "ungrouped_shifts": lambda m: dataclasses_replace(
+        m, shifts=((1, "offset"), (0, "scale"), (1, "scale_about_one"))),
+    "unknown_kind": lambda m: dataclasses_replace(m, shifts=((0, "log"),) + m.shifts[1:]),
+    "row_past_kin": lambda m: dataclasses_replace(m, axes=((2, 13, 12), m.axes[1])),
+    "edges_past_pitch": lambda m: dataclasses_replace(m, axes=((1, 14, 12), m.axes[1])),
+    "too_many_cells": lambda m: dataclasses_replace(
+        m, cell_to_bin=torch.zeros(reweight.MAX_MAP_CELLS + 1, dtype=torch.int32)),
+    "shift_vals_shape": lambda m: dataclasses_replace(m, shift_vals=m.shift_vals[:, :2]),
+    "cells_int64": lambda m: dataclasses_replace(m, cell_to_bin=m.cell_to_bin.long()),
+}
+
+
+def dataclasses_replace(m, **changes):
+    import dataclasses
+
+    return dataclasses.replace(m, **changes)
+
+
+@pytest.mark.parametrize("case", list(MAP_CHECKS))
+def test_wrapper_rejects_a_bin_map_the_kernel_does_not_take(case):
+    d = _map_inputs()
+    args, kwargs = _port_args(d)
+    bad = MAP_CHECKS[case](_map_of(d))
+    with pytest.raises((ValueError, TypeError)):
+        reweight.fused_reweight_histogram(*args[:4], bad, **kwargs)
+
+
 # ---------------------------------------------------------------- the card
 
 
@@ -273,10 +583,101 @@ def test_cuda_kernels_match_plain_version(cuda_device, case, hist):
 
 
 @pytest.mark.cuda
-def test_cuda_blockdiag_is_deterministic(cuda_device):
+@pytest.mark.parametrize("source", ["given", "map"])
+def test_cuda_blockdiag_is_deterministic(cuda_device, source):
     """K5b adds in a fixed order: two runs agree bit for bit."""
-    args, kwargs = _port_args(_inputs(n_params=6, n_chains=33, n_events=20000, n_bins=200),
-                              cuda_device)
+    if source == "map":
+        args, kwargs = _map_args(_map_inputs(n_chains=33, n_events=20000, n_params=6),
+                                 cuda_device, layout=True, norm=True)
+    else:
+        args, kwargs = _port_args(_inputs(n_params=6, n_chains=33, n_events=20000, n_bins=200),
+                                  cuda_device)
     a = reweight.fused_reweight_histogram(*args, **kwargs, hist="blockdiag")
     b = reweight.fused_reweight_histogram(*args, **kwargs, hist="blockdiag")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert float(a[0].abs().sum()) > 0
+
+
+def _map_args(d, device, layout=False, norm=False):
+    """(args, kwargs) of the per-chain wrapper with the bin map of
+    :func:`_map_inputs`; ``layout``: the events laid out by
+    ``plan.shifted_layout`` (pads of weight 0) with its plan; ``norm``: the
+    norm product in the kernel, a negative value in the last chain."""
+    table = build_dense_table([SplineParamSpec(**sp) for sp in d.specs], d.n_events,
+                              low_memory=d.bf16)
+    m = d.map
+    kin, static, base = m["kin"], m["static"], d.base.copy()
+    kw = dict(n_bins=d.n_bins)
+    n_ev = d.n_events
+    perm = np.arange(n_ev)
+    if layout:
+        lay = plan.shifted_layout(dense_table_activity(table))
+        perm, tp = lay.event_perm, torch.from_numpy(lay.param_perm)
+        te = torch.from_numpy(perm)
+        table = DenseSplineTable(table.coeffs.index_select(0, tp).index_select(2, te),
+                                 table.knots_x[tp], table.n_knots[tp], table.param_index[tp])
+        kin, static, base = kin[:, perm], static[perm], base[:, perm]
+        base[:, lay.pad_mask] = 0.0
+        kw.update(plan_ptr=torch.as_tensor(lay.plan_ptr, device=device),
+                  plan_idx=torch.as_tensor(lay.plan_idx, device=device))
+    if norm:
+        rng = np.random.default_rng(17)
+        c = d.params.shape[0]
+        ext = np.ones((c, 4), np.float32)
+        ext[:, :3] = rng.uniform(0.7, 1.3, size=(c, 3))
+        ext[-1, 0] = -0.8
+        match = np.zeros((4, n_ev), np.float32)
+        match[:3] = rng.integers(0, 2, size=(3, n_ev))
+        match[3] = 1.0
+        kw.update(norm_ext=torch.as_tensor(ext, device=device),
+                  norm_s=torch.as_tensor(np.ascontiguousarray(match[:, perm]), device=device))
+    table = table.to(device)
+    params = torch.as_tensor(d.params, device=device)
+    seg, t = find_segments(table.knots_x, table.n_knots, params[:, table.param_index])
+    laid = types.SimpleNamespace(map=dict(m, kin=np.ascontiguousarray(kin),
+                                          static=np.ascontiguousarray(static)))
+    return (seg, t, table.coeffs, torch.as_tensor(np.ascontiguousarray(base), device=device),
+            _map_of(laid, device)), kw
+
+
+def _map_case(case):
+    if case == "b512_p16":
+        return _map_inputs(n_params=16, n_chains=9, n_events=8192, n_bins=512)
+    if case == "flat_bins":
+        return _map_inputs(n_chains=17, n_events=5120, cells=False)
+    if case == "chains_not_multiple":
+        return _map_inputs(n_chains=13, n_events=4096, n_params=5)
+    if case == "events_not_multiple":  # rows not 16-byte aligned: plain loads
+        return _map_inputs(n_chains=11, n_events=5001)
+    if case == "bf16_unaligned":
+        return _map_inputs(n_chains=17, n_events=7001, bf16=True)
+    return _map_inputs(n_chains=20, n_events=9000, bf16=case.endswith("bf16"))
+
+
+MAP_CUDA_CASES = ["edges_cells", "b512_p16", "flat_bins", "chains_not_multiple",
+                  "events_not_multiple", "bf16_unaligned", "plan_norm", "plan_norm_bf16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist", reweight.HIST_FORMS)
+@pytest.mark.parametrize("case", MAP_CUDA_CASES)
+def test_cuda_bin_map_matches_plain_version(cuda_device, case, hist):
+    """The kernel binning from a bin map (edge events, NaN and ±inf values,
+    gap cells, static parts out of range; under a plan with the norm in the
+    kernel for the plan cases) against the plain version, and against the
+    same kernel fed the map's plain bins."""
+    d = _map_case(case)
+    planned = case.startswith("plan")
+    args, kwargs = _map_args(d, cuda_device, layout=planned, norm=planned)
+    before = reweight.LAUNCHES[_COUNTER[hist]]
+    mc, w2 = reweight.fused_reweight_histogram(*args, **kwargs, hist=hist)
+    torch.cuda.synchronize()
+    assert reweight.LAUNCHES[_COUNTER[hist]] == before + 1
+    mc_p, w2_p = reweight.fused_reweight_histogram_ref(*args, **kwargs)
+    _close(mc.cpu().numpy(), mc_p.cpu().numpy(), 2e-5, ATOL_FRAC)
+    _close(w2.cpu().numpy(), w2_p.cpu().numpy(), 2e-5, ATOL_FRAC)
+    given = args[:4] + (args[4].bins(d.n_bins),)
+    mc_g, w2_g = reweight.fused_reweight_histogram(*given, **kwargs, hist=hist)
+    _close(mc.cpu().numpy(), mc_g.cpu().numpy(), 2e-5, ATOL_FRAC)
+    _close(w2.cpu().numpy(), w2_g.cpu().numpy(), 2e-5, ATOL_FRAC)
+    assert mc.abs().sum() > 0 and (mc_p == 0).any()

@@ -347,18 +347,31 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_cuda_nan_norm_spoils_only_its_chain(cuda_device):
+@pytest.mark.parametrize("route", ["shifted", "generic"])
+def test_cuda_nan_norm_spoils_only_its_chain(cuda_device, route):
     """Through the kernel a NaN norm reaches the events that match it: the
     chain's histogram and NLL are non-finite, the other chains agree with
-    the plain version."""
+    the plain version; on the shifted route's kernel and on the generic
+    route's (the same binning as its bin map, the norm in the kernel)."""
     from mach3_tpu_torch.samples.teststats import get_test_stat_fn
+    from mach3_tpu_torch.splines.grad import ShiftedBins
 
     d = _inputs("norm", n_chains=11, n_events=5000)
     d.norm_ext[2, 1] = np.nan
     args, kwargs = _port_args(d, cuda_device)
-    mc, w2 = reweight.fused_reweight_histogram_shifted(*args, **kwargs)
+    if route == "generic":
+        bins = ShiftedBins(*args[4:8], kwargs["shift_kind"], kwargs["stride_j"],
+                           kwargs["n_axis_j"]).bin_map()
+        args = args[:4] + (bins,)
+        kwargs = dict(n_bins=kwargs["n_bins"], norm_ext=kwargs["norm_ext"],
+                      norm_s=kwargs["norm_s"])
+        kern, ref = reweight.fused_reweight_histogram, reweight.fused_reweight_histogram_ref
+    else:
+        kern = reweight.fused_reweight_histogram_shifted
+        ref = reweight.fused_reweight_histogram_shifted_ref
+    mc, w2 = kern(*args, **kwargs)
     torch.cuda.synchronize()
-    mc_p, w2_p = reweight.fused_reweight_histogram_shifted_ref(*args, **kwargs)
+    mc_p, w2_p = ref(*args, **kwargs)
     others = [c for c in range(11) if c != 2]
     _close(mc[others].cpu().numpy(), mc_p[others].cpu().numpy(), ORACLE_RTOL)
     _close(w2[others].cpu().numpy(), w2_p[others].cpu().numpy(), ORACLE_RTOL)
