@@ -100,8 +100,9 @@
 //    barriers to list the items; per block: the histogram's zeroing and its
 //    flush (up to 2·B global atomics a chain), which the generic route's
 //    blocks share over 2 (atomics) or 8 (deterministic) tiles. A tile's work
-//    is mostly waiting, so resident blocks are the lever: a histogram of
-//    hundreds of bins (numu_2d: 31 KB) leaves room for three, not four;
+//    is mostly waiting, so resident blocks are the lever: with a histogram
+//    of hundreds of bins (numu_2d: 31 KB) an f32 table takes the small ring
+//    (16 KB) so that four blocks fit;
 //  * instruction slots: the response loop (~5 instructions per (item, chain)
 //    and thread) and the tail (per (chain, event) and shifted axis a binary
 //    search of log2(edges) shared-memory reads, interleaved over kBatch
@@ -113,9 +114,9 @@
 //
 // Limits: n_bins ≤ 512, edges ≤ 1025 an axis, 4 shifted axes and 8 shifts a
 // map, P ≤ 256, NA+1 ≤ 256, K4 / 4 ≤ 64 knots, and the block's shared
-// memory (the ring: 24 KB for bf16, 32 KB for f32; the histogram; 136 bytes
-// per parameter, 8 per possible item, 128 per norm slot; the map's edges,
-// event rows and cells; the parked bins of the bins input and of the
+// memory (the ring: 24 KB for bf16, 32 or 16 KB for f32; the histogram; 136
+// bytes per parameter, 8 per possible item, 128 per norm slot; the map's
+// edges, event rows and cells; the parked bins of the bins input and of the
 // deterministic tail, 17 KB) ≤ 227 KB. The shifted entry takes tables whose
 // rows start on 16-byte boundaries only (a laid-out sample's).
 //
@@ -149,14 +150,31 @@ constexpr int kMaxNorm = 256;
 constexpr int kMaxGrid = 65535;  // gridDim.y
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
 constexpr unsigned kFullMask = 0xffffffffu;
-// Ring stages of the tile core: two for an f32 table (32 KB, enough for the
-// parked weights), three for bf16 (24 KB). The third f32 stage (16 KB more)
-// costs a resident block where the histogram is large: on an H100 (700 W)
-// two stages took numu_2d of the experiment from 0.379 to 0.296 ms and the
-// toy's K1 from 0.195 / 0.141 to 0.190 / 0.137 ms (kernel_probe-style
-// timing at 256 chains, PR 7's notes in PERF.md).
-template <typename CoefT>
+// The tile core's ring (kSmall: the small f32 ring). bf16 rows: three
+// stages of four items (24 KB). f32 rows: two stages of four (32 KB) or,
+// where the rest of a block's shared memory (a histogram of hundreds of
+// bins) would leave room for fewer than four resident blocks with those, two
+// of two (16 KB: just the parked weights, parked swizzled; see parked()).
+// The small ring gives numu_2d of the experiment a fourth block and costs
+// the index arithmetic of the swizzle elsewhere (PERF.md §6, PR 7).
+template <typename CoefT, bool kSmall>
 constexpr int kRingOf = sizeof(CoefT) == 4 ? 2 : m3::kStages;
+template <typename CoefT, bool kSmall>
+constexpr int kItemsOf = sizeof(CoefT) == 4 && kSmall ? 2 : m3::kItemsPerStage;
+
+// Where the weight of (event ev, chain c) is parked in the ring: [event][17]
+// floats (m3::TileCore::park) or, in the small ring, [event][16] with the
+// chains swizzled by the event, so that a warp writing one chain of 32
+// consecutive events, and two half-warps reading 16 chains of one event each
+// (events of opposite parity, see the tail), touch 32 different banks.
+template <bool kSmall>
+__device__ __forceinline__ int parked(int ev, int c) {
+  if constexpr (kSmall) {
+    return ev * kChainTile + (c ^ ((ev ^ (ev >> 4)) & (kChainTile - 1)));
+  } else {
+    return ev * kPitch + c;
+  }
+}
 
 struct Args {
   const int* seg;
@@ -272,12 +290,15 @@ struct ChainMap {
   }
 };
 
-template <typename CoefT, bool kHasNorm, int kSource, bool kDet>
+template <typename CoefT, bool kHasNorm, int kSource, bool kDet, bool kSmall>
 __global__ void __launch_bounds__(kThreads, 4) reweight_perchain_kernel(const Args a) {
   constexpr bool kMap = kSource != kGiven;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ m3::BinMap map;
-  m3::TileCore<CoefT, kRingOf<CoefT>> core;
+  m3::TileCore<CoefT, kRingOf<CoefT, kSmall>, kItemsOf<CoefT, kSmall>> core;
+  static_assert(!kSmall || sizeof(CoefT) * kRingOf<CoefT, kSmall> * kItemsOf<CoefT, kSmall> * 4 ==
+                               sizeof(float) * kChainTile,
+                "the small ring holds the swizzled parked weights");
   float* sh_logext = reinterpret_cast<float*>(core.carve(smem_raw, a.P, a.K4));  // [na1][CT]
   float* sh_neg = sh_logext + kChainTile * a.na1;                                // [na1][CT]
   float* hist = sh_neg + kChainTile * a.na1;                                     // [CT][hp]
@@ -359,9 +380,22 @@ __global__ void __launch_bounds__(kThreads, 4) reweight_perchain_kernel(const Ar
       }
       sh_sb[tid] = sb;
     }
-    const float* sh_w = core.park(w);
+    float* sh_w;
+    if constexpr (kSmall) {
+      __syncthreads();  // every thread has left the ring
+      sh_w = reinterpret_cast<float*>(core.ring);
+#pragma unroll
+      for (int c = 0; c < kChainTile; ++c) sh_w[parked<true>(tid, c)] = w[c];
+      __syncthreads();
+    } else {
+      sh_w = core.park(w);
+    }
     const int c = tid % kChainTile;
     const int ev0 = (tid / kChainTile) * m3::kTailEvents;
+    // In the small ring the second half-warp takes each pair of its events
+    // in the other order, so that the two halves read events of opposite
+    // parity together.
+    const int h = kSmall ? (tid / kChainTile) & 1 : 0;
     ChainMap<(kSource > 0 ? kSource : 1)> regs;
     if constexpr (kSource > 0) regs = decltype(regs)(map, sh_edges, sh_fac, c);
     // The bins of events ev .. ev + kBatch − 1 of this thread's chain.
@@ -389,17 +423,18 @@ __global__ void __launch_bounds__(kThreads, 4) reweight_perchain_kernel(const Ar
           float wv[kBatch];
           int bin[kBatch];
 #pragma unroll
-          for (int j = 0; j < kBatch; ++j) wv[j] = sh_w[(ev0 + k + j) * kPitch + c];
+          for (int j = 0; j < kBatch; ++j) wv[j] = sh_w[parked<kSmall>(ev0 + k + (j ^ h), c)];
           batch_bins(ev0 + k, bin);
 #pragma unroll
           for (int j = 0; j < kBatch; ++j) {
-            if (wv[j] == 0.f || bin[j] < 0 || bin[j] >= a.n_bins) continue;
-            if (bin[j] != cur) {
+            const int b = h ? bin[j ^ 1] : bin[j];
+            if (wv[j] == 0.f || b < 0 || b >= a.n_bins) continue;
+            if (b != cur) {
               if (cur >= 0) {
                 atomicAdd(hc + cur, sw);
                 atomicAdd(hc + a.n_bins + cur, sq);
               }
-              cur = bin[j];
+              cur = b;
               sw = 0.f;
               sq = 0.f;
             }
@@ -430,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 4) reweight_perchain_kernel(const Ar
       for (int cc = tid >> 5; cc < nct; cc += kThreads / 32) {
         float* hc = hist + cc * hp;
         for (int ev = lane; ev < kEventTile; ev += 32) {
-          const float wv = sh_w[ev * kPitch + cc];
+          const float wv = sh_w[parked<kSmall>(ev, cc)];
           int key = sh_bin[ev * kPitch + cc];
           if (wv == 0.f || key < 0 || key >= a.n_bins) key = -1;
           const unsigned peers = __match_any_sync(kFullMask, key);
@@ -438,7 +473,8 @@ __global__ void __launch_bounds__(kThreads, 4) reweight_perchain_kernel(const Ar
             float sw = 0.f;
             float sq = 0.f;
             for (unsigned m = peers; m != 0; m &= m - 1) {
-              const float v = sh_w[(ev - lane + __ffs(static_cast<int>(m)) - 1) * kPitch + cc];
+              const float v =
+                  sh_w[parked<kSmall>(ev - lane + __ffs(static_cast<int>(m)) - 1, cc)];
               sw += v;
               sq += v * v;
             }
@@ -468,9 +504,9 @@ __global__ void __launch_bounds__(kThreads, 4) reweight_perchain_kernel(const Ar
   }
 }
 
-template <typename CoefT, bool kHasNorm, int kSource, bool kDet>
+template <typename CoefT, bool kHasNorm, int kSource, bool kDet, bool kSmall = false>
 cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream, const Args& a) {
-  auto kernel = reweight_perchain_kernel<CoefT, kHasNorm, kSource, kDet>;
+  auto kernel = reweight_perchain_kernel<CoefT, kHasNorm, kSource, kDet, kSmall>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -481,11 +517,16 @@ cudaError_t launch(size_t smem, dim3 grid, cudaStream_t stream, const Args& a) {
 }
 
 template <int kSource, bool kDet>
-cudaError_t dispatch(bool bf16, size_t smem, dim3 grid, cudaStream_t s, const Args& a) {
+cudaError_t dispatch(bool bf16, bool small, size_t smem, dim3 grid, cudaStream_t s,
+                     const Args& a) {
   const bool norm = a.norm_ext != nullptr;
   if (bf16) {
     return norm ? launch<__nv_bfloat16, true, kSource, kDet>(smem, grid, s, a)
                 : launch<__nv_bfloat16, false, kSource, kDet>(smem, grid, s, a);
+  }
+  if (small) {
+    return norm ? launch<float, true, kSource, kDet, true>(smem, grid, s, a)
+                : launch<float, false, kSource, kDet, true>(smem, grid, s, a);
   }
   return norm ? launch<float, true, kSource, kDet>(smem, grid, s, a)
               : launch<float, false, kSource, kDet>(smem, grid, s, a);
@@ -520,25 +561,30 @@ cudaError_t run(Args a, bool bf16, bool map, bool det, int event_tile, int chain
   const size_t coef_size = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   a.aligned = (static_cast<size_t>(a.E) * coef_size) % 16 == 0 &&
               reinterpret_cast<uintptr_t>(a.coeffs) % 16 == 0;
-  const size_t smem = m3::core_bytes(coef_size, a.P, a.K4, bf16 ? kRingOf<__nv_bfloat16>
-                                                                  : kRingOf<float>) +
-                      4 * extra_floats(a, map, det);
+  const size_t rest = 4 * extra_floats(a, map, det);
+  const size_t with_big = bf16 ? m3::core_bytes(coef_size, a.P, a.K4) + rest
+                               : m3::core_bytes(coef_size, a.P, a.K4, kRingOf<float, false>,
+                                                kItemsOf<float, false>) + rest;
+  const bool small = !bf16 && 4 * (with_big + sizeof(m3::BinMap)) > kMaxSmem;
+  const size_t smem = small ? m3::core_bytes(coef_size, a.P, a.K4, kRingOf<float, true>,
+                                             kItemsOf<float, true>) + rest
+                            : with_big;
   if (smem + sizeof(m3::BinMap) > kMaxSmem) return cudaErrorInvalidValue;
   const dim3 grid((a.C + kChainTile - 1) / kChainTile, (n_tiles + a.tiles - 1) / a.tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (map ? map_source(a.map) : kGiven) {
     case kGiven:
-      return det ? dispatch<kGiven, true>(bf16, smem, grid, s, a)
-                 : dispatch<kGiven, false>(bf16, smem, grid, s, a);
+      return det ? dispatch<kGiven, true>(bf16, small, smem, grid, s, a)
+                 : dispatch<kGiven, false>(bf16, small, smem, grid, s, a);
     case 1:
-      return det ? dispatch<1, true>(bf16, smem, grid, s, a)
-                 : dispatch<1, false>(bf16, smem, grid, s, a);
+      return det ? dispatch<1, true>(bf16, small, smem, grid, s, a)
+                 : dispatch<1, false>(bf16, small, smem, grid, s, a);
     case 2:
-      return det ? dispatch<2, true>(bf16, smem, grid, s, a)
-                 : dispatch<2, false>(bf16, smem, grid, s, a);
+      return det ? dispatch<2, true>(bf16, small, smem, grid, s, a)
+                 : dispatch<2, false>(bf16, small, smem, grid, s, a);
     default:
-      return det ? dispatch<kAnyMap, true>(bf16, smem, grid, s, a)
-                 : dispatch<kAnyMap, false>(bf16, smem, grid, s, a);
+      return det ? dispatch<kAnyMap, true>(bf16, small, smem, grid, s, a)
+                 : dispatch<kAnyMap, false>(bf16, small, smem, grid, s, a);
   }
 }
 

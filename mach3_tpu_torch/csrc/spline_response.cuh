@@ -16,8 +16,9 @@
 //    segments some chain is in are listed, ascending, so a parameter whose
 //    chains straddle a knot gives two items. An item's 4 coefficient rows for
 //    the tile's events (2 KB in bf16, 4 KB in f32) are copied into shared
-//    memory with 16-byte cp.async, kItemsPerStage items to a stage, in a ring
-//    of kRing stages (kStages = 3 by default): the rows of the next
+//    memory with 16-byte cp.async, kItems items to a stage (kItemsPerStage
+//    = 4 by default), in a ring of kRing stages (kStages = 3 by default): the
+//    rows of the next
 //    kRing − 1 stages are in flight while this one's are used, the addresses
 //    depend on no chain, and each row leaves L2 once per block instead of
 //    once per chain. A thread then reads
@@ -78,19 +79,20 @@ __host__ __device__ inline size_t core_item_cap(int P, int K4) {
   return static_cast<size_t>(P) * (k < kTileChains ? k : kTileChains);
 }
 
-// Shared memory of a TileCore of `stages` ring stages (a multiple of 16 bytes).
+// Shared memory of a TileCore of `stages` ring stages of `items` items (a
+// multiple of 16 bytes).
 __host__ __device__ inline size_t core_bytes(size_t coef_size, int P, int K4,
-                                             int stages = kStages) {
-  const size_t ring = static_cast<size_t>(stages) * kItemsPerStage * 4 * kTileEvents * coef_size;
+                                             int stages = kStages, int items = kItemsPerStage) {
+  const size_t ring = static_cast<size_t>(stages) * items * 4 * kTileEvents * coef_size;
   const size_t b = ring + static_cast<size_t>(P) * kTileChains * 8 +
                    (2 * static_cast<size_t>(P) + 1) * 4 + core_item_cap(P, K4) * 8;
   return (b + 15) & ~static_cast<size_t>(15);
 }
 
-template <typename CoefT, int kRing = kStages>
+template <typename CoefT, int kRing = kStages, int kItems = kItemsPerStage>
 struct TileCore {
   static_assert(kRing >= 2, "a stage is copied while the one before it is used");
-  CoefT* ring;    // [kRing][kItemsPerStage][4][kTileEvents]
+  CoefT* ring;    // [kRing][kItems][4][kTileEvents]
   float* t;       // [nact][kTileChains]
   int* seg;       // [nact][kTileChains], -1 for a chain past the batch
   int* par;       // [nact] the tile's active parameters
@@ -101,7 +103,7 @@ struct TileCore {
   // Takes core_bytes() of the 16-byte aligned `base`; returns what follows.
   __device__ unsigned char* carve(unsigned char* base, int P, int K4) {
     ring = reinterpret_cast<CoefT*>(base);
-    base += static_cast<size_t>(kRing) * kItemsPerStage * 4 * kTileEvents * sizeof(CoefT);
+    base += static_cast<size_t>(kRing) * kItems * 4 * kTileEvents * sizeof(CoefT);
     t = reinterpret_cast<float*>(base);
     base += static_cast<size_t>(P) * kTileChains * 4;
     seg = reinterpret_cast<int*>(base);
@@ -180,11 +182,11 @@ struct TileCore {
   // false) one element a thread at a time.
   __device__ __forceinline__ void copy_stage(const CoefT* __restrict__ coeffs, size_t es, int E,
                                              int e0, int stage, int n_items, bool aligned) {
-    CoefT* slot = ring + static_cast<size_t>(stage % kRing) * kItemsPerStage * 4 * kTileEvents;
-    const int first = stage * kItemsPerStage;
+    CoefT* slot = ring + static_cast<size_t>(stage % kRing) * kItems * 4 * kTileEvents;
+    const int first = stage * kItems;
     if (!aligned) {
 #pragma unroll 4
-      for (int q = threadIdx.x; q < kItemsPerStage * 4 * kTileEvents; q += kTileEvents) {
+      for (int q = threadIdx.x; q < kItems * 4 * kTileEvents; q += kTileEvents) {
         const int i = q / (4 * kTileEvents);
         const int col = q % kTileEvents;
         if (first + i < n_items && e0 + col < E) {
@@ -197,7 +199,7 @@ struct TileCore {
     constexpr int kElems = 16 / sizeof(CoefT);
     constexpr int kPerRow = kTileEvents / kElems;
     constexpr int kPerItem = 4 * kPerRow;
-    constexpr int kChunks = kItemsPerStage * kPerItem;
+    constexpr int kChunks = kItems * kPerItem;
 #pragma unroll
     for (int q = threadIdx.x; q < kChunks; q += kTileEvents) {
       const int i = q / kPerItem;
@@ -217,7 +219,7 @@ struct TileCore {
   // between the first walk's end and this call.
   __device__ __forceinline__ void start(const CoefT* __restrict__ coeffs, size_t es, int E,
                                         int e0, int n_items, bool aligned = true) {
-    const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
+    const int n_stages = (n_items + kItems - 1) / kItems;
     for (int g = 0; g < kRing - 1; ++g) {
       if (g < n_stages) copy_stage(coeffs, es, E, e0, g, n_items, aligned);
       __pipeline_commit();
@@ -233,7 +235,7 @@ struct TileCore {
   __device__ __forceinline__ void for_each_item(const CoefT* __restrict__ coeffs, size_t es,
                                                 int E, int e0, int n_items, bool aligned,
                                                 Body&& body) {
-    const int n_stages = (n_items + kItemsPerStage - 1) / kItemsPerStage;
+    const int n_stages = (n_items + kItems - 1) / kItems;
     for (int g = 0; g < n_stages; ++g) {
       __pipeline_wait_prior(kRing - 2);
       __syncthreads();  // stage g has landed; stage g − 1's slot is free
@@ -242,9 +244,9 @@ struct TileCore {
       }
       __pipeline_commit();
       const CoefT* slot = ring +
-          static_cast<size_t>(g % kRing) * kItemsPerStage * 4 * kTileEvents + threadIdx.x;
-      const int first = g * kItemsPerStage;
-      const int n = min(kItemsPerStage, n_items - first);
+          static_cast<size_t>(g % kRing) * kItems * 4 * kTileEvents + threadIdx.x;
+      const int first = g * kItems;
+      const int n = min(kItems, n_items - first);
       for (int i = 0; i < n; ++i) {
         const CoefT* co = slot + i * 4 * kTileEvents;
         body(first + i, item_jm[first + i], load_coef(co), load_coef(co + kTileEvents),
@@ -286,7 +288,7 @@ struct TileCore {
   // banks) and returns them. Every thread of the block calls it; what the
   // caller wrote to shared memory before is visible after.
   __device__ __forceinline__ float* park(const float (&w)[kTileChains]) {
-    static_assert(sizeof(CoefT) * kRing * kItemsPerStage * 4 >= sizeof(float) * kWeightPitch,
+    static_assert(sizeof(CoefT) * kRing * kItems * 4 >= sizeof(float) * kWeightPitch,
                   "the ring holds the parked weights");
     __syncthreads();  // every thread has left the ring
     float* sh_w = reinterpret_cast<float*>(ring);

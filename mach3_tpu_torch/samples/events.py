@@ -32,9 +32,8 @@ from ..splines.reweight import (
     MAX_SMEM,
     SHIFT_KINDS,
     bin_map_floats,
-    perchain_ring,
+    perchain_smem,
     perchain_smem_bytes,
-    tile_core_smem,
 )
 from ..splines.tf1 import TF1Table
 from .binning import NonUniformBinning, SampleBinning
@@ -510,9 +509,8 @@ def _map_fits(name: str, arrays: dict, bin_map: BinMap, n_bins: int) -> bool:
     n_cells = 0 if bin_map.cell_to_bin is None else bin_map.cell_to_bin.shape[0]
     floats = bin_map_floats(len(bin_map.axes), bin_map.edges.shape[1], len(bin_map.shifts),
                             n_cells)
-    need = (tile_core_smem(table.coeffs, 0 if norm_s is None else norm_s.shape[0],
-                           perchain_ring(table.coeffs))
-            + perchain_smem_bytes(n_bins, floats, given=False, det=True))
+    need = perchain_smem(table.coeffs, 0 if norm_s is None else norm_s.shape[0],
+                         perchain_smem_bytes(n_bins, floats, given=False, det=True))
     if need > MAX_SMEM:
         _log.info("%s: per-chain bins given to the kernel as input (a block would need %d bytes "
                   "of shared memory for the bin map)", name, need)

@@ -77,20 +77,21 @@ MAX_NORM = 256
 MAX_SHARED_BINS = 4096
 #: The tile of the shared and shifted kernels (``csrc/spline_response.cuh``):
 #: ``EVENT_TILE`` events (one per thread) by ``CHAIN_TILE`` chains, whose
-#: coefficient rows pass through a ring of ``RING_STAGES`` stages (the
-#: per-chain kernel's: ``PERCHAIN_F32_RING`` for an f32 table) of
-#: ``ITEMS_PER_STAGE`` (parameter, segment) items in shared memory; a table
+#: coefficient rows pass through a ring of ``RING_STAGES`` stages of
+#: ``ITEMS_PER_STAGE`` (parameter, segment) items in shared memory (the
+#: per-chain kernel's for an f32 table: ``PERCHAIN_F32_RINGS``, see
+#: :func:`perchain_smem`); a table
 #: has at most ``MAX_KNOTS`` knots, and its rows start on 16-byte boundaries.
 CHAIN_TILE = 16
 RING_STAGES = 3
-PERCHAIN_F32_RING = 2
+PERCHAIN_F32_RINGS = ((2, 4), (2, 2))  # (stages, items per stage): the large ring, the small
 ITEMS_PER_STAGE = 4
 MAX_KNOTS = 64
 ROW_ALIGN = 16
 #: A block's shared memory on Hopper, and what a kernel of the per-chain
 #: binning keeps of it for its bin map's description (``m3::BinMap``).
 MAX_SMEM = 232448
-BIN_MAP_BYTES = 128
+BIN_MAP_BYTES = 116
 
 #: Launches of each CUDA kernel since its count was last set to 0, the
 #: backward of ``splines/grad.py`` included. Only a CUDA launch adds to a
@@ -273,30 +274,39 @@ def _check_shapes(named: dict, shapes: dict, coeffs, base_w, norm_ext, norm_s) -
     return c, p, e
 
 
-def tile_core_smem(coeffs: torch.Tensor, na1: int, stages: int = RING_STAGES) -> int:
+def tile_core_smem(coeffs: torch.Tensor, na1: int,
+                   ring: tuple[int, int] = (RING_STAGES, ITEMS_PER_STAGE)) -> int:
     """Bytes of shared memory the tile core of a block takes for this table
     and ``na1`` norm slots (``m3::core_bytes`` of ``csrc/spline_response.cuh``
     plus the norm arrays); the kernel's histogram comes on top."""
     p, k4 = coeffs.shape[0], coeffs.shape[1]
-    ring = stages * ITEMS_PER_STAGE * 4 * EVENT_TILE * coeffs.element_size()
+    ring = ring[0] * ring[1] * 4 * EVENT_TILE * coeffs.element_size()
     items = p * min(k4 // 4, CHAIN_TILE)
     core = ring + p * CHAIN_TILE * 8 + (2 * p + 1) * 4 + items * 8
     return -(-core // 16) * 16 + 2 * CHAIN_TILE * na1 * 4
 
 
-def perchain_ring(coeffs: torch.Tensor) -> int:
-    """Ring stages of the per-chain kernel's tile core for this table."""
-    return PERCHAIN_F32_RING if coeffs.dtype == FTYPE else RING_STAGES
+def perchain_smem(coeffs: torch.Tensor, na1: int, hist_bytes: int) -> int:
+    """Bytes of shared memory a block of the per-chain kernel
+    (``csrc/reweight_shifted.cu``) takes: its tile core and ``hist_bytes``
+    more. An f32 table's ring is the large one unless that leaves room for
+    fewer than four resident blocks, as the kernel picks it."""
+    if coeffs.dtype != FTYPE:
+        return tile_core_smem(coeffs, na1) + hist_bytes
+    large, small = (tile_core_smem(coeffs, na1, ring) + hist_bytes for ring in PERCHAIN_F32_RINGS)
+    return large if 4 * large <= MAX_SMEM else small
 
 
 def _check_tile_core(coeffs: torch.Tensor, norm_s, hist_bytes: int,
-                     stages: int = RING_STAGES) -> None:
+                     perchain: bool = False) -> None:
     """What the tile core asks of a table: at most ``MAX_KNOTS`` knots and a
     block's shared memory (``hist_bytes`` of it the kernel's histogram)
     within the card's."""
     if coeffs.shape[1] // 4 > MAX_KNOTS:
         raise ValueError(f"{coeffs.shape[1] // 4} knots > {MAX_KNOTS}")
-    smem = tile_core_smem(coeffs, 0 if norm_s is None else norm_s.shape[0], stages) + hist_bytes
+    na1 = 0 if norm_s is None else norm_s.shape[0]
+    smem = (perchain_smem(coeffs, na1, hist_bytes) if perchain
+            else tile_core_smem(coeffs, na1) + hist_bytes)
     if smem > MAX_SMEM:
         raise ValueError(f"a block needs {smem} bytes of shared memory > {MAX_SMEM}")
 
@@ -346,7 +356,7 @@ def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
         raise ValueError(f"shift kind {shift_kind!r} unknown to the kernel ({sorted(SHIFT_KINDS)})")
     _check_tile_core(coeffs, norm_s, BIN_MAP_BYTES
                      + 4 * (CHAIN_TILE * (2 * n_bins + 2) + edges.shape[0] + 2 * EVENT_TILE),
-                     perchain_ring(coeffs))
+                     perchain=True)
     return has_plan
 
 
@@ -632,7 +642,7 @@ def fused_reweight_histogram(
         raise ValueError(f"hist={hist!r}: the per-chain kernels are {HIST_FORMS}")
     by_map, det = isinstance(bins, PerchainBins), hist == "blockdiag"
     _check_tile_core(coeffs, norm_s, perchain_smem_bytes(n_bins, map_floats, not by_map, det),
-                     perchain_ring(coeffs))
+                     perchain=True)
     dev = seg.device
     if dev.type == "cpu":
         return fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, n_bins=n_bins,
