@@ -156,7 +156,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // bins) would leave room for fewer than four resident blocks with those, two
 // of two (16 KB: just the parked weights, parked swizzled; see parked()).
 // The small ring gives numu_2d of the experiment a fourth block and costs
-// the index arithmetic of the swizzle elsewhere (PERF.md §6, PR 7).
+// the index arithmetic of the swizzle elsewhere (PERF.md §6).
 template <typename CoefT, bool kSmall>
 constexpr int kRingOf = sizeof(CoefT) == 4 ? 2 : m3::kStages;
 template <typename CoefT, bool kSmall>

@@ -140,7 +140,7 @@ def fused_reweight_histogram_shifted_ref(
 def shifted_bins_ref(shift_vals, x_nom, static_base, edges, *, n_bins, shift_kind, stride_j,
                      n_axis_j) -> torch.Tensor:
     """[C, E] int32 bins of the shifted route, as the kernels form them in
-    f32 (``csrc/spline_response.cuh`` ``shifted_bin``): ``static_base +
+    f32 (a bin map of one axis, ``csrc/spline_response.cuh``): ``static_base +
     stride_j·idx`` with idx the shifted value's axis bin, ``n_bins`` (dropped)
     where idx ∉ [0, n_axis_j) or ``static_base`` < 0."""
     x = SHIFT_KINDS[shift_kind][1](shift_vals[:, None], x_nom[None, :])
