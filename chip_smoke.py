@@ -37,9 +37,22 @@ each kernel against its plain PyTorch version. Run from the repository root:
   through K5, the shared kernel and the backward kernel (the bin map
   in-kernel on the generic route).
 
+* The samplers (``fitters/mcmc.py``, ``fitters/delayed.py``): every MR2T2
+  run's chunks are replayed CUDA graphs (the default on the card), each
+  beside the same sampler as the eager loop (``[toy:graph]`` /
+  ``[toy:eager]``, ``[exp:*]``, ``[large:*]``: chain-steps/s, and from a
+  profile of 10 steps host launches, device ops, device busy and idle
+  share). On the toy the production sampler, pooled adaptive MR2T2
+  (``[toy:adaptive:*]``: launch, NLL and last-chunk acceptance gates),
+  graph against eager from one saved state (``[toy:graph-vs-eager]``), per
+  chain (``[toy:per-chain:*]``) and with delayed rejection
+  (``[toy:delayed:*]``, each kernel twice a step); ``mach3-mcmc-torch`` on
+  the YAML experiment at 256 chains with a resume (``[exp:cli]``).
+
 Phases: device, kernel build (every source, in parallel), then per path:
-build, kernel vs plain, Asimov check, NLL vs plain, MR2T2, a profile of 10
-steps, kernel timing; then the gradient phases. Any failed phase raises and
+build, kernel vs plain, Asimov check, NLL vs plain, MR2T2 as graphs and
+eager with their profiles, the samplers, kernel timing; then the gradient
+phases. Any failed phase raises and
 the exit code is not 0. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its launches on
@@ -138,6 +151,43 @@ EXP_ROUTES = ["generic", "generic", "shared"]
 EXP_LAUNCHES = {"reweight_perchain": 2, "reweight_shared": 1}
 EXP_DET_STEPS = 50  # the same fit with the deterministic histogram (K5b)
 EXP_GRAD_LAUNCHES = {"reweight_perchain": 2, "reweight_shared": 1, "reweight_backward": 3}
+# The production sampler: pooled Haario + Robbins-Monro MR2T2 with the JAX
+# bench's adaption settings but throws from step 100 (bench.py:433-438),
+# 250 warm-up steps then 1,000 timed, every chunk a replayed CUDA graph.
+ADAPTIVE = dict(adaptive=True, adaption_mode="pooled", adaption_start_update=50,
+                adaption_start_throw=100, adaption_update_step=100)
+ADAPTIVE_WARM = 250
+ADAPTIVE_STEPS = 1000
+# Acceptance of the adaptive run's last chunk (steps 1,001-1,250). The JAX
+# package's MR2T2 with this configuration on the CPU (XLA route, the toy at
+# 100k events, 32 chains, the same jittered start) accepted 0.1944, 0.2146,
+# 0.2214 and 0.2219 in its four chunks after the warm-up; Robbins-Monro
+# steers towards 0.234. The band is the last of those ± 0.1, far above the
+# fixed proposal's 1e-4 floor.
+ACC_BAND = (0.12, 0.32)
+# Eager runs beside each graph run: the same sampler, fewer steps.
+EAGER_STEPS = 250
+LARGE_EAGER_STEPS = 20
+VARIANT_STEPS = 250  # [toy:per-chain], [toy:delayed]
+VARIANT_EAGER = 50
+# [toy:graph-vs-eager]: 100 steps from one saved state (step 250; the
+# refresh at step 300 falls inside) as a graph and as the eager loop, with
+# Robbins-Monro held (its scale reads the mean acceptance probability, which
+# carries K1's atomic order into every later proposal's last bits). A chain
+# may decide differently where its acceptance probabilities in the two runs
+# straddle its uniform: at most 1% of the chains, each first where the two
+# log α differ by no more than GVE_NLL (K1's atomic order moves an NLL of
+# the toy by ~1e-5).
+GVE_STEPS = 100
+GVE_MAX_FLIPPED = 0.01
+GVE_NLL = 1e-3
+# [exp:cli]: mach3-mcmc-torch on the YAML experiment, 2 chunks then a resume
+# for a third.
+EXP_CLI_CHAINS = 256
+EXP_CLI_CHUNK = 250
+# Host-side calls that put work on the device, counted as launches.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 # H100 SXM peaks (NVIDIA's data sheet): device memory and f32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -469,49 +519,83 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{tag}: kernel launches {got} != {full}")
 
 
-def run_mr2t2(tag: str, model, thetas, warm: int, steps: int, chunk: int,
-              launches_per_step: dict, smi: str, acc_min: float | None):
-    """Fixed-proposal MR2T2: a warm chunk, then ``steps`` timed steps whose
-    kernel launches must be ``launches_per_step`` x steps and whose
-    acceptance must lie in (acc_min, 0.99) unless acc_min is None. Returns
-    (fitter, ms/step, launch counts)."""
+def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per_step: dict,
+                smi: str, acc_band: tuple | None = None) -> dict:
+    """``warm`` untimed steps (they build the kernels and, for a graph,
+    capture the step), then ``steps`` timed ones whose kernel launches must
+    be ``launches_per_step`` x steps, whose NLLs must be finite and whose
+    last chunk's acceptance must lie inside ``acc_band`` when given.
+    Returns dict(step_ms, launches, acc, acc_last, peak_gib)."""
     import torch
 
-    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
     from mach3_tpu_torch.splines import reweight
 
-    n_chains = thetas.shape[0]
-    fitter = MR2T2(model, MCMCConfig(chunk_size=chunk), thetas.cpu().numpy(), seed=1)
-    fitter.run(n_steps=warm, collect=False)
+    n_chains, chunk = fitter.state.theta.shape[0], fitter.config.chunk_size
+    if warm:
+        fitter.run(n_steps=warm, collect=False)
     torch.cuda.synchronize()
     acc0 = fitter.state.n_accepted.clone()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    head = max(steps - chunk, 0)
     t0 = time.perf_counter()
-    fitter.run(n_steps=steps, collect=False)
+    if head:
+        fitter.run(n_steps=head, collect=False)
+    acc_mid = fitter.state.n_accepted.clone()
+    fitter.run(n_steps=steps - head, collect=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(reweight.LAUNCHES)
-    check_launches(f"{tag} ({steps} steps)", launches,
+    check_launches(f"{tag} {mode} ({steps} steps)", launches,
                    {k: v * steps for k, v in launches_per_step.items()})
     if not bool(torch.isfinite(fitter.state.nll).all()):
-        raise AssertionError(f"{tag}: non-finite chain NLL after MR2T2")
+        raise AssertionError(f"{tag} {mode}: non-finite chain NLL")
     acc = float((fitter.state.n_accepted - acc0).sum()) / (n_chains * steps)
-    if acc_min is not None and not acc_min < acc < 0.99:
-        raise AssertionError(f"{tag}: acceptance {acc:.5f} outside ({acc_min}, 0.99)")
+    acc_last = float((fitter.state.n_accepted - acc_mid).sum()) / (n_chains * (steps - head))
+    if acc_band is not None and not acc_band[0] < acc_last < acc_band[1]:
+        raise AssertionError(f"{tag} {mode}: last-chunk acceptance {acc_last:.5f} outside "
+                             f"{acc_band}")
     step_ms = 1e3 * dt / steps
-    phase(f"[{tag}:mr2t2] {steps} steps x {n_chains} chains in {dt:.3f} s: "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phase(f"[{tag}:{mode}] {steps} steps x {n_chains} chains in {dt:.3f} s: "
           f"{n_chains * steps / dt:.1f} chain-steps/s ({step_ms:.3f} ms/step), acceptance "
-          f"{acc:.5f}, kernel launches {launches}, peak mem "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
-    return fitter, step_ms, launches
+          f"{acc:.5f} (last chunk {acc_last:.5f}), kernel launches {launches}, peak mem "
+          f"{peak:.2f} GiB | {smi}")
+    return dict(step_ms=step_ms, launches=launches, acc=acc, acc_last=acc_last, peak_gib=peak)
 
 
-def profile_steps(tag: str, fitter, step_ms: float, names, smi: str,
-                  op_table: bool = False) -> None:
-    """Device ops, device busy time and each kernel's share over 10 steps;
-    with ``op_table`` first the ten largest device ops by total time (name,
-    count per step, ms per step)."""
+def run_mr2t2(tag: str, model, thetas, warm: int, steps: int, chunk: int,
+              launches_per_step: dict, smi: str, acc_min: float | None, eager_steps: int,
+              names: list, op_table: bool = False):
+    """Fixed-proposal MR2T2 as replayed CUDA graphs (the default on the
+    card): a warm chunk, then ``steps`` timed steps (``run_sampler``; the
+    acceptance inside (acc_min, 0.99) unless acc_min is None) and their
+    profile; then the same sampler as the eager loop for ``eager_steps``
+    and its profile (with ``op_table`` the ten largest device ops). Returns
+    (the graph fitter, its ms/step, its launch counts)."""
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
+
+    init = thetas.cpu().numpy()
+    band = None if acc_min is None else (acc_min, 0.99)
+    fitter = MR2T2(model, MCMCConfig(chunk_size=chunk), init, seed=1)
+    g = run_sampler(tag, "graph", fitter, warm, steps, launches_per_step, smi, band)
+    profile_steps(tag, "graph", fitter, g["step_ms"], names, smi)
+    eager = MR2T2(model, MCMCConfig(chunk_size=chunk), init, seed=1, graph=False)
+    e = run_sampler(tag, "eager", eager, min(warm, 10), eager_steps, launches_per_step, smi)
+    profile_steps(tag, "eager", eager, e["step_ms"], names, smi, op_table=op_table)
+    phase(f"[{tag}:graph-speedup] {e['step_ms'] / g['step_ms']:.2f}x: eager {e['step_ms']:.3f} "
+          f"-> graph {g['step_ms']:.3f} ms/step | {smi}")
+    del eager
+    return fitter, g["step_ms"], g["launches"]
+
+
+def profile_steps(tag: str, mode: str, fitter, step_ms: float, names, smi: str,
+                  op_table: bool = False) -> dict:
+    """Host launches (kernel, graph, copy and fill calls), device ops,
+    device busy time and each kernel's share over 10 steps; with
+    ``op_table`` first the ten largest device ops by total time (name,
+    count per step, ms per step). Returns dict(launches, ops, busy) per
+    step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -519,8 +603,11 @@ def profile_steps(tag: str, fitter, step_ms: float, names, smi: str,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fitter.run(n_steps=10, collect=False)
         torch.cuda.synchronize()
-    dev_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    dev_ops = [e for e in events if e.device_type == DeviceType.CUDA]
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) / 10
     busy = sum(e.self_device_time_total for e in dev_ops) / 10e3
+    ops = sum(e.count for e in dev_ops) / 10
     if op_table:
         for rank, e in enumerate(sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:10]):
             phase(f"[{tag}:profile-op] {rank + 1:2d} {e.count / 10:7.1f}/step "
@@ -530,11 +617,192 @@ def profile_steps(tag: str, fitter, step_ms: float, names, smi: str,
         for n in names
     )
     top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:5]
-    phase(f"[{tag}:profile] {sum(e.count for e in dev_ops) / 10:.0f} device ops/step, device "
-          f"busy {busy:.3f} ms/step ({shares} ms/step) against {step_ms:.3f} ms/step "
+    phase(f"[{tag}:profile-{mode}] {launches:.1f} host launches/step, {ops:.0f} device ops/step, "
+          f"device busy {busy:.3f} ms/step ({shares} ms/step) against {step_ms:.3f} ms/step "
           f"unprofiled: device idle share {1.0 - busy / step_ms:.3f}; top: "
           + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 10e3:.3f}" for e in top)
           + f" | {smi}")
+    return dict(launches=launches, ops=ops, busy=busy)
+
+
+def snapshot(state):
+    """A copy of a sampler's state that no run touches: every tensor cloned,
+    the generator's state copied into a new generator."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device=state.theta.device)
+    gen.set_state(state.generator.get_state())
+
+    def clone(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).clone() for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    ad = None if state.adaptive is None else clone(state.adaptive)
+    return dataclasses.replace(clone(state), generator=gen, adaptive=ad)
+
+
+def graph_vs_eager(model, cfg, saved, smi: str) -> None:
+    """``GVE_STEPS`` steps from the state ``saved`` as a graph and as the
+    eager loop, Robbins-Monro held: the generators end in the same state
+    (a replay draws what the eager step draws), at most GVE_MAX_FLIPPED of
+    the chains decide differently, each first where its two log α differ
+    by at most GVE_NLL, and every other chain's θ is bit-identical."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, refresh_due
+
+    held = dataclasses.replace(cfg, robbins_monro=False)
+    step0 = int(saved.step)
+    refreshes = [s for s in range(step0 + 1, step0 + GVE_STEPS + 1) if refresh_due(held, s)]
+    if not refreshes:
+        raise AssertionError("graph-vs-eager: no refresh step inside the window")
+    runs = {}
+    for graph in (True, False):
+        fit = MR2T2(model, held, saved.theta.cpu().numpy(), seed=0, graph=graph)
+        fit.state = snapshot(saved)
+        t0 = time.perf_counter()
+        out = fit.run(n_steps=GVE_STEPS)
+        torch.cuda.synchronize()
+        runs[graph] = (fit, out, time.perf_counter() - t0)
+    (fg, g, tg), (fe, e, te) = runs[True], runs[False]
+    same_draws = torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state())
+    if not same_draws:
+        raise AssertionError("graph-vs-eager: the generators' states differ after the runs")
+    flips = g["accepted"] != e["accepted"]
+    diverged = flips.any(0)
+    n_chains = diverged.shape[0]
+    if diverged.sum() > GVE_MAX_FLIPPED * n_chains:
+        raise AssertionError(f"graph-vs-eager: {int(diverged.sum())} of {n_chains} chains "
+                             f"decided differently")
+    gaps = []
+    for c in np.flatnonzero(diverged):
+        s = np.flatnonzero(flips[:, c])[0]
+        gaps.append(abs(np.log(g["acc_prob"][s, c]) - np.log(e["acc_prob"][s, c])))
+    if gaps and max(gaps) > GVE_NLL:
+        raise AssertionError(f"graph-vs-eager: a decision differs where the log α differ by "
+                             f"{max(gaps):.3e} > {GVE_NLL}")
+    if not np.array_equal(g["theta"][:, ~diverged], e["theta"][:, ~diverged]):
+        raise AssertionError("graph-vs-eager: θ of chains that decided alike differ")
+    d_nll = np.abs(g["nll"][:, ~diverged] - e["nll"][:, ~diverged]).max()
+    phase(f"[toy:graph-vs-eager] {GVE_STEPS} steps x {n_chains} chains from step {step0} "
+          f"(refresh at {refreshes}): generators equal after both runs; {int(diverged.sum())} "
+          f"chains decided differently (log α gaps {[f'{x:.2e}' for x in gaps]}); θ of the "
+          f"other {int((~diverged).sum())} bit-identical over all {GVE_STEPS} steps, their NLLs "
+          f"within {d_nll:.3e}; acceptance graph {g['accepted'].mean():.4f}, eager "
+          f"{e['accepted'].mean():.4f}; wall, capture included: graph {tg:.3f} s, eager "
+          f"{te:.3f} s | {smi}")
+
+
+def toy_samplers(model, thetas, smi: str) -> None:
+    """The production sampler on the toy: ``[toy:adaptive]`` (pooled
+    adaptive MR2T2 as a graph, launch, NLL and acceptance-band gates; its
+    eager counterpart's figures come from ``[toy:adaptive:eager]``), then
+    ``[toy:graph-vs-eager]`` from its state after the warm-up, then
+    ``[toy:per-chain]`` and ``[toy:delayed]`` (one retry: each kernel twice a
+    step) as graphs beside short eager runs."""
+    from mach3_tpu_torch.fitters.delayed import DelayedConfig, DelayedMR2T2
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
+
+    init = thetas.cpu().numpy()
+    names = ["reweight_perchain_kernel"]
+    cfg = MCMCConfig(chunk_size=CHUNK, **ADAPTIVE)
+    fit = MR2T2(model, cfg, init, seed=2)
+    fit.run(n_steps=ADAPTIVE_WARM, collect=False)
+    saved = snapshot(fit.state)
+    r = run_sampler("toy:adaptive", "graph", fit, 0, ADAPTIVE_STEPS, {"reweight_shifted": 2},
+                    smi, ACC_BAND)
+    profile_steps("toy:adaptive", "graph", fit, r["step_ms"], names, smi)
+    del fit
+    eager = MR2T2(model, cfg, init, seed=2, graph=False)
+    eager.state = snapshot(saved)
+    e = run_sampler("toy:adaptive", "eager", eager, 0, EAGER_STEPS, {"reweight_shifted": 2}, smi)
+    profile_steps("toy:adaptive", "eager", eager, e["step_ms"], names, smi)
+    del eager
+    graph_vs_eager(model, cfg, saved, smi)
+    variants = (
+        ("toy:per-chain", MR2T2, MCMCConfig(chunk_size=CHUNK, **dict(
+            ADAPTIVE, adaption_mode="per_chain")), {"reweight_shifted": 2}),
+        ("toy:delayed", DelayedMR2T2, DelayedConfig(chunk_size=CHUNK, max_rejections=1,
+                                                    **ADAPTIVE), {"reweight_shifted": 4}),
+    )
+    for tag, make, vcfg, per_step in variants:
+        for graph, steps in ((True, VARIANT_STEPS), (False, VARIANT_EAGER)):
+            fit = make(model, vcfg, init, seed=3, graph=graph)
+            mode = "graph" if graph else "eager"
+            res = run_sampler(tag, mode, fit, 10, steps, per_step, smi)
+            profile_steps(tag, mode, fit, res["step_ms"], names, smi)
+            del fit
+
+
+def exp_cli(dev, smi: str) -> None:
+    """``mach3-mcmc-torch`` (``cli/mcmc.main``) on the YAML experiment at
+    EXP_CLI_CHAINS chains x EXP_EVENTS events with pooled adaptation: two
+    chunks into a temporary directory, then a resume from its checkpoint
+    for a third. The chain file then holds 3 chunks, the first two as the
+    first run wrote them; the resumed run's first step starts from the
+    checkpoint's state (a chain that rejected it still holds the
+    checkpoint's θ and NLL); the final checkpoint is at the last step."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from mach3_tpu_torch.cli import mcmc as cli
+    from mach3_tpu_torch.diagnostics.chain_io import load_chain
+    from mach3_tpu_torch.tutorial.experiment_files import write_experiment
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp_yaml = str(write_experiment(tmp, n_events=EXP_EVENTS, seed=EXP_SEED))
+        out = os.path.join(tmp, "chain.npz")
+        overrides = [f"General:MCMC:NChains:{EXP_CLI_CHAINS}",
+                     f"General:MCMC:AutoSave:{EXP_CLI_CHUNK}",
+                     f"AdaptionOptions:Settings:StartUpdate:{ADAPTIVE['adaption_start_update']}",
+                     f"AdaptionOptions:Settings:StartThrow:{ADAPTIVE['adaption_start_throw']}",
+                     f"AdaptionOptions:Settings:UpdateStep:{ADAPTIVE['adaption_update_step']}"]
+        opts = ["--device", dev.type, "--seed", "3", "--stream", "off", "-o", out]
+        first, total = 2 * EXP_CLI_CHUNK, 3 * EXP_CLI_CHUNK
+        t0 = time.perf_counter()
+        if cli.main([exp_yaml, *overrides, f"General:MCMC:NSteps:{first}", *opts]) != 0:
+            raise AssertionError("exp:cli: the first run failed")
+        t1 = time.perf_counter()
+        d1, meta, _ = load_chain(out)
+        _, _, ck = load_chain(out + ".ckpt")
+        if d1["theta"].shape != (first, EXP_CLI_CHAINS, len(meta["names"])):
+            raise AssertionError(f"exp:cli: chain shape {d1['theta'].shape}")
+        if int(ck["st.step"]) != first or not np.array_equal(ck["st.theta"], d1["theta"][-1]):
+            raise AssertionError("exp:cli: the checkpoint is not the chain's last state")
+        if cli.main([exp_yaml, *overrides, f"General:MCMC:NSteps:{total}", *opts,
+                     "--checkpoint", out + ".ckpt"]) != 0:
+            raise AssertionError("exp:cli: the resumed run failed")
+        t2 = time.perf_counter()
+        d2, _, _ = load_chain(out)
+        _, _, ck2 = load_chain(out + ".ckpt")
+    if d2["theta"].shape[0] != total or int(ck2["st.step"]) != total:
+        raise AssertionError(f"exp:cli: {d2['theta'].shape[0]} steps, checkpoint at "
+                             f"{int(ck2['st.step'])}, not {total}")
+    for k in ("theta", "nll", "accepted"):
+        if not np.array_equal(d2[k][:first], d1[k]):
+            raise AssertionError(f"exp:cli: the resumed chain file changed the first run's {k}")
+    kept = ~d2["accepted"][first]
+    if not (np.array_equal(d2["theta"][first][kept], ck["st.theta"][kept])
+            and np.array_equal(d2["nll"][first][kept], ck["st.nll"][kept])):
+        raise AssertionError("exp:cli: step 501 does not continue from the checkpoint")
+    if not np.isfinite(d2["nll"]).all():
+        raise AssertionError("exp:cli: non-finite NLLs in the chain")
+    acc = d2["accepted"][-EXP_CLI_CHUNK:].mean()
+    phase(f"[exp:cli] mach3-mcmc-torch, {EXP_CLI_CHAINS} chains x {EXP_EVENTS} events, pooled "
+          f"adaptive: {first} steps in {t1 - t0:.1f} s (files, build and capture included), "
+          f"resumed for {total - first} more in {t2 - t1:.1f} s; chain file {total} steps, "
+          f"checkpoint at step {int(ck2['st.step'])}; step {first + 1} continues from the "
+          f"checkpoint ({int(kept.sum())} chains kept its θ and NLL bit for bit); last-chunk "
+          f"acceptance {acc:.4f}; mean step time of the resumed chunk "
+          f"{1e3 * d2['step_time'][-1]:.3f} ms | {smi}")
 
 
 def time_pair(kern, ref, reps: int = 30, ref_reps: int = 5) -> tuple[float, float]:
@@ -954,8 +1222,9 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
 
     fitter, step_ms, launches = run_mr2t2(
         "toy", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, {"reweight_shifted": 2}, smi,
-        ACC_MIN)
-    profile_steps("toy", fitter, step_ms, ["reweight_perchain_kernel"], smi)
+        ACC_MIN, EAGER_STEPS, ["reweight_perchain_kernel"])
+    del fitter
+    toy_samplers(model, thetas, smi)
     with torch.no_grad():
         times = [time_kernel("toy", s, *checked[s.name][:2], smi) for s in model.samples]
 
@@ -1015,8 +1284,8 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
 
     fitter, step_ms, launches = run_mr2t2(
         "large", model, thetas, LARGE_WARM, LARGE_STEPS, LARGE_WARM,
-        {"reweight_shared": 2, "reweight_shifted": 1}, smi, None)
-    profile_steps("large", fitter, step_ms, ["reweight_shared", "reweight_perchain_kernel"], smi)
+        {"reweight_shared": 2, "reweight_shifted": 1}, smi, None, LARGE_EAGER_STEPS,
+        ["reweight_shared", "reweight_perchain_kernel"])
     times = {}
     with torch.no_grad():
         for s in model.samples:
@@ -1148,6 +1417,7 @@ def exp_path(dev, smi: str) -> dict:
     import torch
 
     from mach3_tpu_torch.core.config import Config
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
     from mach3_tpu_torch.samples.experiment import build_experiment
     from mach3_tpu_torch.splines import reweight
     from mach3_tpu_torch.tutorial.experiment_files import write_experiment
@@ -1183,12 +1453,16 @@ def exp_path(dev, smi: str) -> dict:
         nll_vs_plain("exp", model, thetas, tables, smi)
 
     fitter, step_ms, launches = run_mr2t2(
-        "exp", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, EXP_LAUNCHES, smi, ACC_MIN)
-    profile_steps("exp", fitter, step_ms, ["reweight_perchain_kernel", "reweight_shared"], smi,
-                  op_table=True)
+        "exp", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, EXP_LAUNCHES, smi, ACC_MIN,
+        EAGER_STEPS, ["reweight_perchain_kernel", "reweight_shared"], op_table=True)
     generic = [s for s in model.samples if s.kernel_route.variant == "generic"]
     for s in generic:
         s.perchain_hist = "blockdiag"
+    # The graph captured the atomics' kernel: the deterministic form is
+    # another graph, of a fitter that goes on from the same chains.
+    fitter = MR2T2(model, MCMCConfig(chunk_size=CHUNK), fitter.state.theta.cpu().numpy(), seed=4)
+    fitter.run(n_steps=1, collect=False)
+    torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     fitter.run(n_steps=EXP_DET_STEPS, collect=False)
@@ -1275,6 +1549,7 @@ def main() -> int:
     toy_grads = results.pop("grad")
     results.update(exp_path(dev, smi))
     exp_grads = results.pop("grad")
+    exp_cli(dev, smi)
     large_results, model = large_path(dev, smi)
     results.update(large_results)
     grads, chees = large_grad_path(model, dev, smi)

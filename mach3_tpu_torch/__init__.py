@@ -11,7 +11,10 @@ module names so each module's counterpart is easy to find:
 * ``osc``       — 3-flavour oscillation probabilities: beam (constant
   density) and atmospheric (layered PREM earth)
 * ``samples``   — event store, binning, routing, reweighting, test statistics
-* ``fitters``   — the fit model and the fixed-proposal MR2T2 sampler
+* ``fitters``   — the fit model; MR2T2 (fixed and adaptive, annealed; CUDA-graph
+  chunks), delayed rejection, HMC/ChEES, L-BFGS-B; the config factory
+* ``diagnostics`` — chain files, shards, checkpoints; R-hat
+* ``cli``       — ``mach3-mcmc-torch``
 * ``tutorial``  — the two-sample toy and the reference-scale fixture
 * ``kernels``   — builds the hand-written CUDA kernels in ``csrc/``
 * ``bridge``    — turns a JAX ``FitModel`` into this package's ``FitModel``

@@ -16,3 +16,12 @@ def target_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' to build on the CPU"
         )
     return dev
+
+
+def as_device_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or a Python number) as a ``dtype`` tensor on
+    ``device``. A number is filled in on the device (``torch.full``), not
+    copied from the host, so that a CUDA graph can capture the call."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from ..core.device import as_device_tensor
+
 Pair = tuple[torch.Tensor, torch.Tensor]
 
 
@@ -192,7 +194,7 @@ def evolution_from_eigensystem(eig: dict, length) -> Pair:
     lam_p, m1_r, hi = eig["lam_p"], eig["m1_r"], eig["hi"]
     q_r, q_i = eig["q_r"], eig["q_i"]
     trig_dtype = m1_r.dtype
-    length_p = torch.as_tensor(length, dtype=lam_p.dtype, device=lam_p.device)
+    length_p = as_device_tensor(length, lam_p.dtype, lam_p.device)
     l1, l2, l3 = lam_p[..., 0], lam_p[..., 1], lam_p[..., 2]
 
     sin_p1, cos_p1 = _reduced_sincos(l1 * length_p, trig_dtype)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import as_device_tensor
 from ..core.precision import ATYPE
 
 #: Kinematic phase factor Δm²[eV²]·L[km]/(4E[GeV]) = 1/(4·ħc), CODATA 2018.
@@ -52,11 +53,11 @@ def hamiltonian_real(ur, ui, dm21_sq, dm31_sq, energy, rho=0.0, ye=0.5, antineut
     """(hr, hi) per-km Hamiltonian: ur/ui [..., 3, 3], dm²s [...], energy
     [NE] (or broadcastable to [..., NE]) -> two [..., NE, 3, 3] tensors."""
     dtype = ur.dtype
-    energy = torch.as_tensor(energy, dtype=dtype, device=ur.device)
+    energy = as_device_tensor(energy, dtype, ur.device)
     if antineutrino:
         ui = -ui
-    dm21 = torch.as_tensor(dm21_sq, dtype=dtype, device=ur.device)
-    dm31 = torch.as_tensor(dm31_sq, dtype=dtype, device=ur.device)
+    dm21 = as_device_tensor(dm21_sq, dtype, ur.device)
+    dm31 = as_device_tensor(dm31_sq, dtype, ur.device)
     m2 = torch.stack([torch.zeros_like(dm21), dm21, dm31], dim=-1)  # [..., 3]
     # vac = U diag(m2) U†; with D real: re = Ur D Urᵀ + Ui D Uiᵀ,
     # im = Ui D Urᵀ − Ur D Uiᵀ.
@@ -66,9 +67,8 @@ def hamiltonian_real(ur, ui, dm21_sq, dm31_sq, energy, rho=0.0, ye=0.5, antineut
     vac_i = uid @ ur.transpose(-1, -2) - urd @ ui.transpose(-1, -2)
 
     sign = -1.0 if antineutrino else 1.0
-    a = sign * MATTER_A * ye * torch.as_tensor(rho, dtype=dtype, device=ur.device) * energy
-    e00 = torch.zeros((3, 3), dtype=dtype, device=ur.device)
-    e00[0, 0] = 1.0
+    a = sign * MATTER_A * ye * as_device_tensor(rho, dtype, ur.device) * energy
+    e00 = torch.diag((torch.arange(3, device=ur.device) == 0).to(dtype))  # the (e, e) entry
     hr = vac_r[..., None, :, :] + a[..., None, None] * e00
     hi = vac_i[..., None, :, :].expand(hr.shape)
     scale = ((2.0 * OSC_PHASE) / energy)[..., None, None]

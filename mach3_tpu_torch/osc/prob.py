@@ -9,10 +9,12 @@ The parameters' batch shape (e.g. chains) leads every result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..core.device import as_device_tensor
 from ..core.precision import ATYPE
 from .kernels import c_abs2, evolution_from_eigensystem, herm_eigensystem, herm_evolution
 from .pmns import hamiltonian_real, pmns_matrix_real
@@ -62,7 +64,7 @@ def probabilities_const_density(
     ur, ui = pmns_matrix_real(
         params.theta12, params.theta13, params.theta23, params.delta_cp, dtype=ATYPE
     )
-    energy = torch.as_tensor(energy, dtype=ATYPE, device=ur.device)
+    energy = as_device_tensor(energy, ATYPE, ur.device)
     hr64, hi64 = hamiltonian_real(
         ur, ui, params.dm21_sq, params.dm31_sq, energy,
         rho=rho, ye=ye, antineutrino=antineutrino,
@@ -70,7 +72,7 @@ def probabilities_const_density(
     amp = herm_evolution(
         hr64.to(dtype),
         hi64.to(dtype),
-        torch.as_tensor(length, dtype=dtype, device=ur.device),
+        as_device_tensor(length, dtype, ur.device),
         phase_dtype=phase_dtype,
         h_phase=(hr64, hi64),
     )
@@ -98,6 +100,17 @@ def _evolve_layers(eig: dict, ll_b: torch.Tensor, ri_b: torch.Tensor, n_batch: i
     for k in range(1, ll_b.shape[-1]):
         amp = op[..., k, :, :, :] @ amp
     return amp.real, amp.imag
+
+
+@functools.lru_cache(maxsize=16)
+def _z_group_indices(z_groups: tuple, device: torch.device) -> tuple[tuple, torch.Tensor]:
+    """Each zenith group's indices and the permutation back to the original
+    order, as index tensors on ``device``, made once: a step must not copy
+    them from the host (a CUDA graph cannot capture that)."""
+    order = [i for idxs, _ in z_groups for i in idxs]
+    groups = tuple(torch.as_tensor(idxs, dtype=torch.long, device=device)
+                   for idxs, _ in z_groups)
+    return groups, torch.from_numpy(np.argsort(np.asarray(order))).to(device)
 
 
 def probabilities_layered(
@@ -161,15 +174,13 @@ def probabilities_layered(
     if z_groups is None:
         amp = _evolve_layers(eig, ll_b, ri_b, n_batch)
     else:
-        parts_r, parts_i, order = [], [], []
-        for idxs, nl in z_groups:
-            ia = torch.as_tensor(idxs, dtype=torch.long, device=dev)
+        parts_r, parts_i = [], []
+        group_idx, inv = _z_group_indices(z_groups, dev)
+        for (_, nl), ia in zip(z_groups, group_idx):
             a = _evolve_layers(eig, ll_b.index_select(-2, ia)[..., :nl],
                                ri_b.index_select(-2, ia)[..., :nl], n_batch)
             parts_r.append(a[0])
             parts_i.append(a[1])
-            order.extend(idxs)
-        inv = torch.from_numpy(np.argsort(np.asarray(order))).to(dev)
         amp = (torch.cat(parts_r, dim=-4).index_select(-4, inv),
                torch.cat(parts_i, dim=-4).index_select(-4, inv))
     return c_abs2(amp).transpose(-1, -2)

@@ -116,13 +116,15 @@ def propose_step_batch(
     generator: torch.Generator | None = None,
     z: torch.Tensor | None = None,
     flip_u: torch.Tensor | None = None,
+    extra_scale: float = 1.0,
 ) -> torch.Tensor:
     """Correlated proposals for a chain batch: current [C, P] -> [C, P].
 
     ``z [C, K]`` (standard normals) and ``flip_u [C, P]`` (uniforms; a flip
     parameter flips where ``flip_u < 0.5``) may be injected — the batch form
     of the reference's ``SetRandomThrow`` hook; otherwise they are drawn from
-    ``generator``."""
+    ``generator``. ``extra_scale`` multiplies every step (the delayed-
+    rejection cascade's shrink factor)."""
     c = current.shape[0]
     dev = current.device
     if z is None:
@@ -134,7 +136,7 @@ def propose_step_batch(
             (c, model.n_params), generator=generator, dtype=ATYPE, device=dev
         )
     # Fixed params have step_scale 0, so they never move.
-    delta = (z.to(ATYPE) @ model.chol.T) * model.step_scale
+    delta = (z.to(ATYPE) @ model.chol.T) * model.step_scale * extra_scale
     prop = current + delta
 
     wrapped = circular_wrap(prop, model.circ_low, model.circ_high)
