@@ -44,10 +44,15 @@ each kernel against its plain PyTorch version. Run from the repository root:
   profile of 10 steps host launches, device ops, device busy and idle
   share). On the toy the production sampler, pooled adaptive MR2T2
   (``[toy:adaptive:*]``: launch, NLL and last-chunk acceptance gates),
-  graph against eager from one saved state (``[toy:graph-vs-eager]``), per
+  graph against eager from one saved state, pooled and per chain, with
+  Robbins-Monro held over 100 steps (``[toy:graph-vs-eager]``,
+  ``[toy:graph-vs-eager:per-chain]``) and on, each graph step shadowed by
+  an eager one (``[toy:graph-vs-eager:rm]``, ``...:rm:per-chain``), per
   chain (``[toy:per-chain:*]``) and with delayed rejection
   (``[toy:delayed:*]``, each kernel twice a step); ``mach3-mcmc-torch`` on
-  the YAML experiment at 256 chains with a resume (``[exp:cli]``).
+  the YAML experiment at 256 chains with a resume (``[exp:cli]``). Every
+  sampler run ends with its state's NLLs held against its θ's NLL
+  evaluated anew.
 
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2 as graphs and
@@ -181,6 +186,16 @@ VARIANT_EAGER = 50
 GVE_STEPS = 100
 GVE_MAX_FLIPPED = 0.01
 GVE_NLL = 1e-3
+# [toy:graph-vs-eager:rm]: the production configuration, Robbins-Monro on,
+# GVE_STEPS steps of a graph, each shadowed by one eager step from the
+# graph's state before it. The two start each step alike, so their
+# log-scales differ by γ_t times the difference of the acceptance
+# probabilities they averaged (pooled) or read (per chain), and by
+# rounding: at most GVE_RM_ROUND beyond that. A γ read from a stale step
+# under capture would miss by ~1e-5 a step.
+GVE_RM_ROUND = 1e-14
+# Every sampler run ends with its state's NLLs held against the model's
+# NLL of its θ evaluated anew, eagerly: within GVE_NLL (the atomics' order).
 # [exp:cli]: mach3-mcmc-torch on the YAML experiment, 2 chunks then a resume
 # for a third.
 EXP_CLI_CHAINS = 256
@@ -548,8 +563,7 @@ def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per
     launches = dict(reweight.LAUNCHES)
     check_launches(f"{tag} {mode} ({steps} steps)", launches,
                    {k: v * steps for k, v in launches_per_step.items()})
-    if not bool(torch.isfinite(fitter.state.nll).all()):
-        raise AssertionError(f"{tag} {mode}: non-finite chain NLL")
+    d_nll = nll_recheck(f"{tag} {mode}", fitter)
     acc = float((fitter.state.n_accepted - acc0).sum()) / (n_chains * steps)
     acc_last = float((fitter.state.n_accepted - acc_mid).sum()) / (n_chains * (steps - head))
     if acc_band is not None and not acc_band[0] < acc_last < acc_band[1]:
@@ -559,9 +573,32 @@ def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per
     peak = torch.cuda.max_memory_allocated() / 2**30
     phase(f"[{tag}:{mode}] {steps} steps x {n_chains} chains in {dt:.3f} s: "
           f"{n_chains * steps / dt:.1f} chain-steps/s ({step_ms:.3f} ms/step), acceptance "
-          f"{acc:.5f} (last chunk {acc_last:.5f}), kernel launches {launches}, peak mem "
-          f"{peak:.2f} GiB | {smi}")
+          f"{acc:.5f} (last chunk {acc_last:.5f}), kernel launches {launches}, state NLL vs "
+          f"its θ anew within {d_nll:.3e}, peak mem {peak:.2f} GiB | {smi}")
     return dict(step_ms=step_ms, launches=launches, acc=acc, acc_last=acc_last, peak_gib=peak)
+
+
+def nll_recheck(tag: str, fitter) -> float:
+    """The sampler state's NLLs, finite and within GVE_NLL of its model's
+    NLL of the state's θ evaluated anew, eagerly: a graph that wrote a stale
+    or wrong NLL fails here. Returns the largest difference."""
+    import torch
+
+    from mach3_tpu_torch.splines import reweight
+
+    nll = fitter.state.nll
+    if not bool(torch.isfinite(nll).all()):
+        raise AssertionError(f"{tag}: non-finite chain NLL")
+    counted = dict(reweight.LAUNCHES)
+    with torch.no_grad():
+        anew = fitter.model.total_nll_batch(fitter.state.theta)
+    reweight.LAUNCHES.clear()  # a check's launches are not the path's
+    reweight.LAUNCHES.update(counted)
+    d = float((nll - anew).abs().max())
+    if not d <= GVE_NLL:
+        raise AssertionError(f"{tag}: the state's NLL is {d:.3e} from its θ's NLL evaluated "
+                             f"anew (> {GVE_NLL})")
+    return d
 
 
 def run_mr2t2(tag: str, model, thetas, warm: int, steps: int, chunk: int,
@@ -644,12 +681,13 @@ def snapshot(state):
     return dataclasses.replace(clone(state), generator=gen, adaptive=ad)
 
 
-def graph_vs_eager(model, cfg, saved, smi: str) -> None:
+def graph_vs_eager(tag: str, model, cfg, saved, smi: str) -> None:
     """``GVE_STEPS`` steps from the state ``saved`` as a graph and as the
     eager loop, Robbins-Monro held: the generators end in the same state
     (a replay draws what the eager step draws), at most GVE_MAX_FLIPPED of
     the chains decide differently, each first where its two log α differ
-    by at most GVE_NLL, and every other chain's θ is bit-identical."""
+    by at most GVE_NLL, and every other chain's θ is bit-identical; where
+    no chain decided differently, the moments and the throw matrix are."""
     import dataclasses
 
     import numpy as np
@@ -661,7 +699,7 @@ def graph_vs_eager(model, cfg, saved, smi: str) -> None:
     step0 = int(saved.step)
     refreshes = [s for s in range(step0 + 1, step0 + GVE_STEPS + 1) if refresh_due(held, s)]
     if not refreshes:
-        raise AssertionError("graph-vs-eager: no refresh step inside the window")
+        raise AssertionError(f"{tag}: no refresh step inside the window")
     runs = {}
     for graph in (True, False):
         fit = MR2T2(model, held, saved.theta.cpu().numpy(), seed=0, graph=graph)
@@ -673,39 +711,124 @@ def graph_vs_eager(model, cfg, saved, smi: str) -> None:
     (fg, g, tg), (fe, e, te) = runs[True], runs[False]
     same_draws = torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state())
     if not same_draws:
-        raise AssertionError("graph-vs-eager: the generators' states differ after the runs")
+        raise AssertionError(f"{tag}: the generators' states differ after the runs")
     flips = g["accepted"] != e["accepted"]
     diverged = flips.any(0)
     n_chains = diverged.shape[0]
     if diverged.sum() > GVE_MAX_FLIPPED * n_chains:
-        raise AssertionError(f"graph-vs-eager: {int(diverged.sum())} of {n_chains} chains "
+        raise AssertionError(f"{tag}: {int(diverged.sum())} of {n_chains} chains "
                              f"decided differently")
     gaps = []
     for c in np.flatnonzero(diverged):
         s = np.flatnonzero(flips[:, c])[0]
         gaps.append(abs(np.log(g["acc_prob"][s, c]) - np.log(e["acc_prob"][s, c])))
     if gaps and max(gaps) > GVE_NLL:
-        raise AssertionError(f"graph-vs-eager: a decision differs where the log α differ by "
+        raise AssertionError(f"{tag}: a decision differs where the log α differ by "
                              f"{max(gaps):.3e} > {GVE_NLL}")
     if not np.array_equal(g["theta"][:, ~diverged], e["theta"][:, ~diverged]):
-        raise AssertionError("graph-vs-eager: θ of chains that decided alike differ")
+        raise AssertionError(f"{tag}: θ of chains that decided alike differ")
+    moments = "not compared (a chain decided differently)"
+    if not diverged.any():
+        for f in ("mean", "cov", "chol", "log_scale"):
+            if not torch.equal(getattr(fg.state.adaptive, f), getattr(fe.state.adaptive, f)):
+                raise AssertionError(f"{tag}: the adaptive {f} differs, every decision alike")
+        moments = "bit-identical"
     d_nll = np.abs(g["nll"][:, ~diverged] - e["nll"][:, ~diverged]).max()
-    phase(f"[toy:graph-vs-eager] {GVE_STEPS} steps x {n_chains} chains from step {step0} "
+    phase(f"[{tag}] {GVE_STEPS} steps x {n_chains} chains from step {step0} "
           f"(refresh at {refreshes}): generators equal after both runs; {int(diverged.sum())} "
           f"chains decided differently (log α gaps {[f'{x:.2e}' for x in gaps]}); θ of the "
           f"other {int((~diverged).sum())} bit-identical over all {GVE_STEPS} steps, their NLLs "
-          f"within {d_nll:.3e}; acceptance graph {g['accepted'].mean():.4f}, eager "
-          f"{e['accepted'].mean():.4f}; wall, capture included: graph {tg:.3f} s, eager "
-          f"{te:.3f} s | {smi}")
+          f"within {d_nll:.3e}; moments and throw matrix {moments}; acceptance graph "
+          f"{g['accepted'].mean():.4f}, eager {e['accepted'].mean():.4f}; wall, capture "
+          f"included: graph {tg:.3f} s, eager {te:.3f} s | {smi}")
+
+
+def graph_step_vs_eager(tag: str, model, cfg, saved, smi: str) -> None:
+    """The configuration ``cfg`` as it runs (Robbins-Monro on) from the
+    state ``saved``: ``GVE_STEPS`` steps of a graph, each shadowed by one
+    eager step from the graph's state before it. Each step: the generators
+    end alike; at most GVE_MAX_FLIPPED of the chain-steps decide
+    differently, each where the two log α differ by at most GVE_NLL; θ of
+    the others is bit-identical; the log-scales differ by no more than γ_t
+    times the difference of the acceptance probabilities they read, plus
+    GVE_RM_ROUND; where every chain decided alike the moments and the throw
+    matrix (refreshed at the window's refresh step) are bit-identical."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, refresh_due
+
+    if not cfg.robbins_monro:
+        raise AssertionError(f"{tag}: the configuration must run Robbins-Monro")
+    step0 = int(saved.step)
+    refreshes = [s for s in range(step0 + 1, step0 + GVE_STEPS + 1) if refresh_due(cfg, s)]
+    if not refreshes:
+        raise AssertionError(f"{tag}: no refresh step inside the window")
+    init = saved.theta.cpu().numpy()
+    fg = MR2T2(model, cfg, init, seed=0)
+    fe = MR2T2(model, cfg, init, seed=0, graph=False)
+    fg.state = snapshot(saved)
+    per_chain = saved.adaptive.per_chain
+    n_chains = init.shape[0]
+    flipped, worst_gap, worst_scale, alike_steps = 0, 0.0, 0.0, 0
+    refresh_checked = False
+    for _ in range(GVE_STEPS):
+        fe.state = snapshot(fg.state)
+        g, e = fg.run(n_steps=1), fe.run(n_steps=1)
+        t = int(fg.state.step)
+        if int(fe.state.step) != t:
+            raise AssertionError(f"{tag}: the step counters differ at step {t}")
+        if not torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state()):
+            raise AssertionError(f"{tag}: the generators' states differ at step {t}")
+        flips = g["accepted"][0] != e["accepted"][0]
+        flipped += int(flips.sum())
+        if flips.any():
+            gap = np.abs(np.log(g["acc_prob"][0, flips]) - np.log(e["acc_prob"][0, flips])).max()
+            worst_gap = max(worst_gap, float(gap))
+            if gap > GVE_NLL:
+                raise AssertionError(f"{tag}: a decision differs at step {t} where the log α "
+                                     f"differ by {gap:.3e} > {GVE_NLL}")
+        if not np.array_equal(g["theta"][0, ~flips], e["theta"][0, ~flips]):
+            raise AssertionError(f"{tag}: θ of chains that decided alike differ at step {t}")
+        d_acc = np.abs(g["acc_prob"][0] - e["acc_prob"][0]) if per_chain else abs(
+            g["acc_prob"][0].mean() - e["acc_prob"][0].mean())
+        gamma = 2.0 / max(t, 1) ** 0.66
+        d_scale = (fg.state.adaptive.log_scale - fe.state.adaptive.log_scale).abs().cpu().numpy()
+        excess = float(np.max(d_scale - gamma * d_acc))
+        worst_scale = max(worst_scale, float(np.max(d_scale)))
+        if excess > GVE_RM_ROUND:
+            raise AssertionError(f"{tag}: the log-scales differ at step {t} by "
+                                 f"{float(np.max(d_scale)):.3e}, {excess:.3e} beyond γ_t x "
+                                 f"the acceptance probabilities' difference")
+        if not flips.any():
+            alike_steps += 1
+            for f in ("mean", "cov", "chol"):
+                if not torch.equal(getattr(fg.state.adaptive, f), getattr(fe.state.adaptive, f)):
+                    raise AssertionError(f"{tag}: the adaptive {f} differs at step {t}, every "
+                                         f"decision alike")
+            refresh_checked |= t in refreshes
+    if flipped > GVE_MAX_FLIPPED * n_chains * GVE_STEPS:
+        raise AssertionError(f"{tag}: {flipped} chain-steps decided differently")
+    phase(f"[{tag}] {GVE_STEPS} graph steps x {n_chains} chains from step {step0}, Robbins-"
+          f"Monro on, each shadowed by an eager step from its state (refresh at {refreshes}, "
+          f"held bit for bit: {refresh_checked}): generators equal every step; {flipped} "
+          f"chain-steps decided differently (largest log α gap {worst_gap:.2e}); θ of the rest "
+          f"bit-identical; log-scales within {worst_scale:.3e} (γ_t x the acceptance "
+          f"probabilities' difference + {GVE_RM_ROUND}); moments and throw matrix "
+          f"bit-identical on {alike_steps} steps where every decision agreed | {smi}")
 
 
 def toy_samplers(model, thetas, smi: str) -> None:
     """The production sampler on the toy: ``[toy:adaptive]`` (pooled
     adaptive MR2T2 as a graph, launch, NLL and acceptance-band gates; its
     eager counterpart's figures come from ``[toy:adaptive:eager]``), then
-    ``[toy:graph-vs-eager]`` from its state after the warm-up, then
-    ``[toy:per-chain]`` and ``[toy:delayed]`` (one retry: each kernel twice a
-    step) as graphs beside short eager runs."""
+    from its state after the warm-up ``[toy:graph-vs-eager]`` (Robbins-Monro
+    held) and ``[toy:graph-vs-eager:rm]`` (on, each graph step shadowed by an
+    eager one), both again per chain from a per-chain run's state after its
+    warm-up, then ``[toy:per-chain]`` and ``[toy:delayed]`` (one retry: each
+    kernel twice a step) as graphs beside short eager runs."""
+    import dataclasses
+
     from mach3_tpu_torch.fitters.delayed import DelayedConfig, DelayedMR2T2
     from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
 
@@ -724,7 +847,15 @@ def toy_samplers(model, thetas, smi: str) -> None:
     e = run_sampler("toy:adaptive", "eager", eager, 0, EAGER_STEPS, {"reweight_shifted": 2}, smi)
     profile_steps("toy:adaptive", "eager", eager, e["step_ms"], names, smi)
     del eager
-    graph_vs_eager(model, cfg, saved, smi)
+    graph_vs_eager("toy:graph-vs-eager", model, cfg, saved, smi)
+    graph_step_vs_eager("toy:graph-vs-eager:rm", model, cfg, saved, smi)
+    pc_cfg = dataclasses.replace(cfg, adaption_mode="per_chain")
+    fit = MR2T2(model, pc_cfg, init, seed=2)
+    fit.run(n_steps=ADAPTIVE_WARM, collect=False)
+    pc_saved = snapshot(fit.state)
+    del fit
+    graph_vs_eager("toy:graph-vs-eager:per-chain", model, pc_cfg, pc_saved, smi)
+    graph_step_vs_eager("toy:graph-vs-eager:rm:per-chain", model, pc_cfg, pc_saved, smi)
     variants = (
         ("toy:per-chain", MR2T2, MCMCConfig(chunk_size=CHUNK, **dict(
             ADAPTIVE, adaption_mode="per_chain")), {"reweight_shifted": 2}),
@@ -1472,12 +1603,12 @@ def exp_path(dev, smi: str) -> dict:
     check_launches("exp:mr2t2-blockdiag", det_launches,
                    {"reweight_perchain_blockdiag": 2 * EXP_DET_STEPS,
                     "reweight_shared": EXP_DET_STEPS})
-    if not bool(torch.isfinite(fitter.state.nll).all()):
-        raise AssertionError("exp: non-finite chain NLL with the deterministic histogram")
+    det_nll = nll_recheck("exp:mr2t2-blockdiag", fitter)
     for s in generic:
         s.perchain_hist = "maskreduce"
     phase(f"[exp:mr2t2-blockdiag] {EXP_DET_STEPS} more steps with hist='blockdiag': "
-          f"{1e3 * det_s / EXP_DET_STEPS:.3f} ms/step, launches {det_launches} | {smi}")
+          f"{1e3 * det_s / EXP_DET_STEPS:.3f} ms/step, launches {det_launches}, state NLL vs "
+          f"its θ anew within {det_nll:.3e} | {smi}")
     with torch.no_grad():
         times = {s.name: time_kernel("exp", s, *checked[s.name][:2], smi) for s in model.samples}
         for s in generic:

@@ -2,6 +2,7 @@
 for the CPU."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,9 +20,11 @@ def target_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def as_device_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """``x`` (a tensor or a Python number) as a ``dtype`` tensor on
-    ``device``. A number is filled in on the device (``torch.full``), not
-    copied from the host, so that a CUDA graph can capture the call."""
-    if isinstance(x, torch.Tensor):
-        return x.to(dtype=dtype, device=device)
-    return torch.full((), x, dtype=dtype, device=device)
+    """``x`` (a tensor, an array, a list or a number) as a ``dtype`` tensor
+    on ``device``, as ``torch.as_tensor`` makes it. A Python or numpy scalar
+    is filled in on the device (``torch.full``), not copied from the host, so
+    that a CUDA graph can capture the call; an array or a list is copied
+    from the host, which a graph cannot capture."""
+    if isinstance(x, (int, float, np.number)):
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)

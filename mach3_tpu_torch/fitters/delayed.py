@@ -60,14 +60,14 @@ def dram_acceptance(nll0: torch.Tensor, min_nll: torch.Tensor,
 
 
 def make_delayed_step_fn_args(config: DelayedConfig):
-    """``step(model, state, draws=None, refresh=False)``. ``draws``, one
-    dict per attempt with ``z``, ``flip_u``, ``u`` and (all but the last
-    attempt) ``u_delay``, injects the draws; by default they come from
-    ``state.generator`` in that order. ``refresh`` as in
-    ``mcmc.make_step_fn_args``."""
+    """``step(model, state, draws=None)``. ``draws``, one dict per attempt
+    with ``z``, ``flip_u``, ``u`` and (all but the last attempt)
+    ``u_delay``, injects the draws; by default they come from
+    ``state.generator`` in that order. The throw matrix's refresh follows
+    the step (``mcmc.refresh_throw_matrix``)."""
     block_mask = _BlockMasks(config.adaption_blocks)
 
-    def step_fn(model: FitModel, state: ChainState, draws=None, refresh: bool = False):
+    def step_fn(model: FitModel, state: ChainState, draws=None):
         n_chains = state.theta.shape[0]
         dev = state.theta.device
         gen = state.generator
@@ -125,7 +125,7 @@ def make_delayed_step_fn_args(config: DelayedConfig):
         if adaptive is not None:
             # Moments and scale from the step's outcome, as MR2T2's post-step.
             adaptive = _update_adaptive(adaptive, theta_acc, step, config, first_acc_prob,
-                                        block_mask(model), refresh)
+                                        block_mask(model))
         moved = (theta_acc != theta0).any(1)
         out_state = ChainState(theta=theta_acc, nll=nll_acc, generator=gen, step=step,
                                n_accepted=state.n_accepted + moved.to(torch.int32),

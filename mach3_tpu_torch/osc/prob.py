@@ -9,7 +9,6 @@ The parameters' batch shape (e.g. chains) leads every result.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -102,15 +101,11 @@ def _evolve_layers(eig: dict, ll_b: torch.Tensor, ri_b: torch.Tensor, n_batch: i
     return amp.real, amp.imag
 
 
-@functools.lru_cache(maxsize=16)
-def _z_group_indices(z_groups: tuple, device: torch.device) -> tuple[tuple, torch.Tensor]:
-    """Each zenith group's indices and the permutation back to the original
-    order, as index tensors on ``device``, made once: a step must not copy
-    them from the host (a CUDA graph cannot capture that)."""
-    order = [i for idxs, _ in z_groups for i in idxs]
-    groups = tuple(torch.as_tensor(idxs, dtype=torch.long, device=device)
-                   for idxs, _ in z_groups)
-    return groups, torch.from_numpy(np.argsort(np.asarray(order))).to(device)
+def z_group_order(z_groups: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """The zenith indices of ``z_groups`` in group order, and the
+    permutation that puts the groups' results back in the original order."""
+    order = np.asarray([i for idxs, _ in z_groups for i in idxs], dtype=np.int64)
+    return order, np.argsort(order)
 
 
 def probabilities_layered(
@@ -124,6 +119,8 @@ def probabilities_layered(
     rho_unique: torch.Tensor | None = None,  # [NR] unique densities
     rho_idx: torch.Tensor | None = None,  # [..., NL] into rho_unique
     z_groups: tuple | None = None,  # static ((z indices, n_layers), ...)
+    z_order: torch.Tensor | None = None,  # [NZ] long, from z_group_order
+    z_inverse: torch.Tensor | None = None,  # [NZ] long, from z_group_order
 ) -> torch.Tensor:
     """P[*batch, ..., NE, alpha, beta] through a layered medium: ``batch`` is
     the parameters' shape, ``...`` the leading axes of the layer arrays
@@ -138,7 +135,11 @@ def probabilities_layered(
     z_groups: a static partition of the zenith axis (the second-to-last of
     the layer arrays) as ``((zenith indices, n_layers), ...)``; each group's
     chain of products stops at its own segment count (down-going bins have
-    one air segment), and the grid is reassembled in the original order."""
+    one air segment), and the grid is reassembled in the original order.
+    ``z_order`` / ``z_inverse`` are :func:`z_group_order`'s index tensors on
+    the parameters' device, made from ``z_groups`` when not given: a caller
+    that runs in a CUDA graph holds them (a graph cannot capture the host
+    copy)."""
     ur, ui = pmns_matrix_real(
         params.theta12, params.theta13, params.theta23, params.delta_cp, dtype=ATYPE
     )
@@ -174,13 +175,17 @@ def probabilities_layered(
     if z_groups is None:
         amp = _evolve_layers(eig, ll_b, ri_b, n_batch)
     else:
+        if z_order is None:
+            z_order, z_inverse = (torch.from_numpy(x).to(dev) for x in z_group_order(z_groups))
         parts_r, parts_i = [], []
-        group_idx, inv = _z_group_indices(z_groups, dev)
-        for (_, nl), ia in zip(z_groups, group_idx):
+        at = 0
+        for idxs, nl in z_groups:
+            ia = z_order[at:at + len(idxs)]
+            at += len(idxs)
             a = _evolve_layers(eig, ll_b.index_select(-2, ia)[..., :nl],
                                ri_b.index_select(-2, ia)[..., :nl], n_batch)
             parts_r.append(a[0])
             parts_i.append(a[1])
-        amp = (torch.cat(parts_r, dim=-4).index_select(-4, inv),
-               torch.cat(parts_i, dim=-4).index_select(-4, inv))
+        amp = (torch.cat(parts_r, dim=-4).index_select(-4, z_inverse),
+               torch.cat(parts_i, dim=-4).index_select(-4, z_inverse))
     return c_abs2(amp).transpose(-1, -2)

@@ -27,7 +27,12 @@ import torch
 from torch import nn
 
 from ..core.precision import ATYPE, FTYPE
-from ..osc.prob import OscParams, probabilities_const_density, probabilities_layered
+from ..osc.prob import (
+    OscParams,
+    probabilities_const_density,
+    probabilities_layered,
+    z_group_order,
+)
 from ..splines.eval import eval_dense, find_segments
 from ..splines.grad import (
     fused_reweight_diff,
@@ -189,7 +194,8 @@ class AtmoOscConfig(nn.Module):
     once per unique density), event_flat_idx [E] = (chan * NZ + z) * NE + e,
     chan_alpha / chan_beta / chan_anti [NC], nc_mask [E], osc_param_idx [6],
     height_weights [H] or None. ``z_groups`` is the static zenith partition
-    of :func:`~mach3_tpu_torch.osc.prob.probabilities_layered`."""
+    of :func:`~mach3_tpu_torch.osc.prob.probabilities_layered`, and the
+    buffers z_order / z_inverse [NZ] (or None) its index tensors."""
 
     def __init__(self, e_grid, layer_lengths, layer_rho, event_flat_idx, chan_alpha,
                  chan_beta, chan_anti, nc_mask, osc_param_idx, *, rho_unique, rho_idx,
@@ -211,6 +217,9 @@ class AtmoOscConfig(nn.Module):
         self.z_groups = None if z_groups is None else tuple(
             (tuple(int(i) for i in idxs), int(nl)) for idxs, nl in z_groups
         )
+        order = (None, None) if z_groups is None else z_group_order(self.z_groups)
+        self.register_buffer("z_order", _buffer(order[0], long))
+        self.register_buffer("z_inverse", _buffer(order[1], long))
         self.dtype = dtype
 
     def prob_grids(self, thetas: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -224,6 +233,7 @@ class AtmoOscConfig(nn.Module):
                 pars, self.e_grid, self.layer_lengths, self.layer_rho,
                 antineutrino=antineutrino, dtype=self.dtype,
                 rho_unique=self.rho_unique, rho_idx=self.rho_idx, z_groups=self.z_groups,
+                z_order=self.z_order, z_inverse=self.z_inverse,
             )
             if self.height_weights is not None:  # p [C, H, NZ, NE, 3, 3]
                 w = self.height_weights.to(p.dtype)

@@ -96,10 +96,10 @@ def test_update_adaptive_matches_jax(mode, blocks):
         acc = rng.uniform(size=n_chains)
         jad = jmcmc._update_adaptive(jad, jnp.asarray(theta), jnp.asarray(step, jnp.int32),
                                      jcfg, jnp.asarray(acc), jmask)
-        due = mcmc.refresh_due(tcfg, step)
-        refreshed.append(due)
+        refreshed.append(mcmc.refresh_due(tcfg, step))
         tad = mcmc._update_adaptive(tad, torch.tensor(theta), torch.tensor(step, dtype=torch.int32),
-                                    tcfg, torch.tensor(acc), tmask, refresh=due)
+                                    tcfg, torch.tensor(acc), tmask)
+        mcmc.refresh_throw_matrix(tad, tcfg, step)
         for f in ("mean", "cov", "chol", "log_scale"):
             np.testing.assert_allclose(getattr(tad, f).numpy(), np.asarray(getattr(jad, f)),
                                        rtol=0, atol=1e-12, err_msg=f"{f} at step {step}")
@@ -250,6 +250,7 @@ def test_adaptive_lockstep_with_jax(jtoy, interp, case):
     tstate = ChainState(theta=torch.tensor(th), nll=tm.total_nll_batch(torch.tensor(th)),
                         generator=torch.Generator(), step=torch.tensor(0, dtype=torch.int32),
                         n_accepted=torch.zeros(n_chains, dtype=torch.int32), adaptive=tad)
+    seed_chol = None if tad is None else tad.chol.numpy().copy()  # refreshes write in place
     jstep = jax.jit(jmcmc.make_step_fn_args(jcfg))
     tstep = mcmc.make_step_fn_args(tcfg)
     n_cols = th.shape[1] if jcfg.adaptive else np.asarray(jm._flat().chol).shape[1]
@@ -258,7 +259,8 @@ def test_adaptive_lockstep_with_jax(jtoy, interp, case):
         z, flip_u, u = _jax_draws(jstate.key, n_chains, th.shape[1], n_cols)
         jnew, jout = jstep(jm, jstate)
         tnew, tout = tstep(tm, tstate, z=torch.tensor(z), flip_u=torch.tensor(flip_u),
-                           u_acc=torch.tensor(u), refresh=mcmc.refresh_due(tcfg, s + 1))
+                           u_acc=torch.tensor(u))
+        mcmc.refresh_throw_matrix(tnew.adaptive, tcfg, s + 1)
         # Every decision clear of what the NLL budget could flip.
         j_acc = np.asarray(jout["acc_prob"])
         nll_scale = np.maximum(np.abs(np.asarray(jstate.nll)), np.abs(np.asarray(jout["nll"])))
@@ -289,7 +291,7 @@ def test_adaptive_lockstep_with_jax(jtoy, interp, case):
     assert 0 < n_acc < n_chains * n_steps  # both outcomes were exercised
     np.testing.assert_array_equal(tstate.n_accepted.numpy(), np.asarray(jstate.n_accepted))
     if tstate.adaptive is not None:  # the factor was refreshed: it left its seed
-        assert not np.allclose(tstate.adaptive.chol.numpy(), np.array(tad.chol))
+        assert not np.allclose(tstate.adaptive.chol.numpy(), seed_chol)
 
 
 # ------------------------------------------------------------ statistics
@@ -374,3 +376,25 @@ def test_eager_is_the_cpu_default_and_graph_needs_cuda():
     assert MR2T2(model, MCMCConfig(), np.zeros((2, 1))).graph is False
     with pytest.raises(ValueError, match="CUDA"):
         MR2T2(model, MCMCConfig(), np.zeros((2, 1)), graph=True)
+
+
+@pytest.mark.parametrize("mode", ["pooled", "per_chain"])
+def test_refresh_writes_the_factor_in_place(mode):
+    """The throw matrix's refresh after a step writes the factor into the
+    buffer the state holds (a captured step reads that buffer), row-major
+    as it was seeded: ``cholesky_ex`` returns column-major factors, whose
+    per-chain product with the normals would sum in another order."""
+    model, _ = _prior_only_model(
+        [_gauss_param(f"p{i}", 0.0, 1.0 + 0.3 * i, step=0.5) for i in range(5)])
+    cfg = MCMCConfig(adaptive=True, adaption_mode=mode, adaption_start_update=1,
+                     adaption_start_throw=10, adaption_update_step=10, chunk_size=7)
+    f = MR2T2(model, cfg, np.zeros((6, 5)), seed=1)
+    chol = f.state.adaptive.chol
+    seed, ptr, stride = chol.clone(), chol.data_ptr(), chol.stride()
+    f.run(n_steps=9, collect=False)
+    assert torch.equal(f.state.adaptive.chol, seed)  # no refresh before step 10
+    f.run(n_steps=11, collect=False)  # refreshes at steps 10 and 20, the last
+    got = f.state.adaptive.chol
+    assert got is chol and got.data_ptr() == ptr and got.stride() == stride
+    assert got.is_contiguous() and not torch.equal(got, seed)
+    assert torch.equal(got, mcmc.refreshed_chol(f.state.adaptive, cfg))

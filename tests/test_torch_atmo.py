@@ -116,6 +116,9 @@ def test_atmo_osc_config_matches_jax(case):
               "chan_alpha", "chan_beta", "chan_anti", "nc_mask", "osc_param_idx"):
         assert np.array_equal(getattr(cfg, f).numpy(), np.asarray(getattr(jcfg, f))), f
     assert cfg.z_groups == jcfg.z_groups and len(cfg.z_groups) > 1
+    order = [i for idxs, _ in cfg.z_groups for i in idxs]  # held as buffers, made once
+    assert cfg.z_order.tolist() == order
+    assert cfg.z_order[cfg.z_inverse].tolist() == list(range(len(order)))
     if case == "height_average":
         assert cfg.layer_lengths.shape[0] == 3
         np.testing.assert_array_equal(cfg.height_weights.numpy(), np.asarray(jcfg.height_weights))
@@ -136,6 +139,7 @@ def test_atmo_osc_config_matches_jax(case):
     )
     np.testing.assert_allclose(flat.weights(torch.from_numpy(thetas)).numpy(), got,
                                rtol=0, atol=1e-6)
+    assert flat.z_order is None and flat.z_inverse is None
     assert flat.share_signature() != cfg.share_signature()
 
 

@@ -27,7 +27,7 @@ from mach3_tpu_torch.fitters.delayed import (
     dram_acceptance,
     make_delayed_step_fn_args,
 )
-from mach3_tpu_torch.fitters.mcmc import AdaptiveState, ChainState
+from mach3_tpu_torch.fitters.mcmc import AdaptiveState, ChainState, refresh_throw_matrix
 from mach3_tpu_torch.fitters.model import FitModel
 from mach3_tpu_torch.params.parameterset import ParameterSet
 
@@ -98,7 +98,8 @@ def test_delayed_step_lockstep_with_jax(jtoy, interp, adaptive):
                         n_accepted=torch.zeros(n_chains, dtype=torch.int32), adaptive=tad)
     draws = _jax_delayed_draws(jm, key, jcfg, n_chains, adaptive)
     jnew, jout = jax.jit(jdelayed.make_delayed_step_fn_args(jcfg))(jm, jstate)
-    tnew, tout = make_delayed_step_fn_args(tcfg)(tm, tstate, draws=draws, refresh=adaptive)
+    tnew, tout = make_delayed_step_fn_args(tcfg)(tm, tstate, draws=draws)
+    refresh_throw_matrix(tnew.adaptive, tcfg, 1)
 
     j_acc = np.asarray(jout["acc_prob"])
     budget = 2 * (NLL_ATOL + NLL_RTOL * np.abs(np.asarray(jstate.nll)))

@@ -75,15 +75,6 @@ def test_graph_matches_eager(toy, kind):
     if kind == "delayed":
         cfg = DelayedConfig(**CONFIG, max_rejections=1, decay_rate=0.3)
         make = DelayedMR2T2
-    elif kind == "per_chain":
-        # No refresh inside the run. With refreshes at steps 20 and 30 an
-        # H100 run gave graph and eager θ 4.5e-8 apart (relative): 19-29
-        # samples per chain of 16 parameters whose widths span 2e-6 to 1
-        # make each chain's factor ill-conditioned, so a last-bit difference
-        # (of unknown origin) grows. The refresh path is held bit for bit by
-        # the pooled and delayed cases.
-        cfg = MCMCConfig(**dict(CONFIG, adaption_start_throw=1000), adaption_mode=kind)
-        make = MR2T2
     else:
         cfg = MCMCConfig(**CONFIG, adaption_mode=kind)
         make = MR2T2
@@ -101,6 +92,55 @@ def test_graph_matches_eager(toy, kind):
             assert torch.equal(getattr(fg.state.adaptive, f), getattr(fe.state.adaptive, f))
     if kind == "delayed":
         assert g["delayed_accept"].any()
+
+
+def _snapshot(state):
+    """A copy of a sampler state that no run touches."""
+    gen = torch.Generator(device=state.theta.device)
+    gen.set_state(state.generator.get_state())
+
+    def clone(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).clone() for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    return dataclasses.replace(clone(state), generator=gen, adaptive=clone(state.adaptive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pooled", "per_chain"])
+def test_graph_step_matches_eager_with_robbins_monro(toy, mode):
+    """Robbins-Monro on, as users run it: each graph step against one eager
+    step from the graph's state before it, across the refreshes at steps 5
+    and 10. The draws and θ of chains that decide alike are bit-identical;
+    the log-scales differ by γ_t times the difference of the acceptance
+    probabilities they read, plus rounding; where every chain decided alike
+    so do the moments and the throw matrix."""
+    init = _init(toy.model, N_CHAINS)
+    cfg = MCMCConfig(**dict(CONFIG, robbins_monro=True), adaption_mode=mode)
+    fg = MR2T2(toy.model, cfg, init, seed=6)
+    fe = MR2T2(toy.model, cfg, init, seed=6, graph=False)
+    flipped = 0
+    for t in range(1, 13):
+        fe.state = _snapshot(fg.state)
+        g, e = fg.run(n_steps=1), fe.run(n_steps=1)
+        assert torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state())
+        flips = g["accepted"][0] != e["accepted"][0]
+        flipped += int(flips.sum())
+        assert flipped <= 1
+        if flips.any():
+            gap = np.abs(np.log(g["acc_prob"][0, flips]) - np.log(e["acc_prob"][0, flips]))
+            assert gap.max() < 1e-3
+        np.testing.assert_array_equal(g["theta"][0, ~flips], e["theta"][0, ~flips])
+        if mode == "per_chain":
+            d_acc = np.abs(g["acc_prob"][0] - e["acc_prob"][0])
+        else:
+            d_acc = abs(g["acc_prob"][0].mean() - e["acc_prob"][0].mean())
+        d_scale = (fg.state.adaptive.log_scale - fe.state.adaptive.log_scale).abs().cpu().numpy()
+        assert np.all(d_scale <= 2.0 / t**0.66 * d_acc + 1e-14), (t, d_scale, d_acc)
+        if not flips.any():
+            for f in ("mean", "cov", "chol"):
+                assert torch.equal(getattr(fg.state.adaptive, f), getattr(fe.state.adaptive, f))
 
 
 @pytest.mark.cuda

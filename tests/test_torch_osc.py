@@ -56,3 +56,19 @@ def test_const_density_matches_jax(dtypes, anti):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
         # unitarity: rows of P sum to 1
         np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=10 * atol)
+
+
+def test_inputs_as_arrays_lists_and_numbers():
+    """Energy, baseline and density may be tensors, numpy arrays, lists or
+    numbers (Python or numpy), as ``torch.as_tensor`` takes them."""
+    pars = OscParams.from_array(torch.from_numpy(NUFIT[None]))
+    energy = [0.4, 0.6, 0.8]
+    f64 = torch.float64
+    want = probabilities_const_density(pars, torch.tensor(energy, dtype=f64),
+                                       length=torch.tensor(295.0, dtype=f64),
+                                       rho=torch.tensor(2.6, dtype=f64))
+    for e, length, rho in ((energy, 295.0, 2.6), (np.asarray(energy), np.float64(295.0),
+                                                  np.float64(2.6)), (energy, 295, 2.6)):
+        got = probabilities_const_density(pars, e, length=length, rho=rho)
+        assert got.shape == (1, 3, 3, 3)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-15)
