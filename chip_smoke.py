@@ -35,7 +35,23 @@ each kernel against its plain PyTorch version. Run from the repository root:
   against both), numu_nd (a weight function, static bins, P = 4) on the
   shared kernel, whose trivial plan computes K4a. Its gradient at 64 chains
   through K5, the shared kernel and the backward kernel (the bin map
-  in-kernel on the generic route).
+  in-kernel on the generic route). Beside it: the same MC as ``.m3evt`` and
+  ``.csv`` files, read by the native IO library (``core/nativeio.py``,
+  built from ``native/m3io.cpp``) into builds bit-identical to the ``.npz``
+  one (``[exp:io]``); polygon bins on two of its samples, static through the
+  shared kernel and shifted through K5's bins-given form (``[exp:polygon]``);
+  and the toy with sparse spline tables on the plain route against the
+  dense toy through K1 (``[exp:sparse]``).
+* The 700-parameter envelope: ``build_large700()`` at its defaults (seed
+  2077; 2 x 180k numu, 2 x 60k nue, 3 x 180k atmo events; 655 splines, 700
+  parameters, 5,364 bins; bf16 tables) at 128 chains: five samples on the
+  shared kernel (K2) and the two nue samples on the shifted kernel with P =
+  94 (K3), each against its plain version; ``total_nll_batch`` at 32 and 128
+  chains; pooled adaptive MR2T2 with the JAX bench's reference-scale
+  adaption settings as a graph (200 warm-up, 500 timed steps) and as the
+  eager loop; each kernel's time and bound; one gradient evaluation at 16
+  chains through the backward kernel; the fixture cache's round trip
+  (``[large700:*]``).
 
 * The samplers (``fitters/mcmc.py``, ``fitters/delayed.py``): every MR2T2
   run's chunks are replayed CUDA graphs (the default on the card), each
@@ -62,6 +78,7 @@ the exit code is not 0. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its launches on
 its path (K1 and K3: the toy and large MR2T2 runs; K2: the large MR2T2 run;
+the large700 path's kernel figures are on its ``[large700:*]`` lines;
 K4b and the backward kernel, which K6a and K6b share: the ChEES run; K5, K4a:
 the experiment's MR2T2 run; K5b: its run with the deterministic histogram),
 its largest error against the plain
@@ -215,6 +232,36 @@ CHEES_ACC = (0.3, 0.99)
 MIN_CHI2 = 1e-4
 MIN_PULL = 1e-2
 
+# The 700-parameter envelope (tutorial/large.py build_large700) at its
+# defaults: seed 2077, 2 x numu at 180k, 2 x nue at 60k, 3 x atmo at 180k
+# events, 655 splines, 700 parameters, bf16 tables; 128 chains. Its
+# total_nll_batch is the JAX bench's large700 measure (bench.py:700-716: 32
+# chains), here at 32 and 128. The adaptive run takes the settings of the
+# JAX bench's reference-scale adaptive run (bench.py:725-733).
+L7_CHAINS = 128
+L7_NLL_CHAINS = (32, 128)
+L7_NLL_ITERS = 10
+L7_ROUTES = ["shared", "shifted", "shared", "shifted", "shared", "shared", "shared"]
+L7_LAUNCHES = {"reweight_shared": 5, "reweight_shifted": 2}
+L7_ADAPTIVE = dict(adaptive=True, adaption_mode="pooled", adaption_start_update=30,
+                   adaption_start_throw=150, adaption_update_step=50)
+L7_CHUNK = 100
+L7_WARM = 200
+L7_STEPS = 500
+L7_EAGER_STEPS = 30
+# One gradient evaluation at 16 chains: 5 shared and 2 shifted forward
+# launches, one backward launch per sample.
+L7_GRAD_CHAINS = 16
+L7_GRAD_LAUNCHES = {"reweight_shared": 5, "reweight_shifted": 2, "reweight_backward": 7}
+L7_ROUND_TRIP_CHAINS = 4
+
+
+#: Polygon bins over (e_reco, cos_theta): six e_reco columns, each cut in two
+#: by a slanted edge the next column's polygons share at its ends.
+POLY_COLUMNS = (0.0, 0.4, 0.8, 1.2, 1.8, 2.4, 3.0)
+POLY_CUTS = (0.2, -0.3, 0.4, -0.1, 0.3, -0.2, 0.1)
+
+
 TPU_KERNELS = {
     "K1": "mach3_tpu/splines/pallas_reweight.py:339",
     "K3": "mach3_tpu/splines/pallas_reweight.py:414",
@@ -297,6 +344,13 @@ def nll_tolerance(sample, mc, w2):
     moved += [stat(data, mc, w2 + sgn * tol(w2)) for sgn in (1, -1)]
     d = [(m - base).abs() for m in moved]
     return (torch.maximum(d[0], d[1]) + torch.maximum(d[2], d[3])).sum(-1) + NLL_ATOL
+
+
+def peak_rss_gib() -> float:
+    """The process's peak resident host memory so far, GiB (Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1151,6 +1205,8 @@ def posterior_grad_vs_plain(tag: str, model, thetas, per_eval: dict, smi: str) -
     (g_p,) = torch.autograd.grad(lp_p.sum(), t)
     if not bool(torch.isfinite(g).all() and torch.isfinite(lp).all()):
         raise AssertionError(f"{tag}: non-finite log-density or gradient through the kernels")
+    if not bool((g != 0).any(1).all()):
+        raise AssertionError(f"{tag}: a chain's gradient through the kernels is all zero")
     rel = (g - g_p).abs() / g_p.abs().amax(1, keepdim=True)
     gap, worst_param = float(rel.max()), int(rel.amax(0).argmax())
     if gap > GRAD_E2E:
@@ -1555,12 +1611,14 @@ def exp_path(dev, smi: str) -> dict:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = Config.from_file(str(write_experiment(tmp, n_events=EXP_EVENTS, seed=EXP_SEED)))
+        exp_yaml = write_experiment(tmp, n_events=EXP_EVENTS, seed=EXP_SEED)
         written_s = time.perf_counter() - t0
-        model = build_experiment(cfg, device=dev).model
+        model = build_experiment(Config.from_file(str(exp_yaml)), device=dev).model
+        built_s = time.perf_counter() - t0 - written_s
+        exp_io(model, exp_yaml, dev, smi)
     routes = [s.kernel_route.variant for s in model.samples]
-    phase(f"[exp] files written in {written_s:.1f} s, built in "
-          f"{time.perf_counter() - t0 - written_s:.1f} s; {model.n_params} params; "
+    phase(f"[exp] files written in {written_s:.1f} s, built in {built_s:.1f} s; "
+          f"{model.n_params} params; "
           + "; ".join(f"{s.name}: E={s.n_events} B={s.n_bins} P={s.spline_table.n_spline_params} "
                       f"TF1={0 if s.tf1_table is None else s.tf1_table.n_tf1_params} "
                       f"weight fns={len(s.weight_fns)} route={s.kernel_route.variant}"
@@ -1576,6 +1634,7 @@ def exp_path(dev, smi: str) -> dict:
         given = bins_given_vs_plain(model, thetas, checked, smi)
         nd = model.samples[2]
         k4a = wide_form_vs_plain("exp", nd, checked[nd.name], smi, shuffle=True)
+        exp_polygon(model, thetas, smi)
         _, _, asimov = model.total_nll_batch_parts(model.prefit_vector()[None])
         phase(f"[exp:asimov] per-sample NLL at prefit through the kernels "
               f"{[f'{float(v):.3e}' for v in asimov[0]]} (bound {ASIMOV_ATOL}) | {smi}")
@@ -1642,6 +1701,283 @@ def exp_path(dev, smi: str) -> dict:
     }
 
 
+def exp_io(model, exp_yaml, dev, smi: str) -> None:
+    """The experiment's MC written as ``.m3evt`` and as ``.csv`` files
+    (``tutorial/experiment_files.convert_mc_files``) and the experiment
+    built from each on the card: every sample's buffers (events, tables,
+    bins, layout, plan) and its Asimov histogram at prefit bit-identical to
+    the ``.npz`` build's, and every file read by the native library
+    (``core/nativeio.py``, built from ``native/m3io.cpp`` into ``_build/``)."""
+    import torch
+
+    from mach3_tpu_torch.core import nativeio
+    from mach3_tpu_torch.core.config import Config
+    from mach3_tpu_torch.samples.experiment import build_experiment
+    from mach3_tpu_torch.tutorial.experiment_files import convert_mc_files
+
+    t0 = time.perf_counter()
+    nativeio.load_library(required=True)
+    lib_s = time.perf_counter() - t0
+    for fmt in ("m3evt", "csv"):
+        before = dict(nativeio.READS)
+        t0 = time.perf_counter()
+        path = convert_mc_files(exp_yaml, fmt)
+        t1 = time.perf_counter()
+        other = build_experiment(Config.from_file(str(path)), device=dev).model
+        t2 = time.perf_counter()
+        reads = {k: nativeio.READS[k] - before[k] for k in before}
+        if reads != {"native": len(model.samples), "numpy": 0}:
+            raise AssertionError(f"exp:io {fmt}: readers {reads}, not the native library for "
+                                 f"each of the {len(model.samples)} files")
+        for a, b in zip(model.samples, other.samples):
+            sa, sb = a.state_dict(), b.state_dict()
+            same = sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+            if not same or a.kernel_route != b.kernel_route:
+                raise AssertionError(f"exp:io {fmt}: {a.name} differs from the .npz build")
+        phase(f"[exp:io] {fmt}: MC written in {t1 - t0:.2f} s, experiment built from it in "
+              f"{t2 - t1:.2f} s, files read by the native library {reads}; every sample's "
+              f"buffers and Asimov histogram at prefit bit-identical to the .npz build's "
+              f"(library {nativeio.library_path().name}, loaded in {lib_s:.2f} s) | {smi}")
+        del other
+
+
+def polygons() -> list:
+    out = []
+    for i in range(len(POLY_COLUMNS) - 1):
+        x0, x1, y0, y1 = POLY_COLUMNS[i], POLY_COLUMNS[i + 1], POLY_CUTS[i], POLY_CUTS[i + 1]
+        out.append([(x0, -1.0), (x1, -1.0), (x1, y1), (x0, y0)])
+        out.append([(x0, y0), (x1, y1), (x1, 1.0), (x0, 1.0)])
+    return out
+
+
+def exp_polygon(model, thetas, smi: str) -> None:
+    """Polygon bins (``PolygonBinning``, TH2Poly's class) over (e_reco,
+    cos_theta) on two of the experiment's samples: numu_nd (no shift:
+    bins found once, the shared kernel under its plan) and numu_2d (an
+    energy scale and an offset: bins found per step by plain torch ops and
+    given to the per-chain kernel, K5's bins-given form). Each kernel against
+    its plain version on the same arguments, and the NLLs through the kernels
+    against the plain route with the sample's Asimov data. Comparisons, not
+    the path's launches."""
+    import torch
+
+    from mach3_tpu_torch.samples.binning import PolygonBinning
+
+    by_name = {s.name: s for s in model.samples}
+    prefit = model.prefit_vector()
+    all_tables = model._shared_osc_tables(thetas)
+    for name, route in (("numu_nd", "shared"), ("numu_2d", "generic")):
+        s = by_name[name].with_binning(PolygonBinning.build(polygons(), axis_vars=[1, 2]))
+        if s.kernel_route.variant != route or s.bin_map is not None:
+            raise AssertionError(f"exp:polygon {name}: route {s.kernel_route.variant}, bin map "
+                                 f"{s.bin_map is not None}; want {route} with the bins given")
+        s.set_data(s.asimov_data(prefit))
+        tables = all_tables[[x.name for x in model.samples].index(name)]
+        kname, kern, ref, make_args = kernel_of(s)
+        args, kw = make_args(thetas, tables)
+        got, want = kern(*args, **kw), ref(*args, **kw)
+        worst = max(compare(x, y, K_RTOL, K_ATOL_FRAC, f"{name} polygon {h}")[2]
+                    for x, y, h in zip(got, want, ("mc", "w2")))
+        nll_k = s._stat_sum(*got)
+        mc_p, w2_p = s.reweight_batch_plain(thetas, tables)
+        d = (nll_k - s._stat_sum(mc_p, w2_p)).abs()
+        nll_worst = float((d / nll_tolerance(s, mc_p, w2_p)).max())
+        if nll_worst > 1.0:
+            raise AssertionError(f"exp:polygon {name}: NLL through the kernel {float(d.max()):.3e}"
+                                 f" from the plain route ({nll_worst:.2f}x the tolerance)")
+        form = "bins given [C, E] by plain torch ops" if route == "generic" else "static bins"
+        phase(f"[exp:polygon] {name}: {s.n_bins} polygon bins, route {route} ({kname}, {form}):"
+              f" kernel vs plain within {worst:.3f} of tol; NLL through the kernel vs the plain "
+              f"route {float(d.max()):.3e} ({nll_worst:.3f} of tol) at {thetas.shape[0]} chains "
+              f"| {smi}")
+
+
+def exp_sparse(dev, smi: str) -> None:
+    """``build_toy(dense_splines=False)`` on the card: sparse spline tables,
+    whose samples take the plain route (the JAX package's routing for such a
+    sample: its route and reason printed); its NLLs at prefit and at
+    jittered θ against the dense toy's through K1, within each sample's NLL
+    tolerance (the kernel's histogram tolerance through the statistic)."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.tutorial.toy import build_toy
+
+    t0 = time.perf_counter()
+    sparse = build_toy(n_events=N_EVENTS, seed=SEED, e_grid_size=E_GRID, device=dev,
+                       dense_splines=False).model
+    built_s = time.perf_counter() - t0
+    dense = build_toy(n_events=N_EVENTS, seed=SEED, e_grid_size=E_GRID, device=dev).model
+    routes = [(s.kernel_route.variant, s.kernel_route.reason) for s in sparse.samples]
+    if any(r[0] != "xla" for r in routes):
+        raise AssertionError(f"exp:sparse: sparse-table samples must take the plain route: "
+                             f"{routes}")
+    thetas = torch.as_tensor(jitter_init(dense, N_CHAINS, np.random.default_rng(5)), device=dev)
+    thetas[0] = dense.prefit_vector()
+    with torch.no_grad():
+        _, _, parts = sparse.total_nll_batch_parts(thetas)
+        tables = dense._shared_osc_tables(thetas)
+        worst, d_max = 0.0, 0.0
+        for i, s in enumerate(dense.samples):
+            mc_d, w2_d = s.reweight_batch(thetas, tables[i])
+            d = (parts[:, i] - s._stat_sum(mc_d, w2_d)).abs()
+            worst = max(worst, float((d / nll_tolerance(s, mc_d, w2_d)).max()))
+            d_max = max(d_max, float(d.max()))
+    if worst > 1.0:
+        raise AssertionError(f"exp:sparse: sparse NLLs {d_max:.3e} from the dense toy's "
+                             f"({worst:.2f}x the tolerance)")
+    widths = [s.spline_table.event_splines.shape[1] for s in sparse.samples]
+    phase(f"[exp:sparse] build_toy(dense_splines=False) in {built_s:.1f} s: "
+          + "; ".join(f"{s.name}: {s.spline_table.n_splines} splines, width {w}, route "
+                      f"{r[0]} ({r[1]})" for s, w, r in zip(sparse.samples, widths, routes))
+          + f"; NLLs at prefit and {N_CHAINS - 1} jittered θ vs the dense toy's through K1: max "
+          f"|d| {d_max:.3e} ({worst:.3f} of tol) | {smi}")
+
+
+def large700_path(dev, smi: str) -> None:
+    """``build_large700()`` on the card, then its phases: kernels against
+    their plain versions, the Asimov check and NLLs vs the plain route;
+    ``total_nll_batch`` at 32 and 128 chains; pooled adaptive MR2T2 as a
+    graph and as the eager loop; each sample's kernel time and bound; one
+    gradient evaluation; the fixture cache's round trip."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
+    from mach3_tpu_torch.tutorial.large import build_large700
+
+    rss0 = peak_rss_gib()
+    t0 = time.perf_counter()
+    exp = build_large700(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = exp.model
+    routes = [s.kernel_route.variant for s in model.samples]
+    table_bytes = sum(_nbytes(s.spline_table.coeffs) for s in model.samples)
+    phase(f"[large700] built in {build_s:.1f} s (host arrays and layouts, the move to the card "
+          f"and the Asimov data there); {model.n_params} params, "
+          f"{sum(int((~s.event_pad).sum()) for s in model.samples)} events "
+          f"({sum(s.n_events for s in model.samples)} laid out), "
+          f"{sum(s.n_bins for s in model.samples)} bins; "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card, of it "
+          f"{table_bytes / 2**30:.3f} GiB of bf16 tables; host peak resident memory of the "
+          f"process {rss0:.2f} GiB before the build, {peak_rss_gib():.2f} GiB after | {smi}")
+    for s in model.samples:
+        phase(f"[large700] {s.name}: E={s.n_events} B={s.n_bins} "
+              f"P={s.spline_table.n_spline_params} NA={s.norm_s.shape[0] - 1} route="
+              f"{s.kernel_route.variant} ({s.kernel_route.reason});{layout_info(s)}")
+    if routes != L7_ROUTES or model.n_params != 700:
+        raise AssertionError(f"large700: routes {routes} (want {L7_ROUTES}), "
+                             f"{model.n_params} params")
+    rng = np.random.default_rng(0)
+    thetas = torch.as_tensor(jitter_init(model, L7_CHAINS, rng), device=dev)
+    names = ["reweight_shared", "reweight_perchain_kernel"]
+
+    with torch.no_grad():
+        tables = model._shared_osc_tables(thetas)
+        checked = kernels_vs_plain("large700", model, thetas, tables, smi)
+        nue = model.samples[1]
+        plan_vs_trivial("large700", nue, checked[nue.name], smi)
+        _, _, asimov = model.total_nll_batch_parts(model.prefit_vector()[None])
+        phase(f"[large700:asimov] per-sample NLL at prefit through the kernels "
+              f"{[f'{float(v):.3e}' for v in asimov[0]]} (bound {ASIMOV_ATOL}) | {smi}")
+        if not float(asimov.abs().max()) < ASIMOV_ATOL:
+            raise AssertionError(f"large700 Asimov NLL at prefit {asimov.tolist()}")
+        nll_vs_plain("large700", model, thetas, tables, smi)
+        for c in L7_NLL_CHAINS:
+            th = thetas[:c].contiguous()
+            model.total_nll_batch(th)
+            ms = cuda_ms(lambda: model.total_nll_batch(th), L7_NLL_ITERS)
+            phase(f"[large700:total-nll] total_nll_batch at {c} chains: {ms:.3f} ms "
+                  f"({1e3 * c / ms:.1f} chain-NLLs/s; CUDA events over {L7_NLL_ITERS} calls) "
+                  f"| {smi}")
+
+    cfg = MCMCConfig(chunk_size=L7_CHUNK, **L7_ADAPTIVE)
+    init = thetas.cpu().numpy()
+    fit = MR2T2(model, cfg, init, seed=6)
+    fit.run(n_steps=L7_WARM, collect=False)
+    saved = snapshot(fit.state)
+    g = run_sampler("large700:adaptive", "graph", fit, 0, L7_STEPS, L7_LAUNCHES, smi,
+                    (ACC_MIN, 0.99))
+    profile_steps("large700:adaptive", "graph", fit, g["step_ms"], names, smi)
+    del fit
+    eager = MR2T2(model, cfg, init, seed=6, graph=False)
+    eager.state = snapshot(saved)
+    e = run_sampler("large700:adaptive", "eager", eager, 0, L7_EAGER_STEPS, L7_LAUNCHES, smi)
+    profile_steps("large700:adaptive", "eager", eager, e["step_ms"], names, smi, op_table=True)
+    del eager, saved
+    phase(f"[large700:graph-speedup] {e['step_ms'] / g['step_ms']:.2f}x: eager "
+          f"{e['step_ms']:.3f} -> graph {g['step_ms']:.3f} ms/step | {smi}")
+
+    with torch.no_grad():
+        for s in model.samples:
+            a, kw, _ = checked[s.name]
+            time_kernel("large700", s, a, kw, smi)
+    del checked, tables
+
+    th = thetas[:L7_GRAD_CHAINS].contiguous()
+    with torch.no_grad():
+        tables = model._shared_osc_tables(th)
+    backward_vs_plain("large700", model, th, tables, smi)
+    torch.cuda.reset_peak_memory_stats()
+    posterior_grad_vs_plain("large700", model, th, L7_GRAD_LAUNCHES, smi)
+    phase(f"[large700:grad-memory] peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+          f"the card over the gradient through the kernels and through the plain route at "
+          f"{L7_GRAD_CHAINS} chains | {smi}")
+    del tables
+    fixture_round_trip("large700", exp, thetas[:L7_ROUND_TRIP_CHAINS].contiguous(), dev, smi)
+
+
+def fixture_round_trip(tag: str, exp, thetas, dev, smi: str) -> None:
+    """The built fixture written by the fixture cache (``save_fixture``) and
+    read back onto the card (``load_fixture``): every buffer bit-identical,
+    every route alike, and the per-sample NLLs through the plain route under
+    PyTorch's deterministic algorithms equal bit for bit; the seconds and
+    bytes of both directions."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mach3_tpu_torch.core.fixture_cache import load_fixture, save_fixture
+
+    def plain_nlls(model):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            tables = model._shared_osc_tables(thetas)
+            return torch.stack([s.log_likelihood_batch_plain(thetas, tables[i])
+                                for i, s in enumerate(model.samples)], dim=1)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{tag}.pt")
+        t0 = time.perf_counter()
+        save_fixture(path, exp)
+        t1 = time.perf_counter()
+        n_bytes = os.path.getsize(path)
+        loaded = load_fixture(path, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    a, b = exp.model.state_dict(), loaded.model.state_dict()
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError(f"{tag}:fixture-cache: a buffer differs after the round trip")
+    if [s.kernel_route for s in exp.model.samples] != \
+            [s.kernel_route for s in loaded.model.samples]:
+        raise AssertionError(f"{tag}:fixture-cache: the routes differ after the round trip")
+    with torch.no_grad():
+        n_a, n_b = plain_nlls(exp.model), plain_nlls(loaded.model)
+    if not torch.equal(n_a, n_b):
+        raise AssertionError(f"{tag}:fixture-cache: NLLs differ after the round trip by "
+                             f"{float((n_a - n_b).abs().max()):.3e}")
+    phase(f"[{tag}:fixture-cache] saved {n_bytes / 2**30:.3f} GiB in {t1 - t0:.1f} s "
+          f"({n_bytes / 2**30 / (t1 - t0):.2f} GiB/s), loaded onto the card in {t2 - t1:.1f} s "
+          f"({n_bytes / 2**30 / (t2 - t1):.2f} GiB/s); {len(a)} buffers bit-identical, routes "
+          f"alike, per-sample NLLs at {thetas.shape[0]} chains (plain route, deterministic) "
+          f"equal bit for bit | {smi}")
+    del loaded
+
+
 def main() -> int:
     import torch
 
@@ -1680,6 +2016,7 @@ def main() -> int:
     toy_grads = results.pop("grad")
     results.update(exp_path(dev, smi))
     exp_grads = results.pop("grad")
+    exp_sparse(dev, smi)
     exp_cli(dev, smi)
     large_results, model = large_path(dev, smi)
     results.update(large_results)
@@ -1690,6 +2027,9 @@ def main() -> int:
               plain_ms=sum(v[3] for v in grads.values()), **summed([v[4] for v in grads.values()]))
     results["K6a"] = dict(k6, max_abs_err=max(v[0] for v in every.values()))  # ḡ_base
     results["K6b"] = dict(k6, max_abs_err=max(v[1] for v in every.values()))  # ḡ_t
+    del model
+    torch.cuda.empty_cache()
+    large700_path(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": NAMES.get(k, SOURCES[k]), "route": "cuda",

@@ -6,8 +6,9 @@ attribute. JAX shift callables cannot cross: each shift becomes one of the
 port's named kinds (``splines/reweight.SHIFT_KINDS``), found by evaluating
 the JAX callable on a few numpy values; a shift of no named kind and every
 weight-valued function (closures over JAX code) raise — build such a model
-from the same experiment files with the port's ``build_experiment``. TF1
-tables and hyper-rectangle binnings cross as arrays.
+from the same experiment files with the port's ``build_experiment``. Dense
+and sparse spline tables, TF1 tables, and hyper-rectangle and polygon
+binnings cross as arrays.
 
 A shared-route sample arrives sorted and padded for JAX's own event tile
 (its pad events carry zero weight); the port lays it out again for its own
@@ -22,11 +23,11 @@ import torch
 from .core.precision import FTYPE
 from .fitters.model import FitModel
 from .params.state import _FIELDS, PriorModel
-from .samples.binning import NonUniformBinning, SampleBinning
+from .samples.binning import NonUniformBinning, PolygonBinning, SampleBinning
 from .samples.events import assemble_sample
 from .samples.sample import AtmoOscConfig, OscConfig, ShiftSpec
 from .samples.teststats import TestStatistic
-from .splines.monolith import DenseSplineTable
+from .splines.monolith import DenseSplineTable, SparseSplineTable
 from .splines.reweight import SHIFT_KINDS
 from .splines.tf1 import TF1Table
 
@@ -80,7 +81,8 @@ def _binning(jb):
         return NonUniformBinning(_tensor(jb.cell_edges), _np(jb.n_cells_axis),
                                  _np(jb.cell_strides), _np(jb.cell_to_bin), _np(jb.axis_vars),
                                  jb.n_bins, _np(jb.extents))
-    raise NotImplementedError(f"{type(jb).__name__} is not ported (ROADMAP)")
+    return PolygonBinning(_tensor(jb.ex1), _tensor(jb.ey1), _tensor(jb.ex2), _tensor(jb.ey2),
+                          _np(jb.edge_poly), _np(jb.axis_vars), jb.n_bins, jb.polygons or ())
 
 
 def _osc(jo) -> OscConfig | AtmoOscConfig | None:
@@ -109,11 +111,14 @@ def _sample(js):
                                   + _FROM_FILES)
     jt = js.spline_table
     table = None
-    if jt is not None:
-        if not hasattr(jt, "coeffs"):
-            raise NotImplementedError(f"{js.name}: only dense spline tables are ported")
+    if jt is not None and hasattr(jt, "coeffs"):
         table = DenseSplineTable(
             _tensor(jt.coeffs), _tensor(jt.knots_x), _np(jt.n_knots), _np(jt.param_index)
+        )
+    elif jt is not None:
+        table = SparseSplineTable(
+            _tensor(jt.spline_coeffs), _np(jt.spline_param), _np(jt.event_splines),
+            _tensor(jt.knots_x), _np(jt.n_knots), _np(jt.param_index)
         )
     tf1 = js.tf1_table
     if tf1 is not None:

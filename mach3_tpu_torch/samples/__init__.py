@@ -2,7 +2,7 @@
 construction. Only the leaf modules are re-exported here (``splines.reweight``
 imports ``samples.binning``); import ``samples.sample`` / ``samples.events``
 directly."""
-from .binning import SampleBinning, histogram
+from .binning import NonUniformBinning, PolygonBinning, SampleBinning, histogram
 from .teststats import (
     TestStatistic,
     barlow_beeston_llh,
@@ -15,6 +15,8 @@ from .teststats import (
 )
 
 __all__ = [
+    "NonUniformBinning",
+    "PolygonBinning",
     "SampleBinning",
     "histogram",
     "TestStatistic",

@@ -36,7 +36,7 @@ from ..splines.reweight import (
     perchain_smem_bytes,
 )
 from ..splines.tf1 import TF1Table
-from .binning import NonUniformBinning, SampleBinning
+from .binning import NonUniformBinning, PolygonBinning, SampleBinning
 from .routing import choose_kernel_route
 from .sample import AtmoOscConfig, BinMap, OscConfig, SampleModel, ShiftSpec, WeightSpec
 from .teststats import TestStatistic
@@ -357,7 +357,7 @@ def build_sample_model(
     data: np.ndarray | None = None,
     test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
     use_kernel: bool | str = "auto",
-    binning: SampleBinning | NonUniformBinning | None = None,
+    binning: SampleBinning | NonUniformBinning | PolygonBinning | None = None,
     stat_dtype=None,
 ) -> SampleModel:
     """Assemble the static SampleModel tensors on the CPU (the builders of
@@ -365,8 +365,11 @@ def build_sample_model(
 
     var_order fixes the row layout of the kinematics matrix; binning_vars
     and ``ShiftSpec.var_row`` refer to its rows. ``binning`` (a prebuilt
-    ``NonUniformBinning`` or ``SampleBinning``, its axis_vars rows of
-    var_order) replaces the rectangular binning of ``binning_edges``.
+    ``NonUniformBinning``, ``PolygonBinning`` or ``SampleBinning``, its
+    axis_vars rows of var_order) replaces the rectangular binning of
+    ``binning_edges``. Polygon bins that no shift moves are found once here
+    (the shared route); under a shift they are found per step by plain
+    torch ops and given to the per-chain kernel (the generic route).
     Each ``WeightSpec`` carries its event mask [E]. use_kernel: ``"auto"`` /
     ``True`` route to a kernel where one fits, ``False`` forces the plain
     route (``routing.choose_kernel_route``)."""
@@ -442,8 +445,11 @@ def _static_part(axes: list, rows: list, kin: np.ndarray, moved) -> np.ndarray:
 
 def _bin_map(name: str, shifted_binned: list, binning, kin: np.ndarray):
     """(:class:`BinMap`, static base [E]) of a sample whose binned axes only
-    shifts of named kinds move, or None (with the reason logged): a shift
-    that is torch code, or a map past the kernels' limits."""
+    shifts of named kinds move, or None (with the reason logged): polygon
+    bins, a shift that is torch code, or a map past the kernels' limits."""
+    if isinstance(binning, PolygonBinning):
+        _log.info("%s: per-chain bins given to the kernel as input (polygon bins)", name)
+        return None
     rows = list(binning.axis_vars)
     unnamed = [s for s in shifted_binned if s.kind not in SHIFT_KINDS]
     axes, cells = _binning_axes(binning)
@@ -524,7 +530,7 @@ def _map_fits(name: str, arrays: dict, bin_map: BinMap, n_bins: int) -> bool:
 def assemble_sample(
     name: str,
     arrays: dict,
-    binning: SampleBinning | NonUniformBinning,
+    binning: SampleBinning | NonUniformBinning | PolygonBinning,
     *,
     shifts: tuple = (),
     weight_fns: tuple = (),

@@ -5,7 +5,8 @@ The reference's experiment-definition pipeline
 (``Samples/SampleHandlerFD.cpp:169-202``: ``ReadConfig -> SetupExperimentMC
 -> SetBinning -> SetupSplines -> SetupNormParameters -> ...``, plus the
 covariance and sample factories of ``Fitters/MaCh3Factory.h:69-157``) as one
-declarative YAML tree: event columns from ``.npz`` files, spline and TF1
+declarative YAML tree: event columns from ``.npz``, ``.m3evt`` or ``.csv``
+files (the last two through ``core/nativeio.py``), spline and TF1
 responses from per-sample ``.npz`` files, functional shifts and weight
 functions picked by name from registries (extensible with
 :func:`register_shift` and :func:`register_weight_fn`). The schema is the
@@ -19,7 +20,8 @@ JAX package's (``docs/TUTORIAL.md`` §3):
         - File: osc.yaml
       Samples:
         - Name: numu_sample
-          MCFile: numu.npz         # kinematic columns + mode/target/pdg/preosc_pdg/mc_weight
+          MCFile: numu.npz         # or .m3evt / .csv: kinematic columns +
+                                   # mode/target/pdg/preosc_pdg/mc_weight
           VarOrder: [e_true, e_reco]
           Binning:
             Vars: [e_reco]
@@ -52,6 +54,7 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
+from ..core import nativeio
 from ..core.config import Config
 from ..core.device import target_device
 from ..core.exceptions import ConfigError
@@ -129,12 +132,12 @@ def _load_columns(path: str) -> dict[str, np.ndarray]:
     if path.endswith(".npz"):
         with np.load(path, allow_pickle=False) as f:
             return {k: np.asarray(f[k]) for k in f.files}
-    if path.endswith((".csv", ".m3evt")):
-        raise ConfigError(
-            f"{path}: .csv and .m3evt MC files are read through the native IO library "
-            "(mach3_tpu/core/nativeio.py), which is not ported yet (ROADMAP, Queue 1 Next: "
-            "the rest of reference scale); write the columns to an .npz file"
-        )
+    if path.endswith(".csv"):
+        with open(path) as f:
+            header = f.readline().strip().split(",")
+        return nativeio.parse_csv(path, header)
+    if path.endswith(".m3evt"):
+        return nativeio.read_events(path)
     raise ConfigError(f"Unknown MC file format: {path} (.npz/.csv/.m3evt)")
 
 

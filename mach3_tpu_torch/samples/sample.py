@@ -12,7 +12,8 @@ On the ``shifted``, ``shared`` and ``generic`` routes the middle line is a
 fused CUDA kernel (``splines/reweight.py``: in-kernel binning of one shifted
 axis, static bins, or per-chain bins — formed in the kernel from a
 :class:`BinMap` when every shift of a binned axis is a named kind, else
-computed here as plain torch ops); the ``xla`` route and the unbatched
+computed here as plain torch ops, as for polygon bins); the ``xla`` route
+(a sparse spline table's, as in the JAX package) and the unbatched
 ``reweight`` run it as plain torch ops.
 Static arrays are registered buffers, so ``SampleModel.to(device)`` moves a
 sample.
@@ -33,7 +34,7 @@ from ..osc.prob import (
     probabilities_layered,
     z_group_order,
 )
-from ..splines.eval import eval_dense, find_segments
+from ..splines.eval import eval_table, find_segments
 from ..splines.grad import (
     fused_reweight_diff,
     fused_reweight_diff_perchain,
@@ -46,7 +47,7 @@ from ..splines.reweight import (
     fused_reweight_histogram_shared,
     fused_reweight_histogram_shifted,
 )
-from .binning import NonUniformBinning, SampleBinning, histogram
+from .binning import NonUniformBinning, PolygonBinning, SampleBinning, histogram
 from .routing import KernelRoute
 from .teststats import TestStatistic, get_test_stat_fn
 
@@ -56,6 +57,18 @@ ShiftFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 #: A weight-valued functional response: (param_value [C, 1], nominal kin
 #: [V, E]) -> weight [C, E].
 WeightFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedShiftFn:
+    """The plain torch form of a named shift kind, as a ``ShiftFn``; an
+    object, not a closure, so that a built model pickles
+    (``core/fixture_cache.py``)."""
+
+    kind: str
+
+    def __call__(self, value: torch.Tensor, x: torch.Tensor, kin: torch.Tensor) -> torch.Tensor:
+        return SHIFT_KINDS[self.kind][1](value, x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +89,9 @@ class ShiftSpec:
     @classmethod
     def named(cls, kind: str, param_index: int, var_row: int) -> "ShiftSpec":
         """The shift of kind ``kind`` (a key of ``SHIFT_KINDS``)."""
-        plain = SHIFT_KINDS[kind][1]
-        return cls(kind, lambda value, x, kin: plain(value, x), param_index, var_row)
+        if kind not in SHIFT_KINDS:
+            raise KeyError(f"no shift kind {kind!r} (kinds: {sorted(SHIFT_KINDS)})")
+        return cls(kind, NamedShiftFn(kind), param_index, var_row)
 
     @classmethod
     def scale(cls, param_index: int, var_row: int) -> "ShiftSpec":
@@ -494,7 +508,7 @@ class SampleModel(nn.Module):
         """Per-event (weight [C, E], bin [C, E]) before the histogram fill."""
         w = self.mc_weight * self._norm_weights(thetas)
         if self.spline_table is not None:
-            w = w * eval_dense(self.spline_table, thetas)
+            w = w * eval_table(self.spline_table, thetas)
         w = self._functional_weights(w * self._osc_weights(thetas, osc_grids), thetas)
         if self.static_bins is not None:
             return w, self.static_bins.expand(w.shape)
@@ -692,7 +706,8 @@ class SampleModel(nn.Module):
         ``MaCh3Factory.h:134-157``), f64 [B]."""
         return self.reweight(params)[0].to(ATYPE)
 
-    def with_binning(self, binning: SampleBinning | NonUniformBinning) -> "SampleModel":
+    def with_binning(self, binning: SampleBinning | NonUniformBinning | PolygonBinning
+                     ) -> "SampleModel":
         """The same sample under another binning (on this sample's device,
         data zeroed): the static bins, the kernel route and, on the shared
         and shifted routes, the whole event layout and plan are rebuilt for

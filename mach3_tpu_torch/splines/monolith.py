@@ -1,13 +1,23 @@
-"""Dense spline monolith (port of ``mach3_tpu/splines/monolith.py``, dense part).
+"""Spline monoliths (port of ``mach3_tpu/splines/monolith.py``).
 
 The reference's ``SMonolith`` (``Splines/SplineMonolith.cpp:53-250``) flattens
-per-event response splines into SoA arrays. The dense layout stores every
-(parameter, knot, event) coefficient: ``coeffs [P, K*4, E]`` with rows
-``k*4 + (0, 1, 2, 3)`` = (y, b, c, d) of segment k. Missing (event, param)
-splines hold identity coefficients (y=1, b=c=d=0), so the per-event product
-over parameters needs no index map. ``dense_table_activity`` gives the
-table's sparsity pattern, which the shared route's layout exploits
-(``splines/plan.py``). The sparse table waits (ROADMAP).
+per-event response splines into SoA arrays. Two layouts:
+
+* **Dense** (:class:`DenseSplineTable`): every (parameter, knot, event)
+  coefficient, ``coeffs [P, K*4, E]`` with rows ``k*4 + (0, 1, 2, 3)`` =
+  (y, b, c, d) of segment k. Missing (event, param) splines hold identity
+  coefficients (y=1, b=c=d=0), so the per-event product over parameters
+  needs no index map. ``dense_table_activity`` gives the table's sparsity
+  pattern, which the kernel routes' layouts exploit (``splines/plan.py``).
+* **Sparse** (:class:`SparseSplineTable`): only the splines that are not
+  flat, a flat list ``spline_coeffs [S+1, K, 4]`` and a padded per-event
+  gather map ``event_splines [E, W]`` into it (the reference's
+  ``cpu_nParamPerEvent`` map as a rectangle); row S is the unit spline that
+  padding points at. A sample with a sparse table takes the plain route.
+
+``save_table`` / ``load_table`` write and read either as the JAX package's
+versioned ``.npz`` (the reference's preprocessed-monolith file,
+``Splines/SplineMonolith.h:48-52``), so each package loads the other's.
 """
 from __future__ import annotations
 
@@ -125,6 +135,160 @@ def build_dense_table(
         n_knots=n_knots,
         param_index=[s.param_index for s in specs],
     )
+
+
+class SparseSplineTable(nn.Module):
+    """Buffers: spline_coeffs [S+1, Kmax, 4] f32 (row S the unit spline,
+    response 1 everywhere), spline_param [S+1] i64 (each spline's parameter,
+    a row of ``knots_x``), event_splines [E, W] i64 (each event's splines,
+    padded with S), knots_x [P, Kmax] f32 padded with +inf, n_knots [P] i64,
+    param_index [P] i64 (into the proposal vector)."""
+
+    def __init__(self, spline_coeffs, spline_param, event_splines, knots_x, n_knots,
+                 param_index):
+        super().__init__()
+        self.register_buffer("spline_coeffs", torch.as_tensor(spline_coeffs))
+        self.register_buffer("spline_param", torch.as_tensor(spline_param, dtype=torch.long))
+        self.register_buffer("event_splines", torch.as_tensor(event_splines, dtype=torch.long))
+        self.register_buffer("knots_x", torch.as_tensor(knots_x, dtype=FTYPE))
+        self.register_buffer("n_knots", torch.as_tensor(n_knots, dtype=torch.long))
+        self.register_buffer(
+            "param_index", torch.as_tensor(param_index, dtype=torch.long)
+        )
+
+    @property
+    def n_splines(self) -> int:
+        return self.spline_coeffs.shape[0] - 1
+
+    @property
+    def n_spline_params(self) -> int:
+        return self.knots_x.shape[0]
+
+    @property
+    def n_events(self) -> int:
+        return self.event_splines.shape[0]
+
+
+def is_flat(y_knots: np.ndarray) -> np.ndarray:
+    """Mask of splines whose response is identically 1 (the reference drops
+    these from the monolith, ``SplineMonolith.cpp:53-250``)."""
+    return np.all(np.asarray(y_knots) == 1.0, axis=-1)
+
+
+def spline_rows(y, b, c, d, kmax: int) -> np.ndarray:
+    """[S, kmax, 4] f32 coefficient rows of S splines of K knots (each of
+    y, b, c, d [S, K]); knots past K repeat the last one, so a clamped
+    segment index stays right."""
+    k = y.shape[1]
+    rows = np.zeros((y.shape[0], kmax, 4), np.float32)
+    for j, v in enumerate((y, b, c, d)):
+        rows[:, :k, j] = v
+    if k < kmax:
+        rows[:, k:] = rows[:, k - 1 : k]
+    return rows
+
+
+def unit_spline(kmax: int) -> np.ndarray:
+    """The [1, kmax, 4] rows of the unit spline: y = 1, b = c = d = 0."""
+    unit = np.zeros((1, kmax, 4), np.float32)
+    unit[..., 0] = 1.0
+    return unit
+
+
+def build_sparse_table(
+    specs: Sequence[SplineParamSpec], n_events: int, drop_flat: bool = True
+) -> SparseSplineTable:
+    """The sparse table of ``specs``: one row per (parameter, event) spline
+    that is not flat (``drop_flat``), numbered parameter by parameter in
+    ``event_ids`` order; each event's row of ``event_splines`` lists its
+    splines in that order, padded with the unit spline S."""
+    knots_x, n_knots = _stack_param_knots(specs)
+    kmax = knots_x.shape[1]
+    blocks, params, events = [], [], []
+    for p, spec in enumerate(specs):
+        y, b, c, d = _spec_coefficients(spec)
+        keep = ~is_flat(y) if drop_flat else np.ones(len(y), bool)
+        blocks.append(spline_rows(y[keep], b[keep], c[keep], d[keep], kmax))
+        params.append(np.full(int(keep.sum()), p, np.int64))
+        events.append(np.asarray(spec.event_ids, np.int64)[keep])
+    blocks.append(unit_spline(kmax))
+    coeffs = np.concatenate(blocks)
+    spline_event = np.concatenate(events) if events else np.zeros(0, np.int64)
+    n_splines = len(spline_event)
+    event_splines = gather_map(spline_event, n_events, n_splines)
+    _log.info("Sparse spline table: %d splines (of %d possible), width %d, %.1f MB", n_splines,
+              sum(len(s.event_ids) for s in specs), event_splines.shape[1], coeffs.nbytes / 1e6)
+    return SparseSplineTable(
+        spline_coeffs=torch.from_numpy(coeffs),
+        spline_param=np.concatenate(params + [np.zeros(1, np.int64)]),
+        event_splines=event_splines,
+        knots_x=torch.from_numpy(knots_x),
+        n_knots=n_knots,
+        param_index=[s.param_index for s in specs],
+    )
+
+
+def gather_map(spline_event: np.ndarray, n_events: int, pad: int) -> np.ndarray:
+    """[E, W] i64: each event's splines (``spline_event[s]`` is spline s's
+    event) in increasing s, padded with ``pad``; W is the most any event has
+    (at least 1)."""
+    counts = np.bincount(spline_event, minlength=n_events)
+    width = max(1, int(counts.max(initial=0)))
+    out = np.full((n_events, width), pad, np.int64)
+    order = np.argsort(spline_event, kind="stable")
+    ev = spline_event[order]
+    rank = np.arange(len(ev)) - np.searchsorted(ev, ev)
+    out[ev, rank] = order
+    return out
+
+
+# Preprocessed-monolith files: the JAX package's format, field names and
+# dtypes (integers as int32), so each package reads the other's.
+_MONOLITH_FORMAT = 2
+_TABLE_FIELDS = {
+    "dense": ("coeffs", "knots_x", "n_knots", "param_index"),
+    "sparse": ("spline_coeffs", "spline_param", "event_splines", "knots_x", "n_knots",
+               "param_index"),
+}
+
+
+def save_table(path: str, table: DenseSplineTable | SparseSplineTable) -> None:
+    """Write a built spline table (``np.savez_compressed``; a bf16 field is
+    stored as f32 and named in ``__bf16__``)."""
+    kind = "dense" if isinstance(table, DenseSplineTable) else "sparse"
+    fields, bf16 = {}, []
+    for name in _TABLE_FIELDS[kind]:
+        v = getattr(table, name).detach().cpu()
+        if v.dtype == torch.bfloat16:
+            bf16.append(name)
+            v = v.float()
+        a = v.numpy()
+        fields[name] = a.astype(np.int32) if a.dtype.kind == "i" else a
+    np.savez_compressed(path, __format__=np.int32(_MONOLITH_FORMAT), __kind__=np.array(kind),
+                        __bf16__=np.array(",".join(bf16)), **fields)
+    _log.info("Saved %s spline table to %s", kind, path)
+
+
+def load_table(path: str) -> DenseSplineTable | SparseSplineTable:
+    """Read a table written by :func:`save_table` (of either package)."""
+    with np.load(path, allow_pickle=False) as f:
+        fmt = int(f["__format__"])
+        if fmt != _MONOLITH_FORMAT:
+            raise ValueError(f"{path}: spline-table format {fmt} != supported {_MONOLITH_FORMAT}")
+        kind = str(f["__kind__"])
+        bf16 = set(str(f["__bf16__"]).split(",")) if "__bf16__" in f.files else set()
+        arrays = {k: f[k] for k in _TABLE_FIELDS[kind]}
+    tensors = {}
+    for name, a in arrays.items():
+        t = torch.from_numpy(np.array(a))
+        if name in bf16:
+            t = t.to(torch.bfloat16)
+        elif a.dtype.kind == "f":
+            t = t.to(FTYPE)
+        tensors[name] = t
+    _log.info("Loaded %s spline table from %s", kind, path)
+    cls = DenseSplineTable if kind == "dense" else SparseSplineTable
+    return cls(**tensors)
 
 
 def dense_table_activity(table: DenseSplineTable) -> np.ndarray:

@@ -5,7 +5,9 @@
 ``write_experiment(dir)`` writes, from seeded numpy draws only, a
 systematics YAML, an oscillation YAML, per-sample ``.npz`` MC, spline and
 TF1 files and the experiment YAML, and returns the experiment YAML's path.
-It builds nothing. The events and spline responses are the toy's
+It builds nothing. ``convert_mc_files(yaml, fmt)`` writes the same MC as
+``.m3evt`` or ``.csv`` files (``core/nativeio.py``) beside an experiment
+YAML that names them. The events and spline responses are the toy's
 (``tutorial/toy.py``: the same generator, seed and order of draws as
 ``build_toy``), plus a ``cos_theta`` column from a generator of its own
 (seed + 1) and TF1 responses from another (seed + 2), so the toy's draws do
@@ -33,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import yaml
 
+from ..core import nativeio
 from ..core.config import Config
 from ..params.parameterset import ParameterSet
 from .toy import MODE_CCQE, MODE_CCRES, MODE_NC, _generate_events, _spline_specs
@@ -161,3 +164,29 @@ def write_experiment(directory, n_events: int = 100_000, seed: int = 42) -> Path
     path = d / "experiment.yaml"
     _write_yaml(path, experiment)
     return path
+
+
+def convert_mc_files(experiment_yaml, fmt: str) -> Path:
+    """Write every sample's ``.npz`` MC of ``experiment_yaml`` as a ``fmt``
+    file (``"m3evt"``: columnar binary, integer columns as int32; ``"csv"``:
+    a header line and each value as the 17 significant digits that give its
+    float64 back) beside it, and an experiment YAML naming those files;
+    return that YAML's path."""
+    if fmt not in ("m3evt", "csv"):
+        raise ValueError(f"MC format {fmt!r} is not m3evt or csv")
+    src = Path(experiment_yaml)
+    tree = yaml.safe_load(src.read_text())
+    for sample in tree["Experiment"]["Samples"]:
+        npz = Path(sample["MCFile"])
+        with np.load(npz, allow_pickle=False) as f:
+            columns = {k: np.asarray(f[k]) for k in f.files}
+        out = npz.with_suffix(f".{fmt}")
+        if fmt == "m3evt":
+            nativeio.write_events(str(out), {
+                k: v.astype(np.int32) if v.dtype.kind in "iub" else v for k, v in columns.items()})
+        else:
+            table = np.stack([v.astype(np.float64) for v in columns.values()], axis=1)
+            np.savetxt(out, table, fmt="%.17g", delimiter=",", header=",".join(columns),
+                       comments="")
+        sample["MCFile"] = str(out)
+    return Path(_write_yaml(src.with_name(f"{src.stem}_{fmt}.yaml"), tree))

@@ -1,6 +1,7 @@
-"""The reference-scale fixture: a 3-sample, 101-parameter, ~450k-event fit
-(port of ``build_large`` in ``mach3_tpu/tutorial/large.py``, built without
-jax).
+"""The reference-scale fixtures (port of ``mach3_tpu/tutorial/large.py``,
+built without jax).
+
+``build_large``: 3 samples, 101 parameters, ~450k events.
 
 * ``numu_beam``: 2-D (E_reco x theta_reco) binning, 48 x 24 = 1,152 bins, no
   functional shift -> static bins -> the shared kernel.
@@ -12,11 +13,23 @@ jax).
 
 Parameters: 30 normalisations (flux by E_true bin, xsec by mode x target, NC
 and nubar), 64 splines cycling the five interpolation families, mode- and
-sample-filtered, one energy scale, 6 oscillation parameters. The numpy random
-calls are the JAX package's, in the same order, so ``build_large(seed=s)``
-gives the same events, norm matches and spline tables there and here (before
-the shared route's event layout). The Asimov data come from the port's plain
-route at the prefit point. ``build_large700`` waits (ROADMAP).
+sample-filtered, one energy scale, 6 oscillation parameters.
+
+``build_large700``: the reference's upper envelope (``SURVEY.md`` §0,
+"10-700 dimensional"), 7 samples, 700 parameters, ~1.02M events, 5,364 bins:
+two beam detectors (``numu_a``/``numu_b`` as numu_beam, 1,152 bins, the shared
+kernel; ``nue_a``/``nue_b`` as nue_beam, 30 bins, a ``scale`` shift, the
+shifted kernel) and three atmospheric samples (``atmo_a``/``_b``/``_c`` as
+atmo, 1,000 bins, one grid signature). 37 norms (7 per-sample), 655 splines
+each applying to one sample (80-110 a sample), 2 energy scales, 6
+oscillation parameters; bf16 tables, each sample's norm axis compressed to
+the ~25 norms that match it.
+
+The numpy random calls are the JAX package's, in the same order, so a
+builder called with the same seed and sizes gives the same events, norm
+matches and spline tables there and here (before a kernel route's event
+layout). The Asimov data come from the port's plain route at the prefit
+point.
 """
 from __future__ import annotations
 
@@ -54,55 +67,58 @@ BEAM_SAMPLES = ["numu_beam", "nue_beam"]
 ATMO_SAMPLES = ["atmo"]
 
 
-def large_xsec_config(n_splines: int = 64) -> dict:
-    """Systematics YAML tree at reference scale (schema of
+def _norm(name: str, error: float, **extra) -> dict:
+    """A normalisation systematic (schema of
     ``Parameters/ParameterHandlerBase.cpp:277-317``)."""
-    systematics = []
+    syst = {
+        "Names": {"FancyName": name},
+        "ParameterValues": {"PreFitValue": 1.0},
+        "StepScale": {"MCMC": 0.05},
+        "Error": error,
+        "ParameterBounds": [0.0, 3.0],
+        "Type": "Norm",
+        "ParameterGroup": "Flux" if name.startswith("flux") else "Xsec",
+    }
+    syst.update(extra)
+    return {"Systematic": syst}
 
-    def norm(name, error, **extra):
-        syst = {
-            "Names": {"FancyName": name},
-            "ParameterValues": {"PreFitValue": 1.0},
-            "StepScale": {"MCMC": 0.05},
-            "Error": error,
-            "ParameterBounds": [0.0, 3.0],
-            "Type": "Norm",
-            "ParameterGroup": "Flux" if name.startswith("flux") else "Xsec",
-        }
-        syst.update(extra)
-        systematics.append({"Systematic": syst})
 
-    # Flux norms in E_true bins (the reference's flux covariance block).
+def _flux_and_xsec_norms(beam_samples: list, atmo_samples: list) -> list:
+    """The 30 norms of both fixtures: flux norms in E_true bins per beam
+    flavour (8 numu, 4 nue) and for the atmospheric samples (8), xsec norms
+    by mode x target (8), NC and nubar."""
+    out = []
     beam_edges = np.linspace(0.0, 3.0, 9)
     for b in range(8):
-        norm(
-            f"flux_numu_{b}", 0.08,
-            NeutrinoFlavourUnosc=[14, -14],
+        out.append(_norm(
+            f"flux_numu_{b}", 0.08, NeutrinoFlavourUnosc=[14, -14],
             KinematicCuts=[{"e_true": [float(beam_edges[b]), float(beam_edges[b + 1])]}],
-            SampleNames=BEAM_SAMPLES,
-        )
+            SampleNames=beam_samples))
     nue_edges = np.linspace(0.0, 3.0, 5)
     for b in range(4):
-        norm(
-            f"flux_nue_{b}", 0.10,
-            NeutrinoFlavourUnosc=[12, -12],
+        out.append(_norm(
+            f"flux_nue_{b}", 0.10, NeutrinoFlavourUnosc=[12, -12],
             KinematicCuts=[{"e_true": [float(nue_edges[b]), float(nue_edges[b + 1])]}],
-            SampleNames=BEAM_SAMPLES,
-        )
+            SampleNames=beam_samples))
     atmo_edges = np.geomspace(0.5, 100.0, 9)
     for b in range(8):
-        norm(
+        out.append(_norm(
             f"flux_atmo_{b}", 0.12,
             KinematicCuts=[{"e_true": [float(atmo_edges[b]), float(atmo_edges[b + 1])]}],
-            SampleNames=ATMO_SAMPLES,
-        )
-    # Xsec norms by mode x target, plus NC and nubar.
+            SampleNames=atmo_samples))
     for mode, mname in [(MODE_CCQE, "ccqe"), (MODE_CCRES, "ccres"),
                         (MODE_CCDIS, "ccdis"), (MODE_NC, "nc")]:
         for tgt, tname in [(12, "C"), (16, "O")]:
-            norm(f"norm_{mname}_{tname}", 0.12, Mode=[mode], TargetNuclei=[tgt])
-    norm("norm_nc_extra", 0.30, Mode=[MODE_NC])
-    norm("norm_nubar", 0.10, NeutrinoFlavour=[-12, -14, -16])
+            out.append(_norm(f"norm_{mname}_{tname}", 0.12, Mode=[mode], TargetNuclei=[tgt]))
+    out.append(_norm("norm_nc_extra", 0.30, Mode=[MODE_NC]))
+    out.append(_norm("norm_nubar", 0.10, NeutrinoFlavour=[-12, -14, -16]))
+    return out
+
+
+def large_xsec_config(n_splines: int = 64) -> dict:
+    """Systematics YAML tree at reference scale (schema of
+    ``Parameters/ParameterHandlerBase.cpp:277-317``)."""
+    systematics = _flux_and_xsec_norms(BEAM_SAMPLES, ATMO_SAMPLES)
 
     # Spline systematics cycling interpolation families, mode affinities and
     # sample applicability (every third beam-only, every third atmo-only).
@@ -368,5 +384,157 @@ def build_large(
             for s in samples:
                 s.set_data(s.asimov_data(prefit))
     model.to(dev)
+    names = [f"xsec_{n}" for n in xsec.names] + [f"osc_{n}" for n in osc.names]
+    return LargeExperiment(xsec=xsec, osc=osc, samples=samples, model=model, names=names)
+
+
+# --------------------------------------------------------------------------
+# The reference's upper envelope: ~700 parameters / ~1M events in seven
+# samples (many-sample joint fits; per-sample restriction is how the
+# reference's per-sample monoliths hold memory at large P).
+
+L7_BEAM = ["numu_a", "nue_a", "numu_b", "nue_b"]
+L7_ATMO = ["atmo_a", "atmo_b", "atmo_c"]
+L7_ALL = L7_BEAM + L7_ATMO
+
+
+def large700_config(n_splines: int = 655) -> dict:
+    """Systematics tree at the 700-parameter envelope: 37 norms, ``n_splines``
+    sample-partitioned splines and 2 energy scales (+6 oscillation
+    parameters from the shared osc config): 700 with the default."""
+    systematics = _flux_and_xsec_norms(L7_BEAM, L7_ATMO)
+    systematics += [_norm(f"det_{s}", 0.05, SampleNames=[s]) for s in L7_ALL]
+
+    # Each spline applies to exactly one sample (round-robin), cycling the
+    # interpolation families and mode affinities; numu samples select CC
+    # events only, so their splines take a CC mode.
+    for i in range(n_splines):
+        sample = L7_ALL[i % 7]
+        mode = _MODES[i % 3] if sample.startswith("numu") else _MODES[i % 4]
+        systematics.append({"Systematic": {
+            "Names": {"FancyName": f"spl_{i:03d}"},
+            "ParameterValues": {"PreFitValue": 0.0},
+            "StepScale": {"MCMC": 0.1},
+            "Error": 0.2 + 0.1 * (i % 3),
+            "ParameterBounds": [-3.0, 3.0],
+            "Type": "Spline",
+            "ParameterGroup": "Xsec",
+            "Mode": [mode],
+            "SampleNames": [sample],
+            "SplineInformation": {
+                "SplineName": f"spl_{i:03d}",
+                "InterpolationType": _FAMILIES[i % 5],
+            },
+        }})
+
+    for s in ["nue_a", "nue_b"]:
+        systematics.append({"Systematic": {
+            "Names": {"FancyName": f"escale_{s}"},
+            "ParameterValues": {"PreFitValue": 0.0},
+            "StepScale": {"MCMC": 0.2},
+            "Error": 0.02,
+            "ParameterBounds": [-0.3, 0.3],
+            "Type": "Functional",
+            "ParameterGroup": "Detector",
+            "SampleNames": [s],
+        }})
+    return {"Systematics": systematics}
+
+
+def build_large700(
+    n_numu: int = 180_000,
+    n_nue: int = 60_000,
+    n_atmo: int = 180_000,
+    n_splines: int = 655,
+    seed: int = 2077,
+    test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
+    low_memory: bool = True,
+    use_kernel: bool | str = "auto",
+    e_grid_size: int = 160,
+    atmo_e_grid_size: int = 50,
+    atmo_cosz_grid_size: int = 20,
+    asimov: bool = True,
+    device: str | torch.device = "cuda",
+) -> LargeExperiment:
+    """The reference's upper envelope: 700 parameters and ~1.02M events in
+    seven samples (defaults: 2 x numu at 180k, 2 x nue at 60k, 3 x atmo at
+    180k). Host arrays are built on the CPU, the model is moved to
+    ``device`` (the card by default, raising when none is visible;
+    ``device="cpu"`` keeps it on the CPU) and the Asimov data are computed
+    there. ``low_memory`` (the default here) stores the tables in bf16
+    (~3.8 GB at the defaults) and evaluates the per-bin statistic in f32."""
+    dev = target_device(device)
+    rng = np.random.default_rng(seed)
+    xsec = ParameterSet.from_config(Config(large700_config(n_splines)), name="xsec")
+    osc = ParameterSet.from_config(Config(osc_config_yaml()), name="osc")
+    n_xsec = len(xsec)
+    osc_gidx = list(range(n_xsec, n_xsec + 6))
+    norm_metas = [(m, m.index) for m in xsec.of_type(ParamType.NORM)]
+    common = dict(n_total_params=n_xsec + len(osc), test_statistic=test_statistic,
+                  stat_dtype=torch.float32 if low_memory else None, use_kernel=use_kernel)
+    e_grid = np.linspace(0.05, 3.0, e_grid_size)
+
+    def table(events, name):
+        return build_dense_table(_spline_specs_for(rng, events, xsec, name), events.n_events,
+                                 low_memory=low_memory)
+
+    def beam_osc(sub):
+        return build_osc_config(sub, e_grid, osc_gidx, baseline=BASELINE_KM, density=DENSITY,
+                                nc_modes=[MODE_NC], phase_dtype=torch.float32)
+
+    samples: list[SampleModel] = []
+    for det in ["a", "b"]:
+        beam = _beam_events(rng, n_numu + 3 * n_nue)
+        numu_idx = np.nonzero((np.abs(beam.pdg) == 14) & (beam.mode != MODE_NC))[0][:n_numu]
+        nue_idx = np.nonzero((np.abs(beam.pdg) == 12) | (beam.mode == MODE_NC))[0][:n_nue]
+
+        sub, name = _subset(beam, numu_idx), f"numu_{det}"
+        samples.append(build_sample_model(
+            name, sub,
+            var_order=["e_true", "e_reco", "theta_reco"],
+            binning_edges=[np.linspace(0.0, 3.0, 49), np.linspace(0.0, 60.0, 25)],
+            binning_vars=["e_reco", "theta_reco"],
+            norm_idx=match_norm_params(sub, norm_metas, name),
+            spline_table=table(sub, name), osc=beam_osc(sub), **common,
+        ))
+
+        sub, name = _subset(beam, nue_idx), f"nue_{det}"
+        escale_idx = xsec.index_of(f"escale_nue_{det}")
+        samples.append(build_sample_model(
+            name, sub,
+            var_order=["e_true", "e_reco", "theta_reco"],
+            binning_edges=[np.linspace(0.0, 3.0, 31)],
+            binning_vars=["e_reco"],
+            norm_idx=match_norm_params(sub, norm_metas, name),
+            spline_table=table(sub, name), osc=beam_osc(sub),
+            shifts=(ShiftSpec.scale(escale_idx, var_row=1),),  # e_reco
+            **common,
+        ))
+
+    atmo_e_grid = np.geomspace(0.5, 100.0, atmo_e_grid_size)
+    atmo_cosz = np.linspace(-0.99, 0.99, atmo_cosz_grid_size)
+    for det in ["a", "b", "c"]:
+        atmo, name = _atmo_events(rng, n_atmo), f"atmo_{det}"
+        samples.append(build_sample_model(
+            name, atmo,
+            var_order=["e_true", "e_reco", "cos_zenith", "cosz_reco"],
+            binning_edges=[np.geomspace(0.3, 120.0, 41), np.linspace(-1.0, 1.0, 26)],
+            binning_vars=["e_reco", "cosz_reco"],
+            norm_idx=match_norm_params(atmo, norm_metas, name),
+            spline_table=table(atmo, name),
+            osc=build_atmo_osc_config(atmo, e_grid=atmo_e_grid, cosz_grid=atmo_cosz,
+                                      osc_param_gidx=osc_gidx, nc_modes=[MODE_NC]),
+            **common,
+        ))
+
+    model = FitModel.build([xsec, osc], samples).to(dev)
+    _log.info("large700 fixture: %d params, %s events (total %d), %s bins", model.n_params,
+              [s.n_events for s in samples], sum(s.n_events for s in samples),
+              [s.n_bins for s in samples])
+    if asimov:
+        prefit = model.prefit_vector()
+        with torch.no_grad():
+            for s in samples:
+                s.set_data(s.asimov_data(prefit))
     names = [f"xsec_{n}" for n in xsec.names] + [f"osc_{n}" for n in osc.names]
     return LargeExperiment(xsec=xsec, osc=osc, samples=samples, model=model, names=names)

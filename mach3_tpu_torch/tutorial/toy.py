@@ -27,7 +27,7 @@ from ..samples.events import (
     match_norm_params,
 )
 from ..samples.sample import SampleModel, ShiftSpec
-from ..splines.monolith import SplineParamSpec, build_dense_table
+from ..splines.monolith import SplineParamSpec, build_dense_table, build_sparse_table
 
 # Interaction modes of the toy generator
 MODE_CCQE, MODE_CCRES, MODE_CCDIS, MODE_NC = 0, 1, 2, 3
@@ -236,11 +236,14 @@ def build_toy(
     e_grid_size: int = 200,
     use_kernel: bool | str = "auto",
     device: str | torch.device = "cuda",
+    dense_splines: bool = True,
 ) -> ToyExperiment:
-    """Build the toy with Barlow-Beeston statistics, dense spline tables and
-    Asimov data at the prefit point. The host arrays are built on the CPU
-    and the model is returned on ``device``: the card by default (raises
-    when none is visible); ``device="cpu"`` keeps it on the CPU."""
+    """Build the toy with Barlow-Beeston statistics and Asimov data at the
+    prefit point. The host arrays are built on the CPU and the model is
+    returned on ``device``: the card by default (raises when none is
+    visible); ``device="cpu"`` keeps it on the CPU. ``dense_splines=False``
+    builds sparse spline tables, whose samples take the plain route (as in
+    the JAX package)."""
     dev = target_device(device)
     rng = np.random.default_rng(seed)
     xsec = ParameterSet.from_config(Config(xsec_config()), name="xsec")
@@ -297,7 +300,8 @@ def build_toy(
                     knot_high=spec.knot_high,
                 )
             )
-        table = build_dense_table(sub_specs, sub.n_events)
+        table = (build_dense_table if dense_splines else build_sparse_table)(
+            sub_specs, sub.n_events)
         norm_idx = match_norm_params(sub, norm_metas, name)
         osc_cfg = build_osc_config(
             sub,

@@ -369,6 +369,22 @@ def test_single_named_shift_takes_the_shifted_route(files, kind, var, tmp_path):
     np.testing.assert_allclose(got, want, rtol=NLL_PROD_RTOL, atol=NLL_PROD_ATOL)
 
 
+def _without_pdg(npz: str, fmt: str) -> str:
+    """The MC of ``npz`` without its ``pdg`` column as a ``.csv`` or
+    ``.m3evt`` file beside it (read through ``core/nativeio.py``)."""
+    from mach3_tpu_torch.core import nativeio
+
+    cols = {k: v for k, v in np.load(npz).items() if k != "pdg"}
+    out = str(Path(npz).with_name(f"no_pdg.{fmt}"))
+    if fmt == "m3evt":
+        nativeio.write_events(out, {k: v.astype(np.int32) if v.dtype.kind == "i" else v
+                                    for k, v in cols.items()})
+    else:
+        np.savetxt(out, np.stack([v.astype(np.float64) for v in cols.values()], axis=1),
+                   fmt="%.17g", delimiter=",", header=",".join(cols), comments="")
+    return out
+
+
 CONFIG_ERRORS = {
     "unknown shift": (lambda s: s.update(Shifts=[{"Function": "nope", "Parameter": "escale",
                                                   "Var": "e_reco"}]), "Unknown shift"),
@@ -377,8 +393,10 @@ CONFIG_ERRORS = {
     "unknown weight param": (lambda s: s["WeightFunctions"][0].update(Parameter="nope"),
                              "unknown parameter"),
     "no binning": (lambda s: s.update(Binning={"Vars": ["e_reco"]}), "Binning needs"),
-    "csv": (lambda s: s.update(MCFile="events.csv"), "not ported yet"),
-    "m3evt": (lambda s: s.update(MCFile="events.m3evt"), "not ported yet"),
+    "csv": (lambda s: s.update(MCFile=_without_pdg(s["MCFile"], "csv")),
+            "missing required columns"),
+    "m3evt": (lambda s: s.update(MCFile=_without_pdg(s["MCFile"], "m3evt")),
+              "missing required columns"),
     "format": (lambda s: s.update(MCFile="events.root"), "Unknown MC file format"),
     "no datafile": (None, "requires DataFile"),
 }
