@@ -70,6 +70,26 @@ each kernel against its plain PyTorch version. Run from the repository root:
   sampler run ends with its state's NLLs held against its θ's NLL
   evaluated anew.
 
+* The remaining fitters (``fitters/tempering.py``, ``ensemble.py``,
+  ``pso.py``, ``scans.py``), on the kernels of the paths above: on the toy
+  parallel tempering at the JAX bench's 6 levels x 64 walkers
+  (``[toy:pt]``, graph and eager, profiled, graph held against eager from
+  one state), the stretch-move ensemble at 256 walkers
+  (``[toy:ensemble]``), PSO at 64 particles x 500 iterations from the
+  prefit (``[toy:pso]``), a 31 x 31 LLH scan on (sin²θ23, Δm²31)
+  (``[toy:scan2d]``) and ``mach3-llhscan-torch`` (``[toy:llhscan-cli]``);
+  the octant toy at 50,000 events, NH and IH (``[octant]``: the Asimov
+  data equal, the sin²θ23 profile's bimodality, adaptive MR2T2 against PT
+  from walkers started per octant; ``[octant:evidence]``: log Z(NH) −
+  log Z(IH) > 0 from β = 0 ladders; ``[octant:4k]``: MR2T2 against PT at the
+  JAX test's 4,000 events); on the large fixture ``llh_scan_1d`` of all
+  101 parameters x 41 points on the chain axis, held against the plain
+  route, ``sigma_variations`` through K2 and K3 and ``drag_race``
+  (``[large:scan]``, ``[large:sigma-var]``, ``[large:drag-race]``);
+  ``mach3-mcmc-torch`` running PT with a β = 0 ladder on the YAML
+  experiment with a resume (``[exp:cli-pt]``). Every run's kernel launches
+  are counted from 0 and gated.
+
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2 as graphs and
 eager with their profiles, the samplers, kernel timing; then the gradient
@@ -254,6 +274,81 @@ L7_EAGER_STEPS = 30
 L7_GRAD_CHAINS = 16
 L7_GRAD_LAUNCHES = {"reweight_shared": 5, "reweight_shifted": 2, "reweight_backward": 7}
 L7_ROUND_TRIP_CHAINS = 4
+
+
+# The remaining fitters. The octant toy at the README's width
+# (build_octant_toy's defaults: seed 77, energy grid 56, 1,300 km, 2.85
+# g/cm³), run as the JAX package's octant tests run it
+# (tests/test_tempering.py:190-221): 64 walkers, 3,000 steps in chunks of
+# 500, burn-in 1,000, half the walkers started per octant; adaptive MR2T2
+# against PT with 6 levels up to T = 32, then a β = 0 ladder of 8 levels up
+# to T = 64 over 2,500 steps for the NH-vs-IH evidence.
+OCT_EVENTS = 50_000
+OCT_WALKERS = 64
+OCT_STEPS = 3000
+OCT_CHUNK = 500
+OCT_BURN = 1000
+OCT_MR2T2 = dict(adaptive=True, adaption_mode="pooled", adaption_start_update=50,
+                 adaption_start_throw=300, adaption_update_step=100)
+OCT_PT = dict(n_temps=6, max_temp=32.0)
+OCT_EVIDENCE = dict(n_temps=8, max_temp=64.0, beta_zero=True)
+OCT_EVIDENCE_STEPS = 2500
+# The gates. At 50,000 events the mirror octant holds almost no posterior
+# mass: profiled over the other parameters (run_minimizer with sin²θ23 and
+# the energy scale held, the plain route on the CPU) its -logL lies 8.5
+# above the truth's at sin²θ23 = 0.57 and 11.0 at 0.555, against 1.1 and
+# 1.7 at the JAX test's 4,000 events; a CPU run of 16 walkers x 1,500 steps
+# there gave PT 4 crossings and an upper-octant occupancy of 0.00025,
+# MR2T2 1 and 0.47. So at 50,000 events the gate is that PT's cold level
+# leaves the mirror octant where MR2T2's walkers stay: upper-octant
+# occupancy below OCT_LEFT for PT and above it for MR2T2. The JAX test's
+# gates (PT crossings > 4 x max(MR2T2's, 1), occupancy in (0.1, 0.6)) are
+# held at its own width, 4,000 events (seed 7, energy grid 48), where the
+# mirror octant holds real mass.
+OCT_LEFT = 0.25
+# The hot levels wander to NLLs of thousands (the wrong-ordering model at β
+# near 0), where the atomics' order moves an NLL by more than GVE_NLL: the
+# octant runs' state NLLs are held within GVE_NLL + PT_NLL_RTOL x |NLL|
+# (the kernels' histogram tolerance, K_RTOL).
+PT_NLL_RTOL = K_RTOL
+OCT_JAX_EVENTS = 4000
+OCT_JAX_OCCUPANCY = (0.1, 0.6)
+# The JAX bench's parallel_tempering section (bench.py:839-869) on the toy:
+# 6 levels x 64 walkers up to T = 32, chunks of 50, 100 warm-up steps and
+# 300 timed; the eager loop beside it for 50. Graph against eager: at most
+# PT_GVE_WALKERS walker columns deciding differently (K1's atomic order);
+# PT_GVE_SHADOW graph steps shadowed by eager ones with Robbins-Monro on.
+TOY_PT = dict(n_temps=6, max_temp=32.0, chunk_size=50)
+TOY_PT_WALKERS = 64
+TOY_PT_WARM = 100
+TOY_PT_STEPS = 300
+TOY_PT_EAGER = 50
+PT_GVE_WALKERS = 2
+PT_GVE_SHADOW = 50
+# The stretch-move ensemble on the toy: 256 walkers (halves of 128), chunks
+# of 100, 300 timed steps after a warm chunk, 50 eager; ENS_SHADOW graph
+# steps shadowed by eager ones, at most ENS_FLIPS walkers a step deciding
+# differently.
+ENS_WALKERS = 256
+ENS_CHUNK = 100
+ENS_STEPS = 300
+ENS_EAGER = 50
+ENS_SHADOW = 50
+ENS_FLIPS = 2
+# PSO on the toy (the JAX package's defaults, fitters/pso.py).
+PSO_CFG = dict(n_particles=64, n_iterations=500, chunk_size=100)
+# Scans: the JAX package's 41 points per parameter (fitters/scans.py), a
+# 31 x 31 grid on (sin²θ23, Δm²31), SCAN_PLAIN scan points of the large
+# fixture held against the plain route.
+SCAN_POINTS = 41
+SCAN2D_POINTS = 31
+SCAN_PLAIN = 256
+# [exp:cli-pt]: mach3-mcmc-torch, PT with a β = 0 ladder, 8 levels x 32
+# walkers (256 chains, the experiment's MR2T2 width), 2 chunks of 100 then
+# a resume for a third.
+EXP_PT_TEMPS = 8
+EXP_PT_WALKERS = 32
+EXP_PT_CHUNK = 100
 
 
 #: Polygon bins over (e_reco, cos_theta): six e_reco columns, each cut in two
@@ -632,15 +727,17 @@ def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per
     return dict(step_ms=step_ms, launches=launches, acc=acc, acc_last=acc_last, peak_gib=peak)
 
 
-def nll_recheck(tag: str, fitter) -> float:
-    """The sampler state's NLLs, finite and within GVE_NLL of its model's
-    NLL of the state's θ evaluated anew, eagerly: a graph that wrote a stale
-    or wrong NLL fails here. Returns the largest difference."""
+def nll_recheck(tag: str, fitter, rtol: float = 0.0) -> float:
+    """The sampler state's NLLs (parallel tempering's prior + sample parts),
+    finite and within GVE_NLL (+ ``rtol`` x the NLL) of its model's NLL of
+    the state's θ evaluated anew, eagerly: a graph that wrote a stale or
+    wrong NLL fails here. Returns the largest difference."""
     import torch
 
     from mach3_tpu_torch.splines import reweight
 
-    nll = fitter.state.nll
+    st = fitter.state
+    nll = st.nll if hasattr(st, "nll") else st.prior_nll + st.sample_nll  # parallel tempering
     if not bool(torch.isfinite(nll).all()):
         raise AssertionError(f"{tag}: non-finite chain NLL")
     counted = dict(reweight.LAUNCHES)
@@ -648,10 +745,12 @@ def nll_recheck(tag: str, fitter) -> float:
         anew = fitter.model.total_nll_batch(fitter.state.theta)
     reweight.LAUNCHES.clear()  # a check's launches are not the path's
     reweight.LAUNCHES.update(counted)
-    d = float((nll - anew).abs().max())
-    if not d <= GVE_NLL:
+    gap = (nll - anew).abs()
+    d = float(gap.max())
+    if not bool((gap <= GVE_NLL + rtol * anew.abs()).all()):
         raise AssertionError(f"{tag}: the state's NLL is {d:.3e} from its θ's NLL evaluated "
-                             f"anew (> {GVE_NLL})")
+                             f"anew (> {GVE_NLL} + {rtol} x |NLL|, |NLL| up to "
+                             f"{float(anew.abs().max()):.3e})")
     return d
 
 
@@ -718,21 +817,25 @@ def profile_steps(tag: str, mode: str, fitter, step_ms: float, names, smi: str,
 
 def snapshot(state):
     """A copy of a sampler's state that no run touches: every tensor cloned,
-    the generator's state copied into a new generator."""
+    the generator's state copied into a new generator, a nested state (the
+    adaptive moments) copied alike."""
     import dataclasses
 
     import torch
 
-    gen = torch.Generator(device=state.theta.device)
-    gen.set_state(state.generator.get_state())
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, torch.Generator):
+            gen = torch.Generator(device=v.device)
+            gen.set_state(v.get_state())
+            return gen
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{f.name: copy(getattr(v, f.name))
+                                             for f in dataclasses.fields(v)})
+        return v
 
-    def clone(obj):
-        return dataclasses.replace(obj, **{
-            f.name: getattr(obj, f.name).clone() for f in dataclasses.fields(obj)
-            if isinstance(getattr(obj, f.name), torch.Tensor)})
-
-    ad = None if state.adaptive is None else clone(state.adaptive)
-    return dataclasses.replace(clone(state), generator=gen, adaptive=ad)
+    return copy(state)
 
 
 def graph_vs_eager(tag: str, model, cfg, saved, smi: str) -> None:
@@ -1219,8 +1322,9 @@ def posterior_grad_vs_plain(tag: str, model, thetas, per_eval: dict, smi: str) -
     return gap
 
 
-def toy_minimize(model, smi: str) -> None:
-    """L-BFGS-B (``run_minimizer``) on the toy from a 0.5 prior-sigma jitter:
+def toy_minimize(model, smi: str) -> dict:
+    """L-BFGS-B (``run_minimizer``) on the toy from a 0.5 prior-sigma jitter
+    (returns its χ², evaluations and wall seconds):
     converged, χ² not above the start, at the Asimov minimum (MIN_CHI2,
     MIN_PULL), a positive-definite Hessian and finite errors; every
     evaluation one forward and one backward. The energy scale is held at its
@@ -1266,6 +1370,7 @@ def toy_minimize(model, smi: str) -> None:
           f"params, covariance eigenvalues in [{eig.min():.3e}, {eig.max():.3e}], largest "
           f"|x - prefit| / error {pull.max():.3e} (bound {MIN_PULL}); launches "
           f"{dict(reweight.LAUNCHES)} | {smi}")
+    return dict(chi2=res.chi2, n=n, dt=dt)
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -1380,7 +1485,8 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
     from mach3_tpu_torch.tutorial.toy import build_toy
 
     t0 = time.perf_counter()
-    model = build_toy(n_events=N_EVENTS, seed=SEED, e_grid_size=E_GRID, device=dev).model
+    toy = build_toy(n_events=N_EVENTS, seed=SEED, e_grid_size=E_GRID, device=dev)
+    model = toy.model
     routes = [s.kernel_route.variant for s in model.samples]
     phase(f"[toy] built in {time.perf_counter() - t0:.1f} s; "
           + "; ".join(f"{s.name}: E={s.n_events}{layout_info(s)}" for s in model.samples)
@@ -1419,7 +1525,12 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
     with torch.no_grad():
         diff_nll_vs_sampling("toy", model, thetas, tables, smi)
     posterior_grad_vs_plain("toy", model, thetas, TOY_GRAD_LAUNCHES, smi)
-    toy_minimize(model, smi)
+    fit_result = toy_minimize(model, smi)
+    toy_pt(model, smi)
+    toy_ensemble(model, smi)
+    toy_pso(model, smi, fit_result)
+    toy_scan2d(toy, smi)
+    toy_llhscan_cli(dev, smi)
     return {"K1": dict(launches=launches["reweight_shifted"],
                        max_abs_err=max(v[2] for v in checked.values()),
                        ms=sum(v[0] for v in times), plain_ms=sum(v[1] for v in times),
@@ -1491,6 +1602,7 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
         "K4b": wide,
     }
     del fitter, checked
+    large_scan(model, smi)
     return results, model
 
 
@@ -1978,6 +2090,636 @@ def fixture_round_trip(tag: str, exp, thetas, dev, smi: str) -> None:
     del loaded
 
 
+# ---------------------------------------------------------------- the remaining fitters
+def capture_steps(model) -> int:
+    """Steps a graphed run takes beyond those asked: the capture's warm-up
+    step, a real step on a copy of the state (1 on the card, 0 on the CPU,
+    where runs are eager)."""
+    return int(model.flat.prefit.device.type == "cuda")
+
+
+def octant_init(toy, n_w: int, split: bool = True):
+    """Walkers as the JAX package's octant tests start them
+    (``tests/test_tempering.py:190-202``): prefit + 0.1 prior error
+    scatter inside the bounds, half at sin²θ23 = 0.45, half at 0.555."""
+    import numpy as np
+
+    m = toy.model
+    th0 = m.prefit_vector().cpu().numpy()
+    errs = np.concatenate([np.asarray(toy.xsec.errors), np.asarray(toy.osc.errors)])
+    lo, hi = m.flat.low_bound.cpu().numpy(), m.flat.up_bound.cpu().numpy()
+    rng = np.random.default_rng(0)
+    init = np.clip(np.tile(th0, (n_w, 1)) + 0.1 * errs * rng.normal(size=(n_w, len(th0))),
+                   lo + 1e-9, hi - 1e-9)
+    if split:
+        i23 = toy.names.index("osc_sin2th23")
+        init[: n_w // 2, i23] = 0.45
+        init[n_w // 2:, i23] = 0.555
+    return init
+
+
+def octant_stats(s23):
+    """(octant crossings after the burn-in, upper-octant occupancy, raw and
+    folded split R-hat of sin²θ23) of draws [S, W]."""
+    import numpy as np
+
+    from mach3_tpu_torch.diagnostics.rhat import split_rhat
+
+    up = (s23 > 0.5).astype(int)[OCT_BURN:]
+    post = s23[OCT_BURN:, :, None]
+    return (int(np.abs(np.diff(up, axis=0)).sum()), float(up.mean()),
+            float(split_rhat(post)[0]), float(split_rhat(np.abs(post - 0.5))[0]))
+
+
+def octant_mcmc(tag: str, toy, smi: str, jax_gates: bool) -> None:
+    """Adaptive MR2T2 and parallel tempering (OCT_PT) from walkers started
+    per octant, as CUDA graphs, OCT_STEPS steps each. With ``jax_gates``
+    the JAX test's: PT's cold level crosses octants more than 4x as often
+    as MR2T2 (at least 4 times) with an upper-octant occupancy inside
+    OCT_JAX_OCCUPANCY; else PT's cold level leaves the mirror octant where
+    MR2T2's walkers stay (occupancy below and above OCT_LEFT). R-hats,
+    crossings, cold and swap acceptance printed."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
+    from mach3_tpu_torch.fitters.tempering import ParallelTempering, PTConfig
+    from mach3_tpu_torch.splines import reweight
+
+    m, i23 = toy.model, toy.names.index("osc_sin2th23")
+    init = octant_init(toy, OCT_WALKERS)
+    per_step = {"reweight_shifted": 2}
+    runs = {}
+    for name, make in (
+        ("mr2t2", lambda: MR2T2(m, MCMCConfig(n_steps=OCT_STEPS, chunk_size=OCT_CHUNK,
+                                              **OCT_MR2T2), init, seed=3)),
+        ("pt", lambda: ParallelTempering(m, PTConfig(n_steps=OCT_STEPS, chunk_size=OCT_CHUNK,
+                                                     **OCT_PT), init, seed=3)),
+    ):
+        fit = make()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fit.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_launches(f"{tag}:{name}", dict(reweight.LAUNCHES),
+                       {k: v * (OCT_STEPS + capture_steps(m)) for k, v in per_step.items()})
+        d_nll = nll_recheck(f"{tag}:{name}", fit, rtol=PT_NLL_RTOL)
+        cold = fit.cold_chain(out) if name == "pt" else out
+        runs[name] = (fit, cold, octant_stats(cold["theta"][:, :, i23]), dt, d_nll)
+    (_, _, (x_mr, occ_mr, r_mr, rf_mr), dt_mr, d_mr) = runs["mr2t2"]
+    (pt, cold, (x_pt, occ_pt, r_pt, rf_pt), dt_pt, d_pt) = runs["pt"]
+    cold_acc = float(cold["accepted"][-OCT_CHUNK:].mean())
+    phase(f"[{tag}] {OCT_WALKERS} walkers x {OCT_STEPS} steps (burn-in {OCT_BURN}), started "
+          f"half per octant: adaptive MR2T2 {1e3 * dt_mr / OCT_STEPS:.3f} ms/step, crossings "
+          f"{x_mr}, upper occupancy {occ_mr:.4f}, R-hat raw {r_mr:.4f} folded {rf_mr:.4f}; PT "
+          f"{OCT_PT['n_temps']} x {OCT_WALKERS} = {OCT_PT['n_temps'] * OCT_WALKERS} chains, "
+          f"T_max {OCT_PT['max_temp']:g}: {1e3 * dt_pt / OCT_STEPS:.3f} ms/step, cold crossings "
+          f"{x_pt}, upper occupancy {occ_pt:.4f}, R-hat raw {r_pt:.4f} folded {rf_pt:.4f}, cold "
+          f"acceptance (last chunk) {cold_acc:.4f}, swap acceptance per boundary "
+          f"{np.round(pt.swap_acceptance, 4).tolist()}; state NLLs vs θ anew within "
+          f"{max(d_mr, d_pt):.3e} | {smi}")
+    if not jax_gates:
+        if not occ_pt < OCT_LEFT < occ_mr:
+            raise AssertionError(f"{tag}: upper-octant occupancy PT {occ_pt:.4f}, MR2T2 "
+                                 f"{occ_mr:.4f}: PT did not leave the mirror octant")
+        return
+    if not x_pt > 4 * max(x_mr, 1):
+        raise AssertionError(f"{tag}: PT crossed {x_pt} times, MR2T2 {x_mr}: not > 4x")
+    if not OCT_JAX_OCCUPANCY[0] < occ_pt < OCT_JAX_OCCUPANCY[1]:
+        raise AssertionError(f"{tag}: PT's upper-octant occupancy {occ_pt:.4f} outside "
+                             f"{OCT_JAX_OCCUPANCY}")
+
+
+def octant_log_z(tag: str, toy, smi: str) -> tuple[float, float]:
+    """(stepping-stone, thermodynamic) log evidence of a β = 0 ladder
+    (OCT_EVIDENCE) run for OCT_EVIDENCE_STEPS steps as CUDA graphs."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.tempering import ParallelTempering, PTConfig
+    from mach3_tpu_torch.splines import reweight
+
+    pt = ParallelTempering(toy.model, PTConfig(n_steps=OCT_EVIDENCE_STEPS, chunk_size=OCT_CHUNK,
+                                               **OCT_EVIDENCE),
+                           octant_init(toy, OCT_WALKERS, split=False), seed=4)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = pt.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_launches(tag, dict(reweight.LAUNCHES),
+                   {"reweight_shifted": 2 * (OCT_EVIDENCE_STEPS + capture_steps(toy.model))})
+    d_nll = nll_recheck(tag, pt, rtol=PT_NLL_RTOL)
+    ss, ti = pt.log_evidence(out), pt.log_evidence(out, method="thermodynamic")
+    if not (np.isfinite(ss) and np.isfinite(ti)):
+        raise AssertionError(f"{tag}: log evidence not finite ({ss}, {ti})")
+    phase(f"[{tag}] {OCT_EVIDENCE['n_temps']} levels (beta = 0 last) x {OCT_WALKERS} walkers, "
+          f"{OCT_EVIDENCE_STEPS} steps in {dt:.3f} s ({1e3 * dt / OCT_EVIDENCE_STEPS:.3f} "
+          f"ms/step): log Z stepping-stone {ss:.4f}, thermodynamic {ti:.4f}; swap acceptance "
+          f"{np.round(pt.swap_acceptance, 4).tolist()}; state NLLs within {d_nll:.3e} | {smi}")
+    return ss, ti
+
+
+def octant_path(dev, smi: str) -> None:
+    """The octant toy at the README's width, NH and IH (``[octant]``): the
+    same Asimov data, the sin²θ23 profile's bimodality (the JAX test's
+    assertions, ``tests/test_tempering.py:206-221``), MR2T2 against PT;
+    ``[octant:evidence]`` log Z(NH) − log Z(IH) > 0; ``[octant:4k]`` the
+    JAX test's own width, where the mirror octant holds real mass
+    (OCT_LEFT's comment says why the gates differ)."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.tutorial.toy import build_octant_toy
+
+    t0 = time.perf_counter()
+    nh = build_octant_toy(n_events=OCT_EVENTS, hierarchy="NH", device=dev)
+    ih = build_octant_toy(n_events=OCT_EVENTS, hierarchy="IH", device=dev)
+    build_s = time.perf_counter() - t0
+    for toy in (nh, ih):
+        routes = [s.kernel_route.variant for s in toy.samples]
+        if routes != ["shifted", "shifted"]:
+            raise AssertionError(f"octant: both samples must take the shifted route, got {routes}")
+    if not all(torch.equal(a.data, b.data) for a, b in zip(nh.samples, ih.samples)):
+        raise AssertionError("octant: the NH and IH builds' Asimov data differ")
+    m, i23 = nh.model, nh.names.index("osc_sin2th23")
+    vals = np.linspace(0.42, 0.60, 19)
+    th = m.prefit_vector()[None].repeat(19, 1)
+    th[:, i23] = torch.as_tensor(vals, device=dev)
+    reset_launches()
+    with torch.no_grad():
+        nll = m.total_nll_batch(th).cpu().numpy()
+    check_launches("octant:profile", dict(reweight.LAUNCHES), {"reweight_shifted": 2})
+    nll = nll - nll.min()
+    at = {v: int(np.argmin(np.abs(vals - v))) for v in (0.45, 0.51, 0.55)}
+    phase(f"[octant] build_octant_toy(n_events={OCT_EVENTS}) NH and IH in {build_s:.1f} s; "
+          + "; ".join(f"{s.name}: E={s.n_events}{layout_info(s)}" for s in m.samples)
+          + f"; Asimov data equal; sin²θ23 profile over {vals[0]:.2f}-{vals[-1]:.2f}: "
+          f"{np.round(nll, 3).tolist()} | {smi}")
+    if not (nll[at[0.45]] < 0.5 and nll[at[0.51]] > nll[at[0.55]] + 0.3
+            and nll[at[0.55]] < nll[-1]):
+        raise AssertionError("octant: the sin²θ23 profile is not bimodal (minimum at the "
+                             "truth, a barrier at 0.51 above the mirror at 0.55, the mirror "
+                             "below the edge)")
+    octant_mcmc("octant", nh, smi, jax_gates=False)
+    lz = {h: octant_log_z(f"octant:evidence:{h}", t, smi) for h, t in (("NH", nh), ("IH", ih))}
+    d_ss, d_ti = lz["NH"][0] - lz["IH"][0], lz["NH"][1] - lz["IH"][1]
+    phase(f"[octant:evidence] log Z(NH) - log Z(IH): stepping-stone {d_ss:.4f}, "
+          f"thermodynamic {d_ti:.4f} (NH-truth data) | {smi}")
+    if not d_ss > 0:
+        raise AssertionError(f"octant:evidence: log Z(NH) - log Z(IH) = {d_ss:.4f} <= 0")
+    del nh, ih, m
+    small = build_octant_toy(n_events=OCT_JAX_EVENTS, seed=7, e_grid_size=48, device=dev)
+    octant_mcmc("octant:4k", small, smi, jax_gates=True)
+
+
+def pt_graph_vs_eager(tag: str, model, cfg, saved, n_walkers: int, smi: str) -> None:
+    """Parallel tempering as a graph and as the eager loop from the state
+    ``saved``. Robbins-Monro held, GVE_STEPS steps each: the generators end
+    alike; at most PT_GVE_WALKERS walker columns (a column: one walker's
+    chain at every level, which swaps mix) hold a chain that decided
+    differently, each first where the two log α differ by at most GVE_NLL;
+    θ of every other column bit-identical at every step. Then Robbins-Monro
+    on, PT_GVE_SHADOW graph steps each shadowed by an eager step from the
+    graph's state: the same, step by step, and the per-level log-scales
+    within γ_t x the level-mean acceptance probabilities' difference +
+    GVE_RM_ROUND."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.tempering import ParallelTempering
+
+    n_t = cfg.n_temps
+    init = saved.theta.cpu().numpy()[:n_walkers]
+
+    def columns(flips):  # [S, T*W] -> [W]
+        return flips.reshape(flips.shape[0], n_t, n_walkers).any((0, 1))
+
+    def first_gaps(g, e, flips):
+        gaps = []
+        for c in np.flatnonzero(flips.any(0)):
+            s = np.flatnonzero(flips[:, c])[0]
+            gaps.append(abs(np.log(g["acc_prob"][s, c]) - np.log(e["acc_prob"][s, c])))
+        if gaps and max(gaps) > GVE_NLL:
+            raise AssertionError(f"{tag}: a decision differs where the log α differ by "
+                                 f"{max(gaps):.3e} > {GVE_NLL}")
+        return gaps
+
+    held = dataclasses.replace(cfg, robbins_monro=False)
+    runs = {}
+    for graph in (True, False):
+        fit = ParallelTempering(model, held, init, seed=0, graph=None if graph else False)
+        fit.state = snapshot(saved)
+        runs[graph] = (fit, fit.run(n_steps=GVE_STEPS))
+    (fg, g), (fe, e) = runs[True], runs[False]
+    if not torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state()):
+        raise AssertionError(f"{tag}: the generators' states differ after the runs")
+    flips = g["accepted"] != e["accepted"]
+    gaps = first_gaps(g, e, flips)
+    bad = columns(flips)
+    if bad.sum() > PT_GVE_WALKERS:
+        raise AssertionError(f"{tag}: {int(bad.sum())} walker columns decided differently")
+    keep = ~np.tile(bad, n_t)
+    if not np.array_equal(g["theta"][:, keep], e["theta"][:, keep]):
+        raise AssertionError(f"{tag}: θ of walker columns that decided alike differ")
+    swaps = "bit-identical" if not bad.any() else "not compared (a column diverged)"
+    if not bad.any() and not torch.equal(fg.state.swap_accepts, fe.state.swap_accepts):
+        raise AssertionError(f"{tag}: swap counters differ, every decision alike")
+    fg = ParallelTempering(model, cfg, init, seed=0)
+    fe = ParallelTempering(model, cfg, init, seed=0, graph=False)
+    fg.state = snapshot(saved)
+    s_flips, s_worst = 0, 0.0
+    for _ in range(PT_GVE_SHADOW):
+        fe.state = snapshot(fg.state)
+        gs, es = fg.run(n_steps=1), fe.run(n_steps=1)
+        t = int(fg.state.step)
+        if not torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state()):
+            raise AssertionError(f"{tag}: the generators' states differ at step {t}")
+        fl = gs["accepted"] != es["accepted"]
+        first_gaps(gs, es, fl)
+        s_flips += int(fl.sum())
+        if not np.array_equal(gs["theta"][:, ~np.tile(columns(fl), n_t)],
+                              es["theta"][:, ~np.tile(columns(fl), n_t)]):
+            raise AssertionError(f"{tag}: θ of columns that decided alike differ at step {t}")
+        d_acc = np.abs(gs["acc_prob"][0] - es["acc_prob"][0]).reshape(n_t, n_walkers).mean(1)
+        d_scale = (fg.state.log_scale - fe.state.log_scale).abs().cpu().numpy()
+        s_worst = max(s_worst, float(d_scale.max()))
+        if (d_scale - 2.0 / max(t, 1) ** 0.66 * d_acc).max() > GVE_RM_ROUND:
+            raise AssertionError(f"{tag}: the log-scales differ at step {t} by {d_scale.max():.3e}, "
+                                 "beyond γ_t x the acceptance probabilities' difference")
+    if s_flips > PT_GVE_WALKERS * PT_GVE_SHADOW:
+        raise AssertionError(f"{tag}: {s_flips} chain-steps decided differently (shadowed)")
+    phase(f"[{tag}] from step {int(saved.step)}, Robbins-Monro held, {GVE_STEPS} steps x "
+          f"{n_t * n_walkers} chains as a graph and as the eager loop: generators equal; "
+          f"{int(bad.sum())} walker columns decided differently (log α gaps "
+          f"{[f'{x:.2e}' for x in gaps]}); θ of the others bit-identical at every step; swap "
+          f"counters {swaps}; Robbins-Monro on, {PT_GVE_SHADOW} graph steps each shadowed by an "
+          f"eager one: {s_flips} chain-steps decided differently, log-scales within "
+          f"{s_worst:.3e} | {smi}")
+
+
+def toy_pt(model, smi: str) -> None:
+    """``[toy:pt]``: the JAX bench's parallel_tempering section
+    (``bench.py:839-869``): 6 levels x 64 walkers, chunks of 50, 100
+    warm-up steps then 300 timed, as a graph and as the eager loop, each
+    profiled; then graph against eager from the graph's state."""
+    import numpy as np
+
+    from mach3_tpu_torch.fitters.tempering import ParallelTempering, PTConfig
+
+    init = jitter_init(model, TOY_PT_WALKERS, np.random.default_rng(5))
+    cfg = PTConfig(n_steps=TOY_PT_STEPS, **TOY_PT)
+    n_t, per_step = cfg.n_temps, {"reweight_shifted": 2}
+    names = ["reweight_perchain_kernel"]
+    res = {}
+    for graph, warm, steps in ((True, TOY_PT_WARM, TOY_PT_STEPS), (False, 10, TOY_PT_EAGER)):
+        mode = "graph" if graph else "eager"
+        fit = ParallelTempering(model, cfg, init, seed=5, graph=None if graph else False)
+        r = run_sampler("toy:pt", mode, fit, warm, steps, per_step, smi)
+        prof = profile_steps("toy:pt", mode, fit, r["step_ms"], names, smi)
+        res[mode] = (fit, r, prof)
+    fit, r, prof = res["graph"]
+    e_ms = res["eager"][1]["step_ms"]
+    phase(f"[toy:pt] {n_t} levels x {TOY_PT_WALKERS} walkers, T_max {cfg.max_temp:g}: graph "
+          f"{r['step_ms']:.3f} ms/step, cold {1e3 * TOY_PT_WALKERS / r['step_ms']:.1f} and "
+          f"all-level {1e3 * n_t * TOY_PT_WALKERS / r['step_ms']:.1f} chain-steps/s; eager "
+          f"{e_ms:.3f} ms/step ({e_ms / r['step_ms']:.2f}x); graph {prof['launches']:.1f} host "
+          f"launches/step, {prof['ops']:.0f} device ops/step, device busy {prof['busy']:.3f} "
+          f"ms/step, idle share {1.0 - prof['busy'] / r['step_ms']:.3f}; cold acceptance "
+          f"{float(fit.acceptance_rate[:TOY_PT_WALKERS].mean()):.4f}, swap acceptance per "
+          f"boundary {np.round(fit.swap_acceptance, 4).tolist()} | {smi}")
+    pt_graph_vs_eager("toy:pt:graph-vs-eager", model, cfg, snapshot(fit.state), TOY_PT_WALKERS,
+                      smi)
+
+
+def toy_ensemble(model, smi: str) -> None:
+    """``[toy:ensemble]``: the stretch-move ensemble, ENS_WALKERS walkers
+    (halves of ENS_WALKERS / 2, each kernel twice a step), as a graph and as
+    the eager loop, each profiled; then ENS_SHADOW graph steps each shadowed
+    by an eager step from the graph's state: generators alike, at most
+    ENS_FLIPS walkers a step deciding differently (each where the two
+    acceptance probabilities' logs differ by at most GVE_NLL), θ of the rest
+    bit-identical (the second half's walkers only where no first-half walker
+    flipped: they move against the first half's new positions)."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.ensemble import EnsembleConfig, EnsembleSampler
+
+    init = jitter_init(model, ENS_WALKERS, np.random.default_rng(6))
+    cfg = EnsembleConfig(chunk_size=ENS_CHUNK)
+    per_step = {"reweight_shifted": 4}
+    names = ["reweight_perchain_kernel"]
+    res = {}
+    for graph, warm, steps in ((True, ENS_CHUNK, ENS_STEPS), (False, 10, ENS_EAGER)):
+        mode = "graph" if graph else "eager"
+        fit = EnsembleSampler(model, cfg, init, seed=6, graph=None if graph else False)
+        r = run_sampler("toy:ensemble", mode, fit, warm, steps, per_step, smi)
+        prof = profile_steps("toy:ensemble", mode, fit, r["step_ms"], names, smi)
+        res[mode] = (fit, r, prof)
+    fg, r, prof = res["graph"]
+    fe = EnsembleSampler(model, cfg, init, seed=6, graph=False)
+    half, flipped = ENS_WALKERS // 2, 0
+    for _ in range(ENS_SHADOW):
+        fe.state = snapshot(fg.state)
+        g, e = fg.run(n_steps=1), fe.run(n_steps=1)
+        t = int(fg.state.step)
+        if not torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state()):
+            raise AssertionError(f"toy:ensemble: the generators' states differ at step {t}")
+        fl = (g["accepted"] != e["accepted"])[0]
+        if fl.sum() > ENS_FLIPS:
+            raise AssertionError(f"toy:ensemble: {int(fl.sum())} walkers decided differently "
+                                 f"at step {t}")
+        if fl.any():
+            gap = np.abs(np.log(g["acc_prob"][0, fl]) - np.log(e["acc_prob"][0, fl])).max()
+            if gap > GVE_NLL:
+                raise AssertionError(f"toy:ensemble: a decision differs at step {t} where the "
+                                     f"log acceptance probabilities differ by {gap:.3e}")
+        keep = ~fl
+        if fl[:half].any():
+            keep[half:] = False
+        flipped += int(fl.sum())
+        if not np.array_equal(g["theta"][0, keep], e["theta"][0, keep]):
+            raise AssertionError(f"toy:ensemble: θ of walkers that decided alike differ at "
+                                 f"step {t}")
+    e_ms = res["eager"][1]["step_ms"]
+    phase(f"[toy:ensemble] {ENS_WALKERS} walkers (halves of {half}): graph {r['step_ms']:.3f} "
+          f"ms/step ({1e3 * ENS_WALKERS / r['step_ms']:.1f} walker-steps/s), eager "
+          f"{e_ms:.3f} ms/step ({e_ms / r['step_ms']:.2f}x); graph {prof['launches']:.1f} host "
+          f"launches/step, {prof['ops']:.0f} device ops/step, device busy {prof['busy']:.3f} "
+          f"ms/step, idle share {1.0 - prof['busy'] / r['step_ms']:.3f}; acceptance "
+          f"{r['acc']:.4f} (last chunk {r['acc_last']:.4f}); {ENS_SHADOW} graph steps shadowed "
+          f"by eager ones: generators equal, {flipped} walker-steps decided differently, θ of "
+          f"the rest bit-identical | {smi}")
+
+
+def toy_pso(model, smi: str, fit_result: dict) -> None:
+    """``[toy:pso]``: ``run_pso`` (PSO_CFG) from the toy's prefit, its
+    iterations as CUDA graphs: each iteration one χ² batch of the particles
+    (K1 twice); the final χ² at or below the best initial particle's."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.pso import PSOConfig, run_pso
+    from mach3_tpu_torch.splines import reweight
+
+    cfg = PSOConfig(**PSO_CFG)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_pso(model, cfg, seed=7)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # The initial batch, the capture's warm-up iteration and every iteration.
+    check_launches("toy:pso", dict(reweight.LAUNCHES),
+                   {"reweight_shifted": 2 * (cfg.n_iterations + 1 + capture_steps(model))})
+    if not (np.isfinite(res.chi2) and res.chi2 <= res.initial_chi2):
+        raise AssertionError(f"toy:pso: χ² {res.chi2} above the best initial particle's "
+                             f"{res.initial_chi2}")
+    phase(f"[toy:pso] {cfg.n_particles} particles x {cfg.n_iterations} iterations (graphs): "
+          f"χ² {res.initial_chi2:.4f} (best initial particle) -> {res.chi2:.6g}, "
+          f"{res.n_evaluations} evaluations in {dt:.3f} s ({1e3 * dt / cfg.n_iterations:.3f} "
+          f"ms/iteration); run_minimizer: χ² {fit_result['chi2']:.6g} in "
+          f"{fit_result['n']} evaluations, {fit_result['dt']:.3f} s | {smi}")
+
+
+def toy_scan2d(toy, smi: str) -> None:
+    """``[toy:scan2d]``: ``llh_scan_2d`` of SCAN2D_POINTS² on (sin²θ23,
+    Δm²31), the grid points on the chain axis; its minimum at the Asimov
+    truth, the grid's centre."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.scans import llh_scan_2d
+    from mach3_tpu_torch.splines import reweight
+
+    ix, iy = toy.names.index("osc_sin2th23"), toy.names.index("osc_dm2_31")
+    reset_launches()
+    t0 = time.perf_counter()
+    s2 = llh_scan_2d(toy.model, ix, iy, n_points=SCAN2D_POINTS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_launches("toy:scan2d", dict(reweight.LAUNCHES), {"reweight_shifted": 2})
+    at = np.unravel_index(np.argmin(s2["total"]), s2["total"].shape)
+    centre = (SCAN2D_POINTS // 2, SCAN2D_POINTS // 2)
+    phase(f"[toy:scan2d] {SCAN2D_POINTS} x {SCAN2D_POINTS} points in {dt:.3f} s "
+          f"({SCAN2D_POINTS ** 2 / dt:.1f} points/s, one batched call): minimum "
+          f"{s2['total'].min():.3e} at {tuple(int(i) for i in at)} (the truth: {centre}), "
+          f"total at the corners {np.round(s2['total'][[0, -1]][:, [0, -1]], 2).tolist()} | {smi}")
+    if tuple(at) != centre or not np.isfinite(s2["total"]).all():
+        raise AssertionError(f"toy:scan2d: minimum at {at}, not at the Asimov truth {centre}")
+
+
+def toy_llhscan_cli(dev, smi: str) -> None:
+    """``[toy:llhscan-cli]``: ``mach3-llhscan-torch`` on the toy at N_EVENTS
+    (1-D scans of all 16 parameters, a 2-D scan, both samples' sigma
+    variations) writing its output file."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.cli import llhscan
+    from mach3_tpu_torch.splines import reweight
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "llhscan.npz")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = llhscan.main([f"Toy:NEvents:{N_EVENTS}", f"Toy:Seed:{SEED}", "--device", dev.type,
+                           "--points", str(SCAN_POINTS), "--scan-2d", "osc_sin2th23",
+                           "osc_dm2_31", "--sigma-var", "-o", out])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"toy:llhscan-cli: exit code {rc}")
+        with np.load(out) as f:
+            shapes = {k: f[k].shape for k in f.files}
+            finite = all(np.isfinite(f[k]).all() for k in f.files if k != "names")
+        size = os.path.getsize(out)
+    want = {"scan1d_total": (16, SCAN_POINTS), "scan1d_samples": (16, SCAN_POINTS, 2),
+            "sigvar_numu_sample_hists": (16, 5, 30), "sigvar_nue_sample_hists": (16, 5, 15)}
+    if any(shapes.get(k) != v for k, v in want.items()) or not finite:
+        raise AssertionError(f"toy:llhscan-cli: output {shapes} (finite {finite})")
+    launches = dict(reweight.LAUNCHES)
+    if not launches.get("reweight_shifted"):
+        raise AssertionError("toy:llhscan-cli: the shifted kernel was not launched")
+    phase(f"[toy:llhscan-cli] mach3-llhscan-torch, {N_EVENTS} events: {len(shapes)} arrays "
+          f"({size} bytes) in {dt:.1f} s (build included); kernel launches {launches} | {smi}")
+
+
+def large_scan(model, smi: str) -> None:
+    """``[large:scan]``: ``llh_scan_1d`` over every parameter x SCAN_POINTS
+    points on the chain axis in chunks of the default size; SCAN_PLAIN
+    points' per-sample NLLs against the plain route within
+    ``nll_tolerance``; each scan's centre (where it is the prefit value)
+    against ``total_nll_batch`` at prefit; ``sigma_variations`` of numu_beam
+    (K2) and nue_beam (K3) against the plain route within the kernels'
+    tolerance; ``drag_race``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.fitters.scans import (
+        default_max_points,
+        drag_race,
+        llh_scan_1d,
+        sigma_variations,
+    )
+    from mach3_tpu_torch.splines import reweight
+
+    dev = model.flat.prefit.device
+    n_par = model.n_params
+    n_pts = n_par * SCAN_POINTS
+    chunk = default_max_points(model)
+    n_chunks = math.ceil(n_pts / chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    scan = llh_scan_1d(model, n_points=SCAN_POINTS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("large:scan", dict(reweight.LAUNCHES),
+                   {"reweight_shared": 2 * n_chunks, "reweight_shifted": n_chunks})
+    if not np.isfinite(scan["total"]).all():
+        raise AssertionError("large:scan: non-finite scan values")
+    prefit = model.prefit_vector().cpu().numpy()
+
+    def points(idx, values):
+        th = np.tile(prefit, (len(values), 1))
+        th[np.arange(len(values)), idx] = values
+        return torch.as_tensor(th, device=dev)
+
+    flat_idx = np.repeat(np.arange(n_par), SCAN_POINTS)
+    flat_val = scan["values"].reshape(-1)
+    sel = np.linspace(0, n_pts - 1, SCAN_PLAIN).astype(int)
+    th = points(flat_idx[sel], flat_val[sel])
+    with torch.no_grad():
+        tables = model._shared_osc_tables(th)
+        worst, d_max = 0.0, 0.0
+        for i, s in enumerate(model.samples):
+            mc, w2 = s.reweight_batch_plain(th, tables[i])
+            got = torch.as_tensor(scan["samples"].reshape(n_pts, -1)[sel, i], device=dev)
+            d = (got - s._stat_sum(mc, w2)).abs()
+            worst = max(worst, float((d / nll_tolerance(s, mc, w2)).max()))
+            d_max = max(d_max, float(d.max()))
+        at_prefit = model.total_nll_batch(torch.as_tensor(prefit[None], device=dev))
+        tol0 = sum(nll_tolerance(s, *s.reweight_batch_plain(
+            torch.as_tensor(prefit[None], device=dev))) for s in model.samples)
+    if worst > 1.0:
+        raise AssertionError(f"large:scan: per-sample NLLs {worst:.2f}x the tolerance from the "
+                             "plain route")
+    mid = SCAN_POINTS // 2
+    centred = np.abs(scan["values"][:, mid] - prefit) <= 1e-12 * np.maximum(np.abs(prefit), 1.0)
+    d_centre = np.abs(scan["total"][centred, mid] - float(at_prefit[0]))
+    if not d_centre.max() <= float(tol0[0]):
+        raise AssertionError(f"large:scan: a centre point is {d_centre.max():.3e} from "
+                             f"total_nll_batch at prefit (tolerance {float(tol0[0]):.3e})")
+    phase(f"[large:scan] llh_scan_1d: {n_par} params x {SCAN_POINTS} points = {n_pts} points "
+          f"in {n_chunks} chunks of <= {chunk} in {dt:.3f} s ({n_pts / dt:.1f} points/s), peak "
+          f"{peak:.2f} GiB; {SCAN_PLAIN} points' per-sample NLLs vs plain within {d_max:.3e} "
+          f"({worst:.3f} of tol); {int(centred.sum())} centre points (the others' grids are "
+          f"clipped at a bound) within {d_centre.max():.3e} of total_nll_batch at prefit "
+          f"{float(at_prefit[0]):.3e} | {smi}")
+    for si, kern in ((0, "reweight_shared"), (1, "reweight_shifted")):
+        s = model.samples[si]
+        reset_launches()
+        t0 = time.perf_counter()
+        sv = sigma_variations(model, sample_index=si)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_sv = sv["values"].size
+        check_launches(f"large:sigma-var:{s.name}", dict(reweight.LAUNCHES),
+                       {kern: math.ceil(n_sv / chunk)})
+        th = points(np.repeat(np.arange(n_par), len(sv["sigmas"])), sv["values"].reshape(-1))
+        with torch.no_grad():
+            ref = s.reweight_batch_plain(th)[0]
+        got = torch.as_tensor(sv["hists"].reshape(n_sv, -1), device=dev, dtype=ref.dtype)
+        err, rel, w = compare(got, ref, K_RTOL, K_ATOL_FRAC, f"large:sigma-var:{s.name}")
+        phase(f"[large:sigma-var] {s.name} ({kern}): hists {list(sv['hists'].shape)} in "
+              f"{dt:.3f} s; vs plain max abs err {err:.3e}, max rel {rel:.3e} ({w:.3f} of tol) "
+              f"| {smi}")
+    reset_launches()
+    race = drag_race(model, n_laps=20, n_chains=LARGE_CHAINS)
+    phase(f"[large:drag-race] ms/call at {LARGE_CHAINS} chains (drag_race): "
+          + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in race.items()) + f" | {smi}")
+
+
+def exp_cli_pt(dev, smi: str) -> None:
+    """``[exp:cli-pt]``: ``mach3-mcmc-torch`` running parallel tempering with
+    a β = 0 ladder (``General:FittingAlgorithm:PT``, ``General:PT:BetaZero``)
+    on the YAML experiment: two chunks, then a resume for a third. The chain
+    file holds the cold level only (EXP_PT_WALKERS chains) with
+    ``log_evidence`` in its metadata; the checkpoint holds every level."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.cli import mcmc as cli
+    from mach3_tpu_torch.diagnostics.chain_io import load_chain
+    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.tutorial.experiment_files import write_experiment
+
+    n_chains = EXP_PT_TEMPS * EXP_PT_WALKERS
+    with tempfile.TemporaryDirectory() as tmp:
+        exp_yaml = str(write_experiment(tmp, n_events=EXP_EVENTS, seed=EXP_SEED))
+        out = os.path.join(tmp, "chain.npz")
+        overrides = ["General:FittingAlgorithm:PT", "General:PT:BetaZero:true",
+                     f"General:PT:NTemps:{EXP_PT_TEMPS}", f"General:MCMC:NChains:{EXP_PT_WALKERS}",
+                     f"General:MCMC:AutoSave:{EXP_PT_CHUNK}"]
+        opts = ["--device", dev.type, "--seed", "4", "--stream", "off", "-o", out]
+        first, total = 2 * EXP_PT_CHUNK, 3 * EXP_PT_CHUNK
+        reset_launches()
+        t0 = time.perf_counter()
+        if cli.main([exp_yaml, *overrides, f"General:MCMC:NSteps:{first}", *opts]) != 0:
+            raise AssertionError("exp:cli-pt: the first run failed")
+        t1 = time.perf_counter()
+        d1, meta1, _ = load_chain(out)
+        _, _, ck = load_chain(out + ".ckpt")
+        if cli.main([exp_yaml, *overrides, f"General:MCMC:NSteps:{total}", *opts,
+                     "--checkpoint", out + ".ckpt"]) != 0:
+            raise AssertionError("exp:cli-pt: the resumed run failed")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        d2, meta2, _ = load_chain(out)
+        _, _, ck2 = load_chain(out + ".ckpt")
+    n_par = len(meta1["names"])
+    if d1["theta"].shape != (first, EXP_PT_WALKERS, n_par) or d2["theta"].shape != (
+            total, EXP_PT_WALKERS, n_par):
+        raise AssertionError(f"exp:cli-pt: chain shapes {d1['theta'].shape}, "
+                             f"{d2['theta'].shape}: not the cold level")
+    if ck["st.theta"].shape != (n_chains, n_par) or int(ck2["st.step"]) != total:
+        raise AssertionError("exp:cli-pt: the checkpoint does not hold every level's state")
+    if not np.array_equal(ck["st.theta"][:EXP_PT_WALKERS], d1["theta"][-1]):
+        raise AssertionError("exp:cli-pt: the checkpoint's cold level is not the chain's last")
+    if not np.array_equal(d2["theta"][:first], d1["theta"]):
+        raise AssertionError("exp:cli-pt: the resumed chain file changed the first run's draws")
+    lz = [m.get("log_evidence") for m in (meta1, meta2)]
+    if not all(v is not None and np.isfinite(v) for v in lz):
+        raise AssertionError(f"exp:cli-pt: log_evidence in the metadata: {lz}")
+    if not np.isfinite(d2["nll"]).all():
+        raise AssertionError("exp:cli-pt: non-finite NLLs in the chain")
+    launches = dict(reweight.LAUNCHES)
+    if not (launches.get("reweight_perchain") and launches.get("reweight_shared")):
+        raise AssertionError(f"exp:cli-pt: a kernel of the path was not launched: {launches}")
+    phase(f"[exp:cli-pt] mach3-mcmc-torch, parallel tempering {EXP_PT_TEMPS} levels (beta = 0 "
+          f"last) x {EXP_PT_WALKERS} walkers = {n_chains} chains x {EXP_EVENTS} events: "
+          f"{first} steps in {t1 - t0:.1f} s (files, build and capture included), resumed for "
+          f"{total - first} more in {t2 - t1:.1f} s; chain file {d2['theta'].shape} (cold "
+          f"level), checkpoint {ck2['st.theta'].shape} at step {int(ck2['st.step'])}; "
+          f"log_evidence {lz[0]:.4f} (first run), {lz[1]:.4f} (resumed run's steps); kernel "
+          f"launches {launches} | {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -2014,10 +2756,12 @@ def main() -> int:
 
     results = toy_path(dev, smi)
     toy_grads = results.pop("grad")
+    octant_path(dev, smi)
     results.update(exp_path(dev, smi))
     exp_grads = results.pop("grad")
     exp_sparse(dev, smi)
     exp_cli(dev, smi)
+    exp_cli_pt(dev, smi)
     large_results, model = large_path(dev, smi)
     results.update(large_results)
     grads, chees = large_grad_path(model, dev, smi)

@@ -7,7 +7,10 @@ CLI equivalent of the reference's experiment executables
 ``--override extra.yaml``. Fits the built-in toy (``--experiment toy``) or
 the experiment of a config with an ``Experiment:`` tree. The chain file has
 the JAX package's format; the checkpoint beside it (``<output>.ckpt``) is
-this package's own (``diagnostics/chain_io.py``).
+this package's own (``diagnostics/chain_io.py``). A parallel-tempering fit
+(``General:FittingAlgorithm:PT``) stores its cold level only; with
+``General:PT:BetaZero:true`` the log evidence goes into the chain file's
+metadata first.
 """
 from __future__ import annotations
 
@@ -74,6 +77,13 @@ def main(argv: list[str] | None = None) -> int:
                   "need an Experiment: tree in the YAML)", args.experiment)
         return 2
     fitter = make_fitter(cfg, model, seed=args.seed)
+    if not hasattr(fitter, "state"):
+        from ..core.exceptions import ConfigError
+
+        raise ConfigError(
+            f"General.FittingAlgorithm '{cfg.get('General.FittingAlgorithm')}' is an optimiser, "
+            "not a sampler: mach3-mcmc-torch runs samplers; call "
+            "fitters.make_fitter(cfg, model).run() for its result")
     n_steps = int(cfg.get("General.MCMC.NSteps", 1000))
 
     # Streaming: estimated full-chain bytes against the threshold. The
@@ -113,7 +123,9 @@ def main(argv: list[str] | None = None) -> int:
     def write_out(draws: dict, state) -> None:
         """Chain + checkpoint, each written atomically (the reference's
         TTree AutoSave, ``MCMCBase.cpp:119-121``); ``state`` the state at
-        the end of ``draws``."""
+        the end of ``draws``. Parallel tempering stores its cold level."""
+        if hasattr(fitter, "cold_chain"):
+            draws = fitter.cold_chain(draws)
         if prefix_draws is not None:
             draws = {k: np.concatenate([prefix_draws[k], v], axis=0) if k in prefix_draws else v
                      for k, v in draws.items()}
@@ -147,7 +159,7 @@ def main(argv: list[str] | None = None) -> int:
         except (AttributeError, KeyError):  # fitters without MR2T2's telemetry
             log.info("step %d/%d", done, n_steps)
         if streaming:
-            writer.append(chunk)
+            writer.append(fitter.cold_chain(chunk) if hasattr(fitter, "cold_chain") else chunk)
             if auto_save:
                 writer.finalize()  # the manifest tracks every appended shard
                 save_checkpoint(args.output + ".ckpt", fitter, names, yaml_text, state=state)
@@ -165,13 +177,24 @@ def main(argv: list[str] | None = None) -> int:
     if prof is not None:
         prof.stop()
         log.info("profiler trace of the second chunk written to %s", args.profile)
+    beta_zero = hasattr(fitter, "cold_chain") and getattr(fitter.config, "beta_zero", False)
     if streaming:
+        if beta_zero:
+            log.warning("log-evidence needs the full multi-level chain; streaming mode stores "
+                        "the cold level only — rerun with --stream off or compute evidence "
+                        "online in chunks")
         writer.finalize()
         save_checkpoint(args.output + ".ckpt", fitter, names, yaml_text)
         log.info("Wrote %s (+.ckpt): %d shards, %.2f MB on disk, max %.2f MB resident",
                  args.output, len(writer.parts), writer.disk_bytes / 1e6,
                  writer.max_resident_bytes / 1e6)
         return 0
+    if beta_zero:
+        # A β = 0 ladder gives the marginal likelihood (diagnostics/evidence.py):
+        # recorded before write_out drops the hot levels.
+        logz = fitter.log_evidence(out)
+        extra_meta["log_evidence"] = logz
+        log.info("log evidence (stepping-stone, normalised prior): %.4f", logz)
     write_out(out, state=fitter.state)
     log.info("Wrote %s (+.ckpt)", args.output)
     return 0

@@ -36,6 +36,17 @@ class FitResult:
     message: str
 
 
+def chi2_batch(model: FitModel, x: torch.Tensor) -> torch.Tensor:
+    """``CalcChi2`` of a batch x [C, NP] -> [C] (JAX ``minimize.py:_chi2_of``):
+    2 x (the quadratic prior without the out-of-bounds sentinel + the
+    samples' -logL, each sample on its route). The sentinel-free χ² that a
+    bounded optimiser needs (``LikelihoodFit.cpp:98``)."""
+    flat = model.flat
+    d = torch.where(flat.flat_prior, 0.0, x.to(ATYPE) - flat.prefit)
+    prior = 0.5 * (d * (d @ flat.inv_cov.T)).sum(1)
+    return 2.0 * (prior + model.total_nll_batch_parts(x)[2].sum(1))
+
+
 def bounds_of(model: FitModel) -> list[tuple[float, float]]:
     """(low, high) of every parameter, handler by handler."""
     out = []

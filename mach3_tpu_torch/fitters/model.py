@@ -16,7 +16,7 @@ from torch import nn
 
 from ..core.precision import ATYPE, LARGE_LOGL
 from ..params.parameterset import ParameterSet
-from ..params.state import PriorModel
+from ..params.state import PriorModel, propose_step
 from ..samples.sample import SampleModel
 
 
@@ -88,6 +88,39 @@ class FitModel(nn.Module):
 
     def prefit_vector(self) -> torch.Tensor:
         return self.flat.prefit.clone()
+
+    def parameter_names(self, parameter_sets: Sequence[ParameterSet]) -> list[str]:
+        """``<set name>_<parameter name>`` of every parameter, in θ's order."""
+        return [f"{ps.name}_{n}" for ps in parameter_sets for n in ps.names]
+
+    # ------------------------------------------------ one chain: θ [NP]
+    # Each is the batched method at C = 1: one route, the kernels' on the card.
+    def propose(self, theta: torch.Tensor, generator: torch.Generator | None = None,
+                z: torch.Tensor | None = None, flip_u: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """Correlated proposal over all handlers, θ [NP] -> θ' [NP]
+        (``params.state.propose_step`` on the whole-vector prior)."""
+        return propose_step(self.flat, theta, generator, z=z, flip_u=flip_u)
+
+    def prior_nll(self, theta: torch.Tensor) -> torch.Tensor:
+        """Total prior -logL with the out-of-bounds sentinels (the sum of
+        :meth:`prior_nll_breakdown`)."""
+        return self.prior_nll_breakdown(theta).sum(-1)
+
+    def sample_nll_breakdown(self, theta: torch.Tensor) -> torch.Tensor:
+        """[S] per-sample -logL at θ (the reference's ``sample_llh``
+        branches), oscillation grids shared by signature."""
+        return self.total_nll_batch_parts(theta[None])[2][0]
+
+    def sample_nll(self, theta: torch.Tensor) -> torch.Tensor:
+        """Sum of the sample -logLs at θ (``LikelihoodFit::CalcChi2``'s)."""
+        return self.sample_nll_breakdown(theta).sum()
+
+    def total_nll(self, theta: torch.Tensor) -> torch.Tensor:
+        """Full -logL at θ with the out-of-bounds short-circuit of
+        ``MR2T2::ProposeStep``: ``prior + n_samples * LARGE_LOGL`` when the
+        prior is at the sentinel."""
+        return self.total_nll_batch(theta[None])[0]
 
     # --------------------------------------------------------- likelihood
     def prior_nll_breakdown(self, thetas: torch.Tensor) -> torch.Tensor:

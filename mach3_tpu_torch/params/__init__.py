@@ -6,7 +6,15 @@ from .parameterset import (
     SplineInterpolation,
     make_pos_def,
 )
-from .state import PriorModel, circular_wrap, prior_logl, propose_step_batch
+from .state import (
+    PriorModel,
+    circular_wrap,
+    count_out_of_bounds,
+    get_likelihood,
+    prior_logl,
+    propose_step,
+    propose_step_batch,
+)
 
 __all__ = [
     "KinematicCut",
@@ -17,6 +25,9 @@ __all__ = [
     "make_pos_def",
     "PriorModel",
     "circular_wrap",
+    "count_out_of_bounds",
+    "get_likelihood",
     "prior_logl",
+    "propose_step",
     "propose_step_batch",
 ]

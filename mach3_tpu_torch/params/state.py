@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.precision import ATYPE
+from ..core.precision import ATYPE, LARGE_LOGL
 from .parameterset import ParameterSet
 
 _FIELDS = (
@@ -117,14 +117,16 @@ def propose_step_batch(
     z: torch.Tensor | None = None,
     flip_u: torch.Tensor | None = None,
     extra_scale: float = 1.0,
+    scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Correlated proposals for a chain batch: current [C, P] -> [C, P].
 
     ``z [C, K]`` (standard normals) and ``flip_u [C, P]`` (uniforms; a flip
     parameter flips where ``flip_u < 0.5``) may be injected — the batch form
     of the reference's ``SetRandomThrow`` hook; otherwise they are drawn from
-    ``generator``. ``extra_scale`` multiplies every step (the delayed-
-    rejection cascade's shrink factor)."""
+    ``generator``, normals first. ``extra_scale`` multiplies every step (the
+    delayed-rejection cascade's shrink factor); ``scale [C]`` multiplies each
+    chain's step (parallel tempering throws each level at its own scale)."""
     c = current.shape[0]
     dev = current.device
     if z is None:
@@ -137,6 +139,8 @@ def propose_step_batch(
         )
     # Fixed params have step_scale 0, so they never move.
     delta = (z.to(ATYPE) @ model.chol.T) * model.step_scale * extra_scale
+    if scale is not None:
+        delta = delta * scale[:, None]
     prop = current + delta
 
     wrapped = circular_wrap(prop, model.circ_low, model.circ_high)
@@ -152,3 +156,33 @@ def prior_logl(model: PriorModel, prop: torch.Tensor) -> torch.Tensor:
     (``ParameterHandlerBase.cpp:816-841``): prop [..., P] -> [...] f64."""
     d = torch.where(model.flat_prior, 0.0, prop.to(ATYPE) - model.prefit)
     return 0.5 * (d * (d @ model.inv_cov.T)).sum(-1)
+
+
+def propose_step(
+    model: PriorModel,
+    current: torch.Tensor,
+    generator: torch.Generator | None = None,
+    z: torch.Tensor | None = None,
+    flip_u: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One chain's correlated proposal, current [P] -> [P]: the batch form
+    at C = 1 (``z [K]`` and ``flip_u [P]`` may be injected)."""
+    return propose_step_batch(
+        model, current[None], generator,
+        z=None if z is None else z[None], flip_u=None if flip_u is None else flip_u[None],
+    )[0]
+
+
+def count_out_of_bounds(model: PriorModel, prop: torch.Tensor) -> torch.Tensor:
+    """Number of parameters outside the physical bounds (``CheckBounds``,
+    ``ParameterHandlerBase.cpp:844-856``): prop [..., P] -> [...] int32."""
+    outside = (prop > model.up_bound) | (prop < model.low_bound)
+    return outside.sum(-1, dtype=torch.int32)
+
+
+def get_likelihood(model: PriorModel, prop: torch.Tensor) -> torch.Tensor:
+    """Prior -logL with the out-of-bounds sentinel (``GetLikelihood``,
+    ``:859-867``): ``NOutside * LARGE_LOGL`` where any parameter is out of
+    bounds, else :func:`prior_logl`. prop [..., P] -> [...] f64."""
+    n_out = count_out_of_bounds(model, prop)
+    return torch.where(n_out > 0, n_out.to(ATYPE) * LARGE_LOGL, prior_logl(model, prop))

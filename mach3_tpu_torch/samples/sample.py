@@ -691,6 +691,12 @@ class SampleModel(nn.Module):
         """[C, NP] -> [C] -logL on the sample's route."""
         return self._stat_sum(*self.reweight_batch(thetas, osc_grids_batch))
 
+    def log_likelihood(self, params: torch.Tensor, osc_grids: tuple | None = None) -> torch.Tensor:
+        """-logL of one θ [NP] (f64 scalar, ``GetLikelihood``): the batched
+        route at C = 1; ``osc_grids`` this θ's (nu, antinu) grids."""
+        grids = None if osc_grids is None else tuple(g[None] for g in osc_grids)
+        return self.log_likelihood_batch(params[None], grids)[0]
+
     def osc_prob_grids(self, thetas: torch.Tensor) -> tuple | None:
         return None if self.osc is None else self.osc.prob_grids(thetas)
 

@@ -27,6 +27,7 @@ from ..samples.events import (
     match_norm_params,
 )
 from ..samples.sample import SampleModel, ShiftSpec
+from ..samples.teststats import TestStatistic
 from ..splines.monolith import SplineParamSpec, build_dense_table, build_sparse_table
 
 # Interaction modes of the toy generator
@@ -237,17 +238,26 @@ def build_toy(
     use_kernel: bool | str = "auto",
     device: str | torch.device = "cuda",
     dense_splines: bool = True,
+    test_statistic: TestStatistic = TestStatistic.BARLOW_BEESTON,
+    baseline: float = BASELINE_KM,
+    density: float = DENSITY,
+    osc_entry_overrides: dict | None = None,
+    asimov_overrides: dict | None = None,
 ) -> ToyExperiment:
-    """Build the toy with Barlow-Beeston statistics and Asimov data at the
-    prefit point. The host arrays are built on the CPU and the model is
-    returned on ``device``: the card by default (raises when none is
-    visible); ``device="cpu"`` keeps it on the CPU. ``dense_splines=False``
-    builds sparse spline tables, whose samples take the plain route (as in
-    the JAX package)."""
+    """Build the toy with Asimov data at the prefit point, or at the truth
+    of ``asimov_overrides`` (parameter name -> value, e.g. an off-maximal
+    ``osc_sin2th23`` for octant studies). The host arrays are built on the
+    CPU and the model is returned on ``device``: the card by default (raises
+    when none is visible); ``device="cpu"`` keeps it on the CPU.
+    ``dense_splines=False`` builds sparse spline tables, whose samples take
+    the plain route (as in the JAX package). ``baseline`` [km] and
+    ``density`` [g/cm³] set the beam's oscillation; ``osc_entry_overrides``
+    is merged over the oscillation block (:func:`osc_config_yaml`)."""
     dev = target_device(device)
     rng = np.random.default_rng(seed)
     xsec = ParameterSet.from_config(Config(xsec_config()), name="xsec")
-    osc = ParameterSet.from_config(Config(osc_config_yaml(flip_hierarchy)), name="osc")
+    osc = ParameterSet.from_config(
+        Config(osc_config_yaml(flip_hierarchy, osc_entry_overrides)), name="osc")
     n_xsec = len(xsec)
     n_total = n_xsec + len(osc)
     osc_gidx = list(range(n_xsec, n_xsec + 6))
@@ -307,8 +317,8 @@ def build_toy(
             sub,
             e_grid,
             osc_gidx,
-            baseline=BASELINE_KM,
-            density=DENSITY,
+            baseline=baseline,
+            density=density,
             nc_modes=[MODE_NC],
             # Beam baseline: λL ~ a few rad, f32 phases exact to ~1e-7 rad.
             phase_dtype=torch.float32,
@@ -325,6 +335,7 @@ def build_toy(
                 spline_table=table,
                 osc=osc_cfg,
                 shifts=(ShiftSpec.scale(escale_idx, var_row=1),),  # e_reco
+                test_statistic=test_statistic,
                 use_kernel=use_kernel,
             )
         )
@@ -332,12 +343,44 @@ def build_toy(
     model = FitModel.build([xsec, osc], samples)
 
     names = [f"xsec_{n}" for n in xsec.names] + [f"osc_{n}" for n in osc.names]
-    prefit = model.prefit_vector()
+    truth = model.prefit_vector()
+    for pname, val in (asimov_overrides or {}).items():
+        truth[names.index(pname)] = float(val)
     with torch.no_grad():
         for s in samples:
-            s.set_data(s.asimov_data(prefit))
+            s.set_data(s.asimov_data(truth))
     model.to(dev)
     return ToyExperiment(
         xsec=xsec, osc=osc, samples=samples, model=model, names=names,
         event_modes=event_modes,
+    )
+
+
+def build_octant_toy(
+    n_events: int = 3000,
+    seed: int = 77,
+    e_grid_size: int = 56,
+    s23_true: float = 0.45,
+    hierarchy: str = "NH",
+    use_kernel: bool | str = "auto",
+    device: str | torch.device = "cuda",
+) -> ToyExperiment:
+    """The octant-degenerate Asimov toy (JAX ``toy.py:385-428``): truth
+    sin²θ23 = ``s23_true`` under a flat sin²θ23 prior, so the posterior has
+    a second mode in the mirror octant; a DUNE-like baseline and density
+    (1,300 km, 2.85 g/cm³) so that matter effects separate the mass
+    orderings. ``hierarchy`` is the fit model's Δm²31 sign ("NH" or "IH");
+    the Asimov data are always made at the NH truth (+2.51e-3), so an "IH"
+    build is the wrong-ordering model of a Bayes-factor comparison."""
+    if hierarchy == "IH":
+        overrides = {"dm2_31": {"ParameterBounds": [-5.0e-3, -5.0e-5],
+                                "ParameterValues": {"PreFitValue": -2.46e-3}}}
+    elif hierarchy == "NH":
+        overrides = {"dm2_31": {"ParameterBounds": [5.0e-5, 5.0e-3]}}
+    else:
+        raise ValueError(f"hierarchy must be 'NH' or 'IH', got {hierarchy!r}")
+    return build_toy(
+        n_events=n_events, seed=seed, e_grid_size=e_grid_size, use_kernel=use_kernel,
+        device=device, baseline=1300.0, density=2.85, osc_entry_overrides=overrides,
+        asimov_overrides={"osc_sin2th23": s23_true, "osc_dm2_31": 2.51e-3},
     )

@@ -107,7 +107,7 @@ def test_toy_delayed_and_the_algorithms_not_ported(tmp_path):
     draws, meta, _ = load_chain(out)
     assert draws["theta"].shape == (20, 3, 16) and "delayed_accept" in draws
     assert meta["names"][0].startswith("xsec_")
-    with pytest.raises(ConfigError, match="ROADMAP"):
+    with pytest.raises(ConfigError, match="not a sampler"):
         cli_mcmc.main(["General:FittingAlgorithm:PSO", "Toy:NEvents:800", "--device", "cpu",
                        "-o", str(tmp_path / "p.npz")])
     assert cli_mcmc.main(["--experiment", "nope", "--device", "cpu"]) == 2
