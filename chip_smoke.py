@@ -90,6 +90,21 @@ each kernel against its plain PyTorch version. Run from the repository root:
   experiment with a resume (``[exp:cli-pt]``). Every run's kernel launches
   are counted from 0 and gated.
 
+* The analysis path (``diagnostics/predictive.py``, ``autocorr.py``,
+  ``processor.py``, the post-processing CLIs): the posterior predictive with
+  2,000 toys on the chain axis, drawn from the production sampler's run on
+  the toy (K1; by-mode spectra from the interaction modes; spectra against
+  the plain route, each toy's data NLL against ``total_nll_batch_parts``,
+  the JAX test's p-value calibration: ``[toy:predictive]``) and from
+  large700's adaptive run (K2 and K3 at the largest chunk the byte bound
+  allows, against their plain versions: ``[large700:predictive]``); ESS,
+  Geweke and batched means of large700's chain on the card against numpy
+  and of an AR(1) chain of 10,000 x 128 x 700 f64 against its known τ
+  (``[large700:ess]``); ``mach3-diag-torch``, ``-process-torch
+  --jarlskog``, ``-rhat-``, ``-combine-`` and ``-predictive-torch`` on the
+  toy's chain files (``[toy:post-cli]``), diag and process on
+  ``[exp:cli]``'s.
+
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2 as graphs and
 eager with their profiles, the samplers, kernel timing; then the gradient
@@ -98,6 +113,7 @@ the exit code is not 0. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its launches on
 its path (K1 and K3: the toy and large MR2T2 runs; K2: the large MR2T2 run;
+K1, K2 and K3 also the predictive's runs on the toy and large700;
 the large700 path's kernel figures are on its ``[large700:*]`` lines;
 K4b and the backward kernel, which K6a and K6b share: the ChEES run; K5, K4a:
 the experiment's MR2T2 run; K5b: its run with the deterministic histogram),
@@ -349,6 +365,46 @@ SCAN_PLAIN = 256
 EXP_PT_TEMPS = 8
 EXP_PT_WALKERS = 32
 EXP_PT_CHUNK = 100
+# The analysis path: the posterior predictive with PRED_TOYS toys drawn
+# (burn-in PRED_BURN) from [toy:adaptive]'s and [large700:adaptive]'s
+# graph runs. Calibration as the JAX tests hold it (tests/test_aux.py:
+# 212-305): on the Asimov data every per-bin p-value inside PRED_BIN_BAND;
+# with the data x PRED_BAD_SCALE the p-value below PRED_P_BAD and every
+# per-bin p-value below PRED_BIN_BAND[0]. The toy's p-value on its Asimov
+# data is not gated near 0.5: its Barlow-Beeston statistic is dominated by
+# the MC's own statistical error (Σw² ≫ Σw a bin), so a draw's Poisson
+# fluctuation moves the -logL by ~1 while the posterior's spread moves the
+# data's by ~3 (p = 0.058-0.062 from 64 chains x 1,000 adaptive steps on
+# the CPU; the JAX package's function gives the same on the same draws).
+PRED_TOYS = 2000
+PRED_BURN = 0.2
+PRED_SEED = 11
+PRED_BIN_BAND = (0.15, 0.85)
+PRED_BAD_SCALE = 1.5
+PRED_P_BAD = 0.1
+L7_PRED_CHECK = 128
+# [large700:ess]: the adaptive run's ESS, Geweke and batched means on the
+# card against numpy f64 (ESS_RTOL); an AR(1) chain at the envelope's size
+# (AR1_STEPS x L7_CHAINS x 700, f64) whose mean τ over its series must lie
+# within AR1_TAU_RTOL of (1 + φ) / (1 − φ) (the Sokal window's bias at φ =
+# 0.9 and 10,000 steps: -0.2%, CPU).
+ESS_RTOL = 1e-9
+AR1_STEPS = 10_000
+AR1_PHI = 0.9
+AR1_TAU_RTOL = 0.01
+# [toy:post-cli]: the second chain file's run, and the predictive CLI's toys.
+CLI_SECOND_STEPS = 500
+CLI_PRED_TOYS = 500
+#: The npz keys the JAX package's CLIs write (mach3_tpu/cli/diag.py,
+#: process.py with the default --credible, predictive.py and its per-sample
+#: prefixes).
+DIAG_KEYS = {"names", "ess", "geweke", "split_rhat", "folded_rhat", "batched_means_ratio",
+             "autocorrelation"}
+PROCESS_KEYS = {"summary", "names", "covariance", "correlation", "ci_6827", "ci_9545"}
+PRED_KEYS = {"llh_data", "llh_draw", "llh_fluctpred_vs_draw", "llh_data_vs_fluctdraw",
+             "llh_fluctdata_vs_draw", "llh_fluctdraw_vs_pred", "p_value", "p_value_per_sample",
+             "p_value_fluct_pred", "p_value_fluct_data", "p_value_rate"}
+PRED_SAMPLE_KEYS = ("spectra_", "band_", "violin_", "p_per_bin_", "data_", "by_mode_")
 
 
 #: Polygon bins over (e_reco, cos_theta): six e_reco columns, each cut in two
@@ -684,12 +740,14 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
 
 
 def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per_step: dict,
-                smi: str, acc_band: tuple | None = None) -> dict:
+                smi: str, acc_band: tuple | None = None, collect: bool = False) -> dict:
     """``warm`` untimed steps (they build the kernels and, for a graph,
     capture the step), then ``steps`` timed ones whose kernel launches must
     be ``launches_per_step`` x steps, whose NLLs must be finite and whose
     last chunk's acceptance must lie inside ``acc_band`` when given.
-    Returns dict(step_ms, launches, acc, acc_last, peak_gib)."""
+    Returns dict(step_ms, launches, acc, acc_last, peak_gib) and, with
+    ``collect``, the timed steps' draws (host arrays, copied once a chunk)."""
+    import numpy as np
     import torch
 
     from mach3_tpu_torch.splines import reweight
@@ -702,11 +760,12 @@ def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     head = max(steps - chunk, 0)
+    parts = []
     t0 = time.perf_counter()
     if head:
-        fitter.run(n_steps=head, collect=False)
+        parts.append(fitter.run(n_steps=head, collect=collect))
     acc_mid = fitter.state.n_accepted.clone()
-    fitter.run(n_steps=steps - head, collect=False)
+    parts.append(fitter.run(n_steps=steps - head, collect=collect))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(reweight.LAUNCHES)
@@ -724,7 +783,10 @@ def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per
           f"{n_chains * steps / dt:.1f} chain-steps/s ({step_ms:.3f} ms/step), acceptance "
           f"{acc:.5f} (last chunk {acc_last:.5f}), kernel launches {launches}, state NLL vs "
           f"its θ anew within {d_nll:.3e}, peak mem {peak:.2f} GiB | {smi}")
-    return dict(step_ms=step_ms, launches=launches, acc=acc, acc_last=acc_last, peak_gib=peak)
+    out = dict(step_ms=step_ms, launches=launches, acc=acc, acc_last=acc_last, peak_gib=peak)
+    if collect:
+        out["draws"] = {k: np.concatenate([p[k] for p in parts]) for k in parts[-1]}
+    return out
 
 
 def nll_recheck(tag: str, fitter, rtol: float = 0.0) -> float:
@@ -975,7 +1037,7 @@ def graph_step_vs_eager(tag: str, model, cfg, saved, smi: str) -> None:
           f"bit-identical on {alike_steps} steps where every decision agreed | {smi}")
 
 
-def toy_samplers(model, thetas, smi: str) -> None:
+def toy_samplers(model, thetas, smi: str) -> dict:
     """The production sampler on the toy: ``[toy:adaptive]`` (pooled
     adaptive MR2T2 as a graph, launch, NLL and acceptance-band gates; its
     eager counterpart's figures come from ``[toy:adaptive:eager]``), then
@@ -983,7 +1045,8 @@ def toy_samplers(model, thetas, smi: str) -> None:
     held) and ``[toy:graph-vs-eager:rm]`` (on, each graph step shadowed by an
     eager one), both again per chain from a per-chain run's state after its
     warm-up, then ``[toy:per-chain]`` and ``[toy:delayed]`` (one retry: each
-    kernel twice a step) as graphs beside short eager runs."""
+    kernel twice a step) as graphs beside short eager runs. Returns the
+    draws of ``[toy:adaptive]``'s timed graph run."""
     import dataclasses
 
     from mach3_tpu_torch.fitters.delayed import DelayedConfig, DelayedMR2T2
@@ -996,7 +1059,7 @@ def toy_samplers(model, thetas, smi: str) -> None:
     fit.run(n_steps=ADAPTIVE_WARM, collect=False)
     saved = snapshot(fit.state)
     r = run_sampler("toy:adaptive", "graph", fit, 0, ADAPTIVE_STEPS, {"reweight_shifted": 2},
-                    smi, ACC_BAND)
+                    smi, ACC_BAND, collect=True)
     profile_steps("toy:adaptive", "graph", fit, r["step_ms"], names, smi)
     del fit
     eager = MR2T2(model, cfg, init, seed=2, graph=False)
@@ -1026,6 +1089,7 @@ def toy_samplers(model, thetas, smi: str) -> None:
             res = run_sampler(tag, mode, fit, 10, steps, per_step, smi)
             profile_steps(tag, mode, fit, res["step_ms"], names, smi)
             del fit
+    return r["draws"]
 
 
 def exp_cli(dev, smi: str) -> None:
@@ -1071,6 +1135,7 @@ def exp_cli(dev, smi: str) -> None:
         t2 = time.perf_counter()
         d2, _, _ = load_chain(out)
         _, _, ck2 = load_chain(out + ".ckpt")
+        post_cli_files("exp:cli", out, tmp, dev, smi, jarlskog=False)
     if d2["theta"].shape[0] != total or int(ck2["st.step"]) != total:
         raise AssertionError(f"exp:cli: {d2['theta'].shape[0]} steps, checkpoint at "
                              f"{int(ck2['st.step'])}, not {total}")
@@ -1517,7 +1582,7 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
         "toy", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, {"reweight_shifted": 2}, smi,
         ACC_MIN, EAGER_STEPS, ["reweight_perchain_kernel"])
     del fitter
-    toy_samplers(model, thetas, smi)
+    draws = toy_samplers(model, thetas, smi)
     with torch.no_grad():
         times = [time_kernel("toy", s, *checked[s.name][:2], smi) for s in model.samples]
 
@@ -1531,7 +1596,9 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
     toy_pso(model, smi, fit_result)
     toy_scan2d(toy, smi)
     toy_llhscan_cli(dev, smi)
-    return {"K1": dict(launches=launches["reweight_shifted"],
+    pred = toy_predictive(toy, draws, smi)
+    toy_post_cli(toy, draws, smi)
+    return {"K1": dict(launches=launches["reweight_shifted"] + pred["reweight_shifted"],
                        max_abs_err=max(v[2] for v in checked.values()),
                        ms=sum(v[0] for v in times), plain_ms=sum(v[1] for v in times),
                        **summed([v[2] for v in times])),
@@ -1946,12 +2013,14 @@ def exp_sparse(dev, smi: str) -> None:
           f"|d| {d_max:.3e} ({worst:.3f} of tol) | {smi}")
 
 
-def large700_path(dev, smi: str) -> None:
+def large700_path(dev, smi: str) -> dict:
     """``build_large700()`` on the card, then its phases: kernels against
     their plain versions, the Asimov check and NLLs vs the plain route;
     ``total_nll_batch`` at 32 and 128 chains; pooled adaptive MR2T2 as a
-    graph and as the eager loop; each sample's kernel time and bound; one
-    gradient evaluation; the fixture cache's round trip."""
+    graph and as the eager loop; each sample's kernel time and bound; the
+    posterior predictive and the chain diagnostics on the adaptive run's
+    draws; one gradient evaluation; the fixture cache's round trip. Returns
+    the predictive's kernel launches."""
     import numpy as np
     import torch
 
@@ -2010,7 +2079,8 @@ def large700_path(dev, smi: str) -> None:
     fit.run(n_steps=L7_WARM, collect=False)
     saved = snapshot(fit.state)
     g = run_sampler("large700:adaptive", "graph", fit, 0, L7_STEPS, L7_LAUNCHES, smi,
-                    (ACC_MIN, 0.99))
+                    (ACC_MIN, 0.99), collect=True)
+    theta = g.pop("draws")["theta"]
     profile_steps("large700:adaptive", "graph", fit, g["step_ms"], names, smi)
     del fit
     eager = MR2T2(model, cfg, init, seed=6, graph=False)
@@ -2026,6 +2096,9 @@ def large700_path(dev, smi: str) -> None:
             a, kw, _ = checked[s.name]
             time_kernel("large700", s, a, kw, smi)
     del checked, tables
+    pred = large700_predictive(model, theta, smi)
+    large700_ess(theta, dev, smi)
+    del theta
 
     th = thetas[:L7_GRAD_CHAINS].contiguous()
     with torch.no_grad():
@@ -2038,6 +2111,7 @@ def large700_path(dev, smi: str) -> None:
           f"{L7_GRAD_CHAINS} chains | {smi}")
     del tables
     fixture_round_trip("large700", exp, thetas[:L7_ROUND_TRIP_CHAINS].contiguous(), dev, smi)
+    return pred
 
 
 def fixture_round_trip(tag: str, exp, thetas, dev, smi: str) -> None:
@@ -2720,6 +2794,355 @@ def exp_cli_pt(dev, smi: str) -> None:
           f"launches {launches} | {smi}")
 
 
+def device_busy(fn) -> tuple[float, float]:
+    """(device busy ms, device ops) of one call of ``fn`` under
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in dev_ops) / 1e3,
+            sum(e.count for e in dev_ops))
+
+
+def timed_predictive(tag: str, model, toys, smi: str, categories=None):
+    """``run_predictive`` over ``toys`` twice: a first run (at new shapes
+    it loads CUDA modules and grows the allocator's pool: ~3 s on the toy),
+    then the timed run on the host clock, whose kernel launches are gated:
+    each sample's kernel once per chunk. Returns (result, seconds, launches,
+    peak GiB, chunks, the first run's seconds)."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.diagnostics.predictive import run_predictive
+    from mach3_tpu_torch.splines import reweight
+
+    t0 = time.perf_counter()
+    run_predictive(model, toys, seed=PRED_SEED, categories=categories)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_predictive(model, toys, seed=PRED_SEED, categories=categories)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(reweight.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_chunks = -(-len(toys) // res.chunk)
+    want: dict = {}
+    for s in model.samples:
+        name = kernel_of(s)[0]
+        want[name] = want.get(name, 0) + n_chunks
+    check_launches(f"{tag} ({len(toys)} toys, {n_chunks} chunks)", launches, want)
+    for x in (res.llh_data, res.llh_draw) + tuple(res.spectra):
+        if not np.isfinite(x).all():
+            raise AssertionError(f"{tag}: non-finite spectra or NLLs")
+    return res, dt, launches, peak, n_chunks, first
+
+
+def toy_predictive(toy, draws: dict, smi: str) -> dict:
+    """``[toy:predictive]``: PRED_TOYS toys drawn from ``[toy:adaptive]``'s
+    timed run (1,000 steps x 256 chains) through ``run_predictive`` with the
+    toy's interaction modes as categories: K1 once per sample and chunk.
+    Gates: the spectra against the plain route on the same toys; each toy's
+    ``llh_data`` against the per-sample parts of ``total_nll_batch_parts``
+    at its θ; the by-mode sum against the kernel spectra; the per-bin
+    p-values on the Asimov data inside PRED_BIN_BAND and, on a copy of the
+    model with the data x PRED_BAD_SCALE, the p-value below PRED_P_BAD and
+    the per-bin ones of bins with data below the band. Returns the
+    launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.diagnostics.predictive import draw_parameter_sets, run_predictive
+
+    model = toy.model
+    dev = model.flat.prefit.device
+    toys = draw_parameter_sets(draws["theta"], PRED_TOYS, np.random.default_rng(PRED_SEED),
+                               burn_in=PRED_BURN)
+    res, dt, launches, peak, n_chunks, first = timed_predictive(
+        "toy:predictive", model, toys, smi, categories=toy.event_modes)
+    th = torch.as_tensor(toys, device=dev)
+    worst = {}
+    with torch.no_grad():
+        tables = model._shared_osc_tables(th)
+        parts = model.total_nll_batch_parts(th)[2]
+        for i, s in enumerate(model.samples):
+            mc = torch.as_tensor(res.spectra[i], device=dev)
+            ref_mc, ref_w2 = s.reweight_batch_plain(th, tables[i])
+            _, rel, w = compare(mc, ref_mc, K_RTOL, K_ATOL_FRAC, f"toy:predictive {s.name}")
+            gap = (torch.as_tensor(res.llh_data_per_sample[:, i], device=dev) - parts[:, i]).abs()
+            tol = nll_tolerance(s, mc, ref_w2)
+            if not bool((gap <= tol).all()):
+                raise AssertionError(f"toy:predictive {s.name}: llh_data {float(gap.max()):.3e} "
+                                     f"from total_nll_batch_parts (tolerance "
+                                     f"{float(tol.min()):.3e}+)")
+            bym = torch.as_tensor(res.spectra_by_mode[i], device=dev).sum(1)
+            _, _, wb = compare(bym, mc, K_RTOL, K_ATOL_FRAC, f"toy:predictive {s.name} by mode")
+            worst[s.name] = (rel, w, float(gap.max()), wb)
+    lo, hi = PRED_BIN_BAND
+    per_bin = np.concatenate(res.p_value_per_bin)
+    if not (lo < per_bin.min() and per_bin.max() < hi):
+        raise AssertionError(f"toy:predictive: per-bin p-values {per_bin.min():.3f}-"
+                             f"{per_bin.max():.3f} on the Asimov data, outside {PRED_BIN_BAND}")
+    bad = copy.deepcopy(model)
+    for s in bad.samples:
+        s.set_data(s.data * PRED_BAD_SCALE)
+    res_bad = run_predictive(bad, toys, seed=PRED_SEED)
+    del bad
+    filled = np.concatenate([s.data.cpu().numpy() > 0 for s in model.samples])  # x 1.5 moves
+    p_bad, bad_bin = res_bad.p_value, np.concatenate(res_bad.p_value_per_bin)[filled].max()
+    if not (p_bad < PRED_P_BAD and bad_bin < lo):
+        raise AssertionError(f"toy:predictive: p-value {p_bad}, per-bin up to {bad_bin} with "
+                             f"the data x {PRED_BAD_SCALE}")
+    busy, ops = device_busy(lambda: run_predictive(model, toys, seed=PRED_SEED,
+                                                   categories=toy.event_modes))
+    phase(f"[toy:predictive] {PRED_TOYS} toys x {N_EVENTS} events (burn-in {PRED_BURN} of "
+          f"{draws['theta'].shape[0]} steps x {draws['theta'].shape[1]} chains) in {dt:.3f} s "
+          f"(first run {first:.3f} s): {PRED_TOYS / dt:.1f} toys/s, {n_chunks} chunk(s) of <= "
+          f"{res.chunk}, peak "
+          f"{peak:.2f} GiB, device busy {busy:.3f} ms ({ops:.0f} device ops; profiled run); "
+          f"kernel launches {launches}; p-value {res.p_value:.4f} (Asimov; per bin "
+          f"{per_bin.min():.3f}-{per_bin.max():.3f}), {p_bad:.4f} (data x {PRED_BAD_SCALE}; per "
+          f"bin <= {bad_bin:.3f}); fluctuated pred {res.p_value_fluct_pred:.4f}, data "
+          f"{res.p_value_fluct_data:.4f}, rate {res.p_value_rate:.4f}; per sample (spectra max "
+          f"rel err vs plain, of tol; llh_data vs total_nll_batch_parts; by-mode sum of tol): "
+          + ", ".join(f"{k} {v[0]:.3e} {v[1]:.3f} {v[2]:.3e} {v[3]:.3f}"
+                      for k, v in worst.items()) + f" | {smi}")
+    return launches
+
+
+def large700_predictive(model, theta, smi: str) -> dict:
+    """``[large700:predictive]``: PRED_TOYS toys drawn from
+    ``[large700:adaptive]``'s timed run through ``run_predictive`` at the
+    default chunk (``default_max_points``): five samples on K2 and two on
+    K3, each once per chunk; on the first L7_PRED_CHECK toys each sample's
+    spectra against its kernel's plain version. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.diagnostics.predictive import draw_parameter_sets
+
+    dev = model.flat.prefit.device
+    toys = draw_parameter_sets(theta, PRED_TOYS, np.random.default_rng(PRED_SEED),
+                               burn_in=PRED_BURN)
+    res, dt, launches, peak, n_chunks, first = timed_predictive("large700:predictive", model, toys,
+                                                                smi)
+    th = torch.as_tensor(toys[:L7_PRED_CHECK], device=dev)
+    errs = []
+    with torch.no_grad():
+        tables = model._shared_osc_tables(th)
+        for i, s in enumerate(model.samples):
+            _, _, ref, make = kernel_of(s)
+            args, kw = make(th, tables[i])
+            ref_mc, _ = ref(*args, **kw)
+            mc = torch.as_tensor(res.spectra[i][:L7_PRED_CHECK], device=dev)
+            _, rel, w = compare(mc, ref_mc, K_RTOL, K_ATOL_FRAC, f"large700:predictive {s.name}")
+            errs.append(f"{s.name} {rel:.3e} ({w:.3f} of tol)")
+    n_events = sum(s.n_events for s in model.samples)
+    phase(f"[large700:predictive] {PRED_TOYS} toys x 7 samples ({n_events} laid-out events) "
+          f"in {dt:.3f} s (first run {first:.3f} s): {PRED_TOYS / dt:.1f} toys/s, {n_chunks} "
+          f"chunk(s) of <= {res.chunk}, peak {peak:.2f} GiB; kernel launches {launches}; p-value "
+          f"{res.p_value:.4f}; kernels vs plain on {L7_PRED_CHECK} toys: " + ", ".join(errs)
+          + f" | {smi}")
+    return launches
+
+
+def np_tau(x):
+    """numpy f64 reference of the integrated autocorrelation time of each
+    column of x [S, N] (``autocorrelation_fft`` + ``integrated_autocorr_time``)."""
+    import numpy as np
+
+    s = x.shape[0]
+    x = x - x.mean(0, keepdims=True)
+    nfft = 1 << int(np.ceil(np.log2(2 * s)))
+    f = np.fft.rfft(x, n=nfft, axis=0)
+    acf = np.fft.irfft(f * np.conj(f), n=nfft, axis=0)[:min(s - 1, 1000)]
+    rho = acf / np.maximum(acf[0:1], 1e-30)
+    cum = 2.0 * np.cumsum(rho, axis=0) - 1.0
+    ok = np.arange(rho.shape[0])[:, None] >= 5.0 * cum
+    first = np.where(ok.any(0), np.argmax(ok, axis=0), rho.shape[0] - 1)
+    return np.take_along_axis(cum, first[None], axis=0)[0]
+
+
+def large700_ess(theta, dev, smi: str) -> None:
+    """``[large700:ess]``: ESS, Geweke z and batched means of
+    ``[large700:adaptive]``'s chain [S, 128, 700] on the card against a
+    numpy f64 reference (within ESS_RTOL of the value, or of the terms it
+    is the difference of: a Geweke z-score's two means, a batch's mean
+    |value|; columns that never moved are left out, their FFTs read only
+    rounding); then an AR(1) chain of AR1_STEPS x
+    L7_CHAINS x 700 f64 made on the card from a seeded generator, whose ESS
+    (in chunks under ``autocorr.CHUNK_BYTES``) must give its known τ."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.diagnostics import autocorr
+
+    s = theta.shape[0]
+    x2 = theta.reshape(s, -1)
+    moving = np.ptp(x2, axis=0) > 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = torch.as_tensor(theta, device=dev)
+    ess = autocorr.effective_sample_size(x)
+    z = autocorr.geweke(x)
+    bm = autocorr.batched_means(x)
+    got = [ess.cpu().numpy().reshape(-1), z.cpu().numpy().reshape(-1),
+           bm.cpu().numpy().reshape(20, -1)]
+    dt = time.perf_counter() - t0
+    ref_ess = s / np.maximum(np_tau(x2), 1.0)
+    a, b = x2[: int(0.1 * s)], x2[int(0.5 * s):]
+    sd = np.sqrt(np.maximum(
+        a.var(0, ddof=1) * np_tau(a) / a.shape[0] + b.var(0, ddof=1) * np_tau(b) / b.shape[0],
+        1e-30))
+    ref_z = (a.mean(0) - b.mean(0)) / sd
+    usable = (s // 20) * 20
+    batches = x2[:usable].reshape(20, usable // 20, -1)
+    ref_bm = batches.mean(1)
+    # Each error relative to the size of the terms before a cancellation: a
+    # z-score of two nearly equal means, a batch mean of values around 0.
+    scales = (ref_ess, (np.abs(a.mean(0)) + np.abs(b.mean(0))) / sd, np.abs(batches).mean(1))
+    worst = {}
+    for what, g, r, sc in zip(("ESS", "Geweke", "batched means"), got,
+                              (ref_ess, ref_z, ref_bm), scales):
+        m = moving if g.ndim == 1 else moving[None, :].repeat(20, 0)
+        worst[what] = float((np.abs(g - r)[m] / np.maximum(np.abs(r), sc)[m]).max())
+        if not worst[what] <= ESS_RTOL:
+            raise AssertionError(f"large700:ess: {what} {worst[what]:.3e} from numpy "
+                                 f"(> {ESS_RTOL})")
+    phase(f"[large700:ess] the adaptive run's chain {tuple(theta.shape)} on the card: ESS, Geweke "
+          f"and batched means in {dt:.3f} s (copy to the card included); against numpy f64 within "
+          f"{ESS_RTOL} on {int(moving.sum())} moving of {moving.size} columns (largest "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + "); ESS per parameter "
+          f"(summed over chains) min {float(ess.sum(0).min()):.1f}, median "
+          f"{float(ess.sum(0).median()):.1f} | {smi}")
+    del x, ess, z, bm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ar = torch.randn((AR1_STEPS, L7_CHAINS, 700), dtype=torch.float64, device=dev, generator=gen)
+    ar[1:] *= math.sqrt(1.0 - AR1_PHI ** 2)
+    for t in range(1, AR1_STEPS):
+        ar[t].add_(ar[t - 1], alpha=AR1_PHI)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ess = autocorr.effective_sample_size(ar)
+    torch.cuda.synchronize()
+    t_ess = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_series = L7_CHAINS * 700
+    chunks = -(-n_series // autocorr.series_per_chunk(AR1_STEPS))
+    tau = AR1_STEPS / ess
+    want = (1 + AR1_PHI) / (1 - AR1_PHI)
+    mean_tau = float(tau.mean())
+    if not (torch.isfinite(ess).all() and abs(mean_tau / want - 1) < AR1_TAU_RTOL):
+        raise AssertionError(f"large700:ess: AR(1) mean tau {mean_tau:.4f}, want {want:.4f} "
+                             f"within {AR1_TAU_RTOL}")
+    phase(f"[large700:ess] AR(1), phi {AR1_PHI}: {AR1_STEPS} steps x {L7_CHAINS} chains x 700 "
+          f"params f64 ({ar.numel() * 8 / 2**30:.2f} GiB) made on the card in {t_gen:.3f} s; ESS "
+          f"in {t_ess:.3f} s, {chunks} chunks of <= {autocorr.series_per_chunk(AR1_STEPS)} series "
+          f"({n_series / t_ess:.0f} series/s), peak {peak:.2f} GiB; mean tau {mean_tau:.4f} "
+          f"(known {want:.4f}, {mean_tau / want - 1:+.5f}), sd over series "
+          f"{float(tau.std()):.4f} | {smi}")
+    del ar, ess, tau
+
+
+def post_cli_files(tag: str, chain: str, tmp: str, dev, smi: str, jarlskog: bool) -> None:
+    """``mach3-diag-torch`` and ``mach3-process-torch`` (with ``--jarlskog``
+    when asked) on ``chain``: exit code 0, the JAX CLIs' npz keys."""
+    import os
+
+    import numpy as np
+
+    from mach3_tpu_torch.cli import diag, process
+
+    runs = (("mach3-diag-torch", diag, [], DIAG_KEYS),
+            ("mach3-process-torch", process, ["--jarlskog"] if jarlskog else [], PROCESS_KEYS))
+    for name, cli, extra, keys in runs:
+        out = os.path.join(tmp, f"{name}.npz")
+        t0 = time.perf_counter()
+        rc = cli.main([chain, *extra, "-o", out, "--device", dev.type])
+        dt = time.perf_counter() - t0
+        with np.load(out) as f:
+            got = set(f.files)
+            finite = all(np.isfinite(f[k]).all() for k in f.files if k != "names")
+        if rc != 0 or got != keys or not finite:
+            raise AssertionError(f"{tag}: {name} exit code {rc}, keys {sorted(got)} (want "
+                                 f"{sorted(keys)}), finite {finite}")
+        phase(f"[{tag}] {name} {' '.join(extra)}: rc 0 in {dt:.2f} s, {len(got)} arrays | {smi}")
+
+
+def toy_post_cli(toy, draws: dict, smi: str) -> None:
+    """``[toy:post-cli]``: ``[toy:adaptive]``'s draws saved with
+    ``save_chain`` beside a second adaptive run's (CLI_SECOND_STEPS steps,
+    256 chains); on them ``mach3-diag-torch``, ``mach3-process-torch
+    --jarlskog``, ``mach3-rhat-torch`` over both files, ``mach3-combine-torch``
+    and ``mach3-predictive-torch`` (CLI_PRED_TOYS toys of the 100,000-event
+    toy): each exits 0 and writes the JAX CLI's npz keys."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.cli import combine, predictive, rhat
+    from mach3_tpu_torch.diagnostics.chain_io import load_chain, save_chain
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
+    from mach3_tpu_torch.splines import reweight
+
+    model = toy.model
+    init = draws["theta"][-1]
+    second = MR2T2(model, MCMCConfig(chunk_size=CHUNK, **ADAPTIVE), init, seed=9).run(
+        n_steps=CLI_SECOND_STEPS)
+    opt = ["--device", model.flat.prefit.device.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "chain.npz"), os.path.join(tmp, "chain_2.npz")
+        save_chain(a, draws, toy.names, config_yaml="toy")
+        save_chain(b, second, toy.names, config_yaml="toy")
+        post_cli_files("toy:post-cli", a, tmp, model.flat.prefit.device, smi, jarlskog=True)
+        t0 = time.perf_counter()
+        if rhat.main([a, b, "--folded", *opt]) != 0:
+            raise AssertionError("toy:post-cli: mach3-rhat-torch failed")
+        phase(f"[toy:post-cli] mach3-rhat-torch --folded over both files: rc 0 in "
+              f"{time.perf_counter() - t0:.2f} s | {smi}")
+        comb = os.path.join(tmp, "combined.npz")
+        if combine.main([a, b, "-o", comb, *opt]) != 0:
+            raise AssertionError("toy:post-cli: mach3-combine-torch failed")
+        dc, _, _ = load_chain(comb)
+        want = draws["theta"].shape[0] + CLI_SECOND_STEPS
+        if dc.keys() != draws.keys() or dc["theta"].shape[0] != want:
+            raise AssertionError(f"toy:post-cli: combined {sorted(dc)} {dc['theta'].shape}")
+        phase(f"[toy:post-cli] mach3-combine-torch: rc 0, {dc['theta'].shape} | {smi}")
+        out = os.path.join(tmp, "predictive.npz")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = predictive.main([a, "--toys", str(CLI_PRED_TOYS), "--n-events", str(N_EVENTS),
+                              "-o", out, *opt])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        with np.load(out) as f:
+            got = set(f.files)
+        keys = PRED_KEYS | {p + s.name for p in PRED_SAMPLE_KEYS for s in model.samples}
+        launches = dict(reweight.LAUNCHES)
+        if rc != 0 or got != keys or not launches.get("reweight_shifted"):
+            raise AssertionError(f"toy:post-cli: mach3-predictive-torch rc {rc}, keys "
+                                 f"{sorted(got ^ keys)} differ, launches {launches}")
+        phase(f"[toy:post-cli] mach3-predictive-torch --toys {CLI_PRED_TOYS} --n-events "
+              f"{N_EVENTS}: rc 0 in {dt:.1f} s (the toy's build included), {len(got)} arrays; "
+              f"kernel launches {launches} | {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -2773,7 +3196,9 @@ def main() -> int:
     results["K6b"] = dict(k6, max_abs_err=max(v[1] for v in every.values()))  # ḡ_t
     del model
     torch.cuda.empty_cache()
-    large700_path(dev, smi)
+    l7_pred = large700_path(dev, smi)
+    results["K2"]["launches"] += l7_pred["reweight_shared"]
+    results["K3"]["launches"] += l7_pred["reweight_shifted"]
 
     print(json.dumps({"kernels": [
         {"name": NAMES.get(k, SOURCES[k]), "route": "cuda",

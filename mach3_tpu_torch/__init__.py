@@ -13,8 +13,11 @@ module names so each module's counterpart is easy to find:
 * ``samples``   — event store, binning, routing, reweighting, test statistics
 * ``fitters``   — the fit model; MR2T2 (fixed and adaptive, annealed; CUDA-graph
   chunks), delayed rejection, HMC/ChEES, L-BFGS-B; the config factory
-* ``diagnostics`` — chain files, shards, checkpoints; R-hat
-* ``cli``       — ``mach3-mcmc-torch``
+* ``diagnostics`` — chain files, shards, checkpoints; R-hat, evidence;
+  autocorrelation and ESS on the card; posterior processing; the posterior
+  predictive on the reweight kernels
+* ``cli``       — ``mach3-mcmc-torch``, ``-llhscan-``, ``-diag-``, ``-process-``,
+  ``-rhat-``, ``-combine-`` and ``-predictive-torch``
 * ``tutorial``  — the two-sample toy and the reference-scale fixture
 * ``kernels``   — builds the hand-written CUDA kernels in ``csrc/``
 * ``bridge``    — turns a JAX ``FitModel`` into this package's ``FitModel``

@@ -44,6 +44,14 @@ class OscParams:
         )
 
 
+def evolution_operator(h: torch.Tensor, length) -> torch.Tensor:
+    """Complex-input wrapper around the real-pair evolution kernel: exp(-i H
+    L) of a Hermitian [..., 3, 3] complex ``h`` (used by tests to cross-check
+    against ``torch.linalg.eigh``)."""
+    out_r, out_i = herm_evolution(h.real, h.imag, length)
+    return torch.complex(out_r, out_i)
+
+
 def probabilities_const_density(
     params: OscParams,
     energy: torch.Tensor,

@@ -739,6 +739,14 @@ class SampleModel(nn.Module):
         return sample.to(dev)
 
 
+def total_log_likelihood(samples, params: torch.Tensor) -> torch.Tensor:
+    """Sum of the samples' -logL at one θ [NP] (f64), each on its route
+    (:meth:`SampleModel.log_likelihood`)."""
+    total = torch.zeros((), dtype=ATYPE, device=params.device)
+    for s in samples:
+        total = total + s.log_likelihood(params)
+    return total
+
 #: Route -> (argument maker, kernel wrapper) of the sampling path, and the
 #: differentiable call of each.
 _FORWARD = {
