@@ -105,6 +105,23 @@ each kernel against its plain PyTorch version. Run from the repository root:
   toy's chain files (``[toy:post-cli]``), diag and process on
   ``[exp:cli]``'s.
 
+* The sharded fit (``distributed/``): ``[toy:dist-1x1]`` one NCCL rank
+  (a world of 1), a 1 x 1 (chains x events) mesh, the toy at full width:
+  the sharded NLL against ``total_nll_batch``, the sharded pooled adaptive
+  MR2T2 as graphs with its all-reduces captured against the unsharded one
+  from one state and seed (Robbins-Monro held), then both timed as the
+  production sampler, profiled (the eager step's collective calls, NCCL
+  kernels in the graph, idle share) and held against their roofline;
+  ``[large:dist-2proc]`` two spawned ranks sharing the card on gloo
+  (NCCL refuses two ranks on one device), the large fixture at full size
+  written once by this process: a 1 x 2 mesh (K2 and K3 on each rank's half
+  of the events; NLLs against the unsharded ones, eager steps with their
+  launches), then a 2 x 1 mesh writing one chain file per row, merged, and
+  R-hat on the merged file. Beside the toy's, the large fixture's and
+  large700's graphed steps a ``:roofline`` line: the step's
+  ``fraction_of_memory_floor`` against the H100 SXM's peaks
+  (``diagnostics/roofline.py``), gated in (0, 1.05].
+
 Phases: device, kernel build (every source, in parallel), then per path:
 build, kernel vs plain, Asimov check, NLL vs plain, MR2T2 as graphs and
 eager with their profiles, the samplers, kernel timing; then the gradient
@@ -113,6 +130,7 @@ the exit code is not 0. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel with its launches on
 its path (K1 and K3: the toy and large MR2T2 runs; K2: the large MR2T2 run;
+K1 also ``[toy:dist-1x1]``'s timed runs, K2 and K3 ``[large:dist-2proc]``'s;
 K1, K2 and K3 also the predictive's runs on the toy and large700;
 the large700 path's kernel figures are on its ``[large700:*]`` lines;
 K4b and the backward kernel, which K6a and K6b share: the ChEES run; K5, K4a:
@@ -406,6 +424,36 @@ PRED_KEYS = {"llh_data", "llh_draw", "llh_fluctpred_vs_draw", "llh_data_vs_fluct
              "p_value_fluct_pred", "p_value_fluct_data", "p_value_rate"}
 PRED_SAMPLE_KEYS = ("spectra_", "band_", "violin_", "p_per_bin_", "data_", "by_mode_")
 
+# The sharded fit (mach3_tpu_torch/distributed). [toy:dist-1x1]: one NCCL
+# rank, a 1 x 1 mesh, the toy at full width (N_EVENTS x N_CHAINS): the
+# sharded NLL against total_nll_batch under nll_vs_plain's tolerance; the
+# sharded pooled adaptive MR2T2 as graphs with its all-reduces captured
+# against the unsharded one from one state and seed over DIST_GVE_STEPS
+# steps, Robbins-Monro held (GVE_MAX_FLIPPED of the chains may decide
+# differently, as in [toy:graph-vs-eager]); then both timed as the
+# production sampler (ADAPTIVE, ADAPTIVE_WARM + ADAPTIVE_STEPS) and profiled.
+DIST_SEED = 9
+DIST_GVE_STEPS = 300  # refreshes at steps 100, 200 and 300
+# [large:dist-2proc]: two processes share the card on gloo (NCCL refuses two
+# ranks on one device), the large fixture at full size and LARGE_CHAINS:
+# a 1 x 2 mesh (each rank K2 and K3 on half of every sample's events),
+# DIST_LARGE_STEPS eager steps, throwing from the prior covariance at the
+# Haario scale (DIST_LARGE_ADAPTIVE: no moment update within the run), whose
+# acceptance must reach DIST_ACC_MIN so that the state-vs-anew check sees
+# accepted moves (the default throw accepts ~0.001 here); then a 2 x 1 mesh,
+# pooled adaptive over DIST_FILE_STEPS steps, one chain file per row, merged,
+# R-hat.
+DIST_LARGE_STEPS = 20
+DIST_LARGE_ADAPTIVE = dict(adaptive=True, adaption_mode="pooled")
+DIST_ACC_MIN = 0.05
+DIST_FILE_STEPS = 30
+DIST_FILE_ADAPTIVE = dict(adaptive=True, adaption_mode="pooled", adaption_start_update=1,
+                          adaption_start_throw=10, adaption_update_step=10)
+DIST_TIMEOUT = 600  # seconds for the two ranks together
+# A graphed step's roofline (diagnostics/roofline.py at the H100 SXM's
+# peaks): the memory floor over the measured step must lie in (0,
+# ROOFLINE_MAX]; above 1 the count is wrong, not the card fast.
+ROOFLINE_MAX = 1.05
 
 #: Polygon bins over (e_reco, cos_theta): six e_reco columns, each cut in two
 #: by a slanted edge the next column's polygons share at its ends.
@@ -847,7 +895,8 @@ def profile_steps(tag: str, mode: str, fitter, step_ms: float, names, smi: str,
     device busy time and each kernel's share over 10 steps; with
     ``op_table`` first the ten largest device ops by total time (name,
     count per step, ms per step). Returns dict(launches, ops, busy) per
-    step."""
+    step and ``by_name`` {name: (device ops, ms) per step} of the device
+    ops whose name holds each of ``names`` (lower case)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -864,17 +913,17 @@ def profile_steps(tag: str, mode: str, fitter, step_ms: float, names, smi: str,
         for rank, e in enumerate(sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:10]):
             phase(f"[{tag}:profile-op] {rank + 1:2d} {e.count / 10:7.1f}/step "
                   f"{e.self_device_time_total / 10e3:8.4f} ms/step {e.key[:110]}")
-    shares = ", ".join(
-        f"{n} {sum(e.self_device_time_total for e in dev_ops if n in e.key) / 10e3:.3f}"
-        for n in names
-    )
+    by_name = {n: (sum(e.count for e in dev_ops if n in e.key.lower()) / 10,
+                   sum(e.self_device_time_total for e in dev_ops if n in e.key.lower()) / 10e3)
+               for n in names}
+    shares = ", ".join(f"{n} {ms:.3f}" for n, (_, ms) in by_name.items())
     top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:5]
     phase(f"[{tag}:profile-{mode}] {launches:.1f} host launches/step, {ops:.0f} device ops/step, "
           f"device busy {busy:.3f} ms/step ({shares} ms/step) against {step_ms:.3f} ms/step "
           f"unprofiled: device idle share {1.0 - busy / step_ms:.3f}; top: "
           + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 10e3:.3f}" for e in top)
           + f" | {smi}")
-    return dict(launches=launches, ops=ops, busy=busy)
+    return dict(launches=launches, ops=ops, busy=busy, by_name=by_name)
 
 
 def snapshot(state):
@@ -1582,6 +1631,8 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
         "toy", model, thetas, CHUNK, CHUNK * TIMED_CHUNKS, CHUNK, {"reweight_shifted": 2}, smi,
         ACC_MIN, EAGER_STEPS, ["reweight_perchain_kernel"])
     del fitter
+    roofline_line("toy:graph", model, N_CHAINS, step_ms, smi)
+    dist_launches = toy_dist(model, thetas, dev, smi)
     draws = toy_samplers(model, thetas, smi)
     with torch.no_grad():
         times = [time_kernel("toy", s, *checked[s.name][:2], smi) for s in model.samples]
@@ -1598,7 +1649,8 @@ def toy_path(dev, smi: str, quick: bool = False) -> dict:
     toy_llhscan_cli(dev, smi)
     pred = toy_predictive(toy, draws, smi)
     toy_post_cli(toy, draws, smi)
-    return {"K1": dict(launches=launches["reweight_shifted"] + pred["reweight_shifted"],
+    return {"K1": dict(launches=launches["reweight_shifted"] + pred["reweight_shifted"]
+                       + dist_launches,
                        max_abs_err=max(v[2] for v in checked.values()),
                        ms=sum(v[0] for v in times), plain_ms=sum(v[1] for v in times),
                        **summed([v[2] for v in times])),
@@ -1612,7 +1664,8 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
     from mach3_tpu_torch.tutorial.large import build_large
 
     t0 = time.perf_counter()
-    model = build_large(seed=LARGE_SEED, low_memory=True, device=dev).model
+    exp = build_large(seed=LARGE_SEED, low_memory=True, device=dev)
+    model = exp.model
     build_s = time.perf_counter() - t0
     routes = [s.kernel_route.variant for s in model.samples]
     parts = []
@@ -1651,6 +1704,8 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
         "large", model, thetas, LARGE_WARM, LARGE_STEPS, LARGE_WARM,
         {"reweight_shared": 2, "reweight_shifted": 1}, smi, None, LARGE_EAGER_STEPS,
         ["reweight_shared", "reweight_perchain_kernel"])
+    roofline_line("large:graph", model, LARGE_CHAINS, step_ms, smi)
+    dist_launches = large_dist(model, thetas, exp.names, dev, smi)
     times = {}
     with torch.no_grad():
         for s in model.samples:
@@ -1659,10 +1714,11 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
     err = {n: v[2] for n, v in checked.items()}
     shared = [times["numu_beam"], times["atmo"]]
     results = {
-        "K3": dict(launches=launches["reweight_shifted"], max_abs_err=err["nue_beam"],
+        "K3": dict(launches=launches["reweight_shifted"] + dist_launches["reweight_shifted"],
+                   max_abs_err=err["nue_beam"],
                    ms=times["nue_beam"][0], plain_ms=times["nue_beam"][1],
                    **times["nue_beam"][2]),
-        "K2": dict(launches=launches["reweight_shared"],
+        "K2": dict(launches=launches["reweight_shared"] + dist_launches["reweight_shared"],
                    max_abs_err=max(err["numu_beam"], err["atmo"]),
                    ms=sum(v[0] for v in shared), plain_ms=sum(v[1] for v in shared),
                    **summed([v[2] for v in shared])),
@@ -2082,6 +2138,7 @@ def large700_path(dev, smi: str) -> dict:
                     (ACC_MIN, 0.99), collect=True)
     theta = g.pop("draws")["theta"]
     profile_steps("large700:adaptive", "graph", fit, g["step_ms"], names, smi)
+    roofline_line("large700:adaptive:graph", model, L7_CHAINS, g["step_ms"], smi)
     del fit
     eager = MR2T2(model, cfg, init, seed=6, graph=False)
     eager.state = snapshot(saved)
@@ -3141,6 +3198,358 @@ def toy_post_cli(toy, draws: dict, smi: str) -> None:
         phase(f"[toy:post-cli] mach3-predictive-torch --toys {CLI_PRED_TOYS} --n-events "
               f"{N_EVENTS}: rc 0 in {dt:.1f} s (the toy's build included), {len(got)} arrays; "
               f"kernel launches {launches} | {smi}")
+
+
+def free_port() -> int:
+    """A free TCP port on this machine for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def roofline_line(tag: str, model, n_chains: int, step_ms: float, smi: str) -> float:
+    """The graphed step's share of its roofline floor
+    (``diagnostics/roofline.py`` at the H100 SXM's peaks): the memory floor
+    over the measured ms/step, which must lie in (0, ROOFLINE_MAX]."""
+    from mach3_tpu_torch.diagnostics import roofline
+
+    rep = roofline.report(model, n_chains, step_ms)
+    frac = rep["memory_floor_ms"] / step_ms
+    phase(f"[{tag}:roofline] {n_chains} chains: {rep['hbm_gbytes_per_step']} GB/step, memory "
+          f"floor {rep['memory_floor_ms']} ms, f32 floor {rep['mxu_floor_ms']} ms, combined "
+          f"{rep['combined_floor_ms']} ms; f64 transcendentals at one operation each (a lower "
+          f"bound, in no floor) {rep['f64_lower_bound_ms']} ms (H100 SXM peaks 3.35 TB/s, "
+          f"67 / 34 TFLOP/s f32 / f64) against {step_ms:.3f} ms/step: "
+          f"fraction_of_memory_floor {frac:.4f} | {smi}")
+    if not 0.0 < frac <= ROOFLINE_MAX:
+        raise AssertionError(f"{tag}: fraction_of_memory_floor {frac} outside (0, "
+                             f"{ROOFLINE_MAX}]: the byte count is wrong")
+    return frac
+
+
+def sharded_vs_unsharded(tag: str, model, shard, mesh, cfg, init, smi: str) -> None:
+    """The sharded sampler (its step's all-reduces captured in the graph)
+    against the unsharded MR2T2 from one state and seed, ``DIST_GVE_STEPS``
+    steps each as graphs, Robbins-Monro held: the generators end alike; at
+    most GVE_MAX_FLIPPED of the chains decide differently, each first where
+    its two log α differ by at most GVE_NLL; before the first divergence
+    every chain's θ is bit-identical."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.distributed import chain_state_sharding
+    from mach3_tpu_torch.distributed.shard_step import ShardedMR2T2
+    from mach3_tpu_torch.fitters.mcmc import MR2T2
+
+    held = dataclasses.replace(cfg, robbins_monro=False)
+    plain = MR2T2(model, held, init, seed=DIST_SEED)
+    sharded = ShardedMR2T2(mesh, held, shard, chain_state_sharding(mesh, snapshot(plain.state)))
+    if model.flat.prefit.device.type == "cuda" and not sharded.graph:
+        raise AssertionError(f"{tag}: the sharded sampler does not run as graphs")
+    g = sharded.run(n_steps=DIST_GVE_STEPS)
+    u = plain.run(n_steps=DIST_GVE_STEPS)
+    torch.cuda.synchronize()
+    if not torch.equal(sharded.state.generator.get_state(), plain.state.generator.get_state()):
+        raise AssertionError(f"{tag}: the generators' states differ after the runs")
+    flips = g["accepted"] != u["accepted"]
+    diverged = flips.any(0)
+    n_chains = diverged.shape[0]
+    if diverged.sum() > GVE_MAX_FLIPPED * n_chains:
+        raise AssertionError(f"{tag}: {int(diverged.sum())} of {n_chains} chains decided "
+                             f"differently")
+    gaps = []
+    for c in np.flatnonzero(diverged):
+        st = np.flatnonzero(flips[:, c])[0]
+        gaps.append(abs(np.log(g["acc_prob"][st, c]) - np.log(u["acc_prob"][st, c])))
+    if gaps and max(gaps) > GVE_NLL:
+        raise AssertionError(f"{tag}: a decision differs where the log α differ by "
+                             f"{max(gaps):.3e} > {GVE_NLL}")
+    first = int(np.flatnonzero(flips.any(1))[0]) if diverged.any() else DIST_GVE_STEPS
+    if not np.array_equal(g["theta"][:first], u["theta"][:first]):
+        raise AssertionError(f"{tag}: θ differs before any decision did")
+    phase(f"[{tag}:vs-unsharded] {DIST_GVE_STEPS} graph steps x {n_chains} chains, sharded "
+          f"(all-reduces in the graph) vs unsharded from one state and seed, Robbins-Monro "
+          f"held: generators equal; {int(diverged.sum())} chains decided differently (log α "
+          f"gaps {[f'{x:.2e}' for x in gaps]}); θ of every chain bit-identical over the first "
+          f"{first} steps; NLLs of the chains that decided alike within "
+          f"{np.abs(g['nll'][:, ~diverged] - u['nll'][:, ~diverged]).max():.3e}; acceptance "
+          f"sharded {g['accepted'].mean():.4f}, unsharded {u['accepted'].mean():.4f} | {smi}")
+
+
+def collective_calls(fitter) -> dict:
+    """{profiler key: calls per step} of the collectives (keys holding
+    ``allreduce``) over 10 steps of an eager sampler: what a graph captures
+    and replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fitter.run(n_steps=10, collect=False)
+    return {e.key: e.count / 10 for e in prof.key_averages() if "allreduce" in e.key.lower()}
+
+
+def toy_dist(model, thetas, dev, smi: str) -> int:
+    """``[toy:dist-1x1]``: one NCCL rank (``multihost.initialise`` with a
+    world of 1, its communicator made at once), a 1 x 1 mesh, the toy at
+    full width: the sharded NLL against ``total_nll_batch``, the sharded
+    sampler against the unsharded one (``sharded_vs_unsharded``), then both
+    timed as the production sampler, profiled (NCCL kernels per step, idle
+    share) and held against their roofline. Returns K1's launches in the
+    timed runs."""
+    import torch
+    import torch.distributed as dist
+
+    from mach3_tpu_torch.distributed import make_mesh, shard_fit_model
+    from mach3_tpu_torch.distributed.mesh import EVENT_AXIS, chain_state_sharding
+    from mach3_tpu_torch.distributed.multihost import initialise
+    from mach3_tpu_torch.distributed.shard_step import ShardedMR2T2
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
+
+    tag = "toy:dist-1x1"
+    initialise(f"tcp://localhost:{free_port()}", world_size=1, rank=0, device=dev.type)
+    try:
+        mesh = make_mesh(1, 1)
+        t0 = time.perf_counter()
+        shard = shard_fit_model(mesh, model)
+        shard_s = time.perf_counter() - t0
+        group = mesh.get_group(EVENT_AXIS)
+        with torch.no_grad():
+            total, _, parts = shard.total_nll_batch_parts(thetas, event_group=group)
+            ref_total, _, ref = model.total_nll_batch_parts(thetas)
+            tables = model._shared_osc_tables(thetas)
+            tols = torch.stack([nll_tolerance(s, *s.reweight_batch(thetas, tables[i]))
+                                for i, s in enumerate(model.samples)], dim=1)
+        worst = float(((parts - ref).abs() / tols).max())
+        rel = float(((total - ref_total).abs() / ref_total.abs()).max())
+        phase(f"[{tag}] {dist.get_backend()} world of {dist.get_world_size()}, mesh "
+              f"{tuple(mesh.shape)}; shard_fit_model {shard_s:.1f} s (host: the builder's "
+              f"order, then each sample laid out and planned again); sharded vs unsharded "
+              f"per-sample NLL at {thetas.shape[0]} chains within {worst:.3f} of nll_vs_plain's "
+              f"tolerance, total within {rel:.3e} relative | {smi}")
+        if worst > 1.0:
+            raise AssertionError(f"{tag}: sharded NLL {worst:.2f}x the tolerance")
+        cfg = MCMCConfig(chunk_size=CHUNK, **ADAPTIVE)
+        init = thetas.cpu().numpy()
+        sharded_vs_unsharded(tag, model, shard, mesh, cfg, init, smi)
+
+        names = ["reweight_perchain_kernel", "nccl"]
+        out, launches = {}, 0
+        for mode in ("unsharded-graph", "sharded-graph"):
+            plain = MR2T2(model, cfg, init, seed=DIST_SEED)
+            fit = plain if mode == "unsharded-graph" else ShardedMR2T2(
+                mesh, cfg, shard, chain_state_sharding(mesh, plain.state))
+            r = run_sampler(tag, mode, fit, ADAPTIVE_WARM, ADAPTIVE_STEPS,
+                            {"reweight_shifted": 2}, smi, ACC_BAND)
+            prof = profile_steps(tag, mode, fit, r["step_ms"], names, smi)
+            frac = roofline_line(f"{tag}:{mode}", fit.model, thetas.shape[0], r["step_ms"], smi)
+            out[mode] = (r["step_ms"], prof, frac)
+            launches += r["launches"]["reweight_shifted"]
+            del fit, plain
+        eager = ShardedMR2T2(mesh, cfg, shard, chain_state_sharding(
+            mesh, MR2T2(model, cfg, init, seed=DIST_SEED).state), graph=False)
+        calls = collective_calls(eager)
+        del eager
+        (u_ms, u_prof, u_frac), (s_ms, s_prof, s_frac) = out["unsharded-graph"], out[
+            "sharded-graph"]
+        n = thetas.shape[0]
+        phase(f"[{tag}:summary] pooled adaptive MR2T2, {n} chains as graphs: sharded "
+              f"{s_ms:.3f} ms/step ({1e3 * n / s_ms:.1f} chain-steps/s) vs unsharded "
+              f"{u_ms:.3f} ms/step ({1e3 * n / u_ms:.1f} chain-steps/s), {s_ms / u_ms:.3f}x; "
+              f"collective calls/step of the eager sharded step {calls}, NCCL device "
+              f"ops/step in the graph {s_prof['by_name']['nccl'][0]:.1f} "
+              f"({s_prof['by_name']['nccl'][1]:.4f} ms/step); device ops/step sharded "
+              f"{s_prof['ops']:.0f} vs {u_prof['ops']:.0f}; idle share sharded "
+              f"{1.0 - s_prof['busy'] / s_ms:.3f} vs {1.0 - u_prof['busy'] / u_ms:.3f}; "
+              f"fraction_of_memory_floor {s_frac:.4f} vs {u_frac:.4f} | {smi}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def large_dist_rank(rank: int, world: int, port: int, tmp: str, device: str) -> None:
+    """One of ``[large:dist-2proc]``'s ranks (a spawned process; gloo, both
+    on card 0): the large fixture from the parent's file on a 1 x 2 mesh,
+    its NLLs against the parent's unsharded ones, DIST_LARGE_STEPS eager
+    steps with their launches; then a 2 x 1 mesh, DIST_FILE_STEPS pooled
+    adaptive steps, this row's chain file; rank 0 merges them and takes
+    R-hat. Writes its figures to ``<tmp>/rank<r>.npz``; a failed gate
+    raises (the process exits non-zero)."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mach3_tpu_torch.core.fixture_cache import load_fixture
+    from mach3_tpu_torch.core.precision import disable_tf32
+    from mach3_tpu_torch.diagnostics.chain_io import load_chain
+    from mach3_tpu_torch.diagnostics.rhat import split_rhat
+    from mach3_tpu_torch.distributed import chain_state_sharding, make_mesh, shard_fit_model
+    from mach3_tpu_torch.distributed.mesh import sharded_total_nll
+    from mach3_tpu_torch.distributed.multihost import (
+        initialise,
+        merge_host_shards,
+        save_host_shard,
+    )
+    from mach3_tpu_torch.distributed.shard_step import ShardedMR2T2
+    from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
+    from mach3_tpu_torch.splines import reweight
+
+    disable_tf32()
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
+    initialise(f"tcp://localhost:{port}", world_size=world, rank=rank, device=device,
+               backend="gloo")
+    dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    res = {}
+    inp = np.load(os.path.join(tmp, "inputs.npz"))
+    model = load_fixture(os.path.join(tmp, "large.pt"), device=dev)
+    thetas = torch.as_tensor(inp["thetas"], device=dev)
+
+    mesh = make_mesh(1, 2)
+    t0 = time.perf_counter()
+    shard = shard_fit_model(mesh, model)
+    res["shard_s"] = time.perf_counter() - t0
+    res["events"] = [int((~s.event_pad).sum()) for s in shard.samples]
+    res["routes"] = [s.kernel_route.variant for s in shard.samples]
+    with torch.no_grad():
+        nll = sharded_total_nll(mesh, shard, thetas)
+    ratio = ((nll.cpu().numpy() - inp["nll"]) / inp["tol"])
+    res["nll_worst"] = float(np.abs(ratio).max())
+    if res["nll_worst"] > 1.0:
+        raise AssertionError(f"rank {rank}: sharded NLL {res['nll_worst']:.2f}x the tolerance")
+    cfg = MCMCConfig(chunk_size=DIST_LARGE_STEPS, **DIST_LARGE_ADAPTIVE)
+    state = chain_state_sharding(
+        mesh, MR2T2(model, cfg, inp["thetas"], seed=LARGE_SEED, graph=False).state, model=shard)
+    fit = ShardedMR2T2(mesh, cfg, shard, state, graph=False)
+    fit.run(n_steps=2, collect=False)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fit.run(n_steps=DIST_LARGE_STEPS)
+    sync()
+    res["step_ms"] = 1e3 * (time.perf_counter() - t0) / DIST_LARGE_STEPS
+    res["launches"] = dict(reweight.LAUNCHES)
+    check_launches(f"large:dist-2proc rank {rank}", res["launches"],
+                   {"reweight_shared": 2 * DIST_LARGE_STEPS,
+                    "reweight_shifted": DIST_LARGE_STEPS})
+    with torch.no_grad():
+        anew = sharded_total_nll(mesh, shard, fit.state.theta)
+    res["state_vs_anew"] = float((fit.state.nll - anew).abs().max())
+    if res["state_vs_anew"] > GVE_NLL or not np.isfinite(out["nll"]).all():
+        raise AssertionError(f"rank {rank}: the state's NLL is {res['state_vs_anew']:.3e} from "
+                             f"its θ's NLL anew")
+    res["acc"] = float(out["accepted"].mean())
+    if res["acc"] < DIST_ACC_MIN:
+        raise AssertionError(f"rank {rank}: acceptance {res['acc']:.4f} below {DIST_ACC_MIN}: "
+                             f"the state-vs-anew check saw few accepted moves")
+    del fit, shard, state
+
+    # 2 x 1: each row half of the chains; an events axis of 1 holds the whole
+    # model, which shard_fit_model would only lay out again.
+    mesh = make_mesh(2, 1)
+    cfg = MCMCConfig(chunk_size=DIST_FILE_STEPS, **DIST_FILE_ADAPTIVE)
+    state = chain_state_sharding(
+        mesh, MR2T2(model, cfg, inp["thetas"], seed=LARGE_SEED + 1, graph=False).state)
+    fit = ShardedMR2T2(mesh, cfg, model, state, graph=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fit.run(n_steps=DIST_FILE_STEPS)
+    sync()
+    res["file_step_ms"] = 1e3 * (time.perf_counter() - t0) / DIST_FILE_STEPS
+    res["file_launches"] = dict(reweight.LAUNCHES)
+    res["file_acc"] = float(out["accepted"].mean())
+    names = [str(n) for n in inp["names"]]
+    path = save_host_shard(os.path.join(tmp, "chain{host}.npz"),
+                           {k: out[k] for k in ("theta", "nll", "accepted")}, names, "large",
+                           mesh=mesh)
+    res["wrote"] = path
+    dist.barrier()
+    if rank == 0:
+        merged = os.path.join(tmp, "merged.npz")
+        merge_host_shards([os.path.join(tmp, f"chain{h}.npz") for h in range(2)], merged)
+        draws, meta, _ = load_chain(merged)
+        rhat = np.asarray(split_rhat(draws["theta"]))
+        free = np.isfinite(rhat)
+        res["merged_shape"] = list(draws["theta"].shape)
+        res["rhat"] = (float(np.nanmedian(rhat)), float(np.nanmax(rhat)), int(free.sum()))
+        if draws["theta"].shape[:2] != (DIST_FILE_STEPS, thetas.shape[0]) or not free.any():
+            raise AssertionError(f"merged chain {draws['theta'].shape}, R-hat {rhat}")
+        res["merged_hosts"] = meta["merged_hosts"]
+    dist.barrier()
+    dist.destroy_process_group()
+    np.save(os.path.join(tmp, f"rank{rank}.npy"), res, allow_pickle=True)
+
+
+def large_dist(model, thetas, names, dev, smi: str) -> dict:
+    """``[large:dist-2proc]``: the parent writes the large fixture
+    (``core/fixture_cache.save_fixture``), its chains and their unsharded
+    NLLs with nll_vs_plain's tolerance, then spawns two ranks
+    (``large_dist_rank``) and reads their figures. Gloo stages the
+    collectives through the host, so the times are written down, not
+    gated. Returns K2's and K3's launches in the ranks' timed runs."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.core.fixture_cache import save_fixture
+
+    tag = "large:dist-2proc"
+    with tempfile.TemporaryDirectory(prefix="dist2proc-") as tmp:
+        t0 = time.perf_counter()
+        save_fixture(os.path.join(tmp, "large.pt"), model)
+        with torch.no_grad():
+            nll = model.total_nll_batch(thetas)
+            tables = model._shared_osc_tables(thetas)
+            tol = sum(nll_tolerance(s, *s.reweight_batch(thetas, tables[i]))
+                      for i, s in enumerate(model.samples))
+        np.savez(os.path.join(tmp, "inputs.npz"), thetas=thetas.cpu().numpy(),
+                 nll=nll.cpu().numpy(), tol=tol.cpu().numpy(), names=np.asarray(names))
+        save_s = time.perf_counter() - t0
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=large_dist_rank, args=(r, 2, port, tmp, dev.type))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=max(1.0, DIST_TIMEOUT - (time.perf_counter() - t0)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"{tag}: rank exit codes {codes}")
+        res = [np.load(os.path.join(tmp, f"rank{r}.npy"), allow_pickle=True).item()
+               for r in range(2)]
+    for r, x in enumerate(res):
+        phase(f"[{tag}] rank {r} of 2 (gloo on the card's tensors, card {dev}): mesh "
+              f"(1, 2) shard {x['shard_s']:.1f} s, events {x['events']}, routes {x['routes']}; "
+              f"NLL at {thetas.shape[0]} chains within {x['nll_worst']:.3f} of the unsharded "
+              f"NLL's tolerance; {DIST_LARGE_STEPS} eager steps {x['step_ms']:.3f} ms/step, "
+              f"launches {x['launches']}, acceptance {x['acc']:.4f} (at least {DIST_ACC_MIN}), "
+              f"state NLL vs anew "
+              f"{x['state_vs_anew']:.3e}; mesh (2, 1) {DIST_FILE_STEPS} pooled adaptive steps "
+              f"{x['file_step_ms']:.3f} ms/step, launches {x['file_launches']}, acceptance "
+              f"{x['file_acc']:.4f}, wrote "
+              f"{os.path.basename(x['wrote']) if x['wrote'] else None} | {smi}")
+    m = res[0]
+    phase(f"[{tag}:merge] merge_host_shards of {m['merged_hosts']} rows: theta "
+          f"{m['merged_shape']}, split R-hat median {m['rhat'][0]:.4f}, max {m['rhat'][1]:.4f} "
+          f"over {m['rhat'][2]} free parameters ({DIST_FILE_STEPS} steps: not converged, a "
+          f"check that the merged file reads); fixture written in {save_s:.1f} s; two ranks "
+          f"{wall:.1f} s wall, start-up included | {smi}")
+    return {k: sum(x["launches"].get(k, 0) + x["file_launches"].get(k, 0) for x in res)
+            for k in ("reweight_shared", "reweight_shifted")}
 
 
 def main() -> int:

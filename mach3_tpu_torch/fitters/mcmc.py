@@ -30,6 +30,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.collectives import all_reduce_mean
 from ..core.logging import get_logger
 from ..core.precision import ATYPE, LARGE_LOGL
 from ..params.state import circular_wrap, propose_step_batch
@@ -213,11 +214,15 @@ def _moment_update(mean, cov, n, x, xxt):
 
 def _update_adaptive(ad: AdaptiveState, theta: torch.Tensor, step: torch.Tensor,
                      config: MCMCConfig, acc_prob: torch.Tensor,
-                     block_mask: torch.Tensor | None = None) -> AdaptiveState:
+                     block_mask: torch.Tensor | None = None,
+                     chain_group=None) -> AdaptiveState:
     """Haario moment update, pooled or per chain, inside the update window
     read from the device ``step``; Robbins-Monro ``log s += γ (acc −
     target)``, γ = 2 / t^0.66, clipped to [−8, 4]. The throw matrix is
-    carried over: :func:`refresh_throw_matrix` refreshes it after the step."""
+    carried over: :func:`refresh_throw_matrix` refreshes it after the step.
+    ``chain_group``: the process group of a chain-sharded batch; the pooled
+    mean, outer product and acceptance are averaged over it in one
+    all-reduce (per-chain mode needs no communication)."""
     in_window = (step >= config.adaption_start_update) & (step <= config.adaption_end_update)
     th = theta.to(ATYPE)
     n = ad.n_updates.to(ATYPE)
@@ -227,6 +232,8 @@ def _update_adaptive(ad: AdaptiveState, theta: torch.Tensor, step: torch.Tensor,
     else:
         x = th.mean(0)
         xxt = (th.T @ th) / th.shape[0]
+        if chain_group is not None:
+            x, xxt, acc_pooled = all_reduce_mean((x, xxt, acc_prob.mean()), chain_group)
         new_mean, new_cov = _moment_update(ad.mean, ad.cov, n, x, xxt)
     if block_mask is not None:
         new_cov = new_cov * block_mask
@@ -236,7 +243,10 @@ def _update_adaptive(ad: AdaptiveState, theta: torch.Tensor, step: torch.Tensor,
     if config.robbins_monro:
         t = step.to(ATYPE).clamp(min=1.0)
         gamma = 2.0 / t**0.66
-        acc = acc_prob if ad.per_chain else acc_prob.mean()
+        if ad.per_chain:
+            acc = acc_prob
+        else:
+            acc = acc_prob.mean() if chain_group is None else acc_pooled
         log_scale = (ad.log_scale + gamma * (acc - config.target_accept)).clamp(-8.0, 4.0)
     else:
         log_scale = ad.log_scale
@@ -260,14 +270,21 @@ class _BlockMasks:
 
 
 def make_step_fn_args(
-    config: MCMCConfig,
+    config: MCMCConfig, chain_group=None, event_group=None,
 ) -> Callable[..., tuple[ChainState, dict[str, torch.Tensor]]]:
     """The single-step transition ``step(model, state, z=None, flip_u=None,
     u_acc=None)``. ``z`` ([C, K] fixed proposal, [C, P] adaptive),
     ``flip_u [C, P]`` and ``u_acc [C]`` inject the proposal normals, the flip
     uniforms and the accept uniforms; by default they are drawn from
     ``state.generator``. The throw matrix's refresh follows the step
-    (:func:`refresh_throw_matrix`)."""
+    (:func:`refresh_throw_matrix`).
+
+    ``chain_group`` / ``event_group``: the process groups of a step on a
+    (chains x events) mesh (``distributed/shard_step.py``): the pooled
+    adaptive moments are averaged over the chain shards, the partial
+    histograms summed over the event shards. Each rank's generator is its
+    chain row's (``distributed/mesh.chain_state_sharding``). ``None`` (the
+    default) is the single-device step."""
     block_mask = _BlockMasks(config.adaption_blocks)
 
     def step_fn(model: FitModel, state: ChainState, z=None, flip_u=None, u_acc=None):
@@ -278,7 +295,8 @@ def make_step_fn_args(
         else:
             proposed = adaptive_propose(model.flat, state.adaptive, state.theta,
                                         state.generator, z=z, flip_u=flip_u)
-        nll_prop, prior_parts, sample_parts = model.total_nll_batch_parts(proposed)
+        nll_prop, prior_parts, sample_parts = model.total_nll_batch_parts(
+            proposed, event_group=event_group)
 
         log_acc = state.nll - nll_prop
         if config.anneal_temp is not None:
@@ -295,7 +313,7 @@ def make_step_fn_args(
         adaptive = state.adaptive
         if adaptive is not None:
             adaptive = _update_adaptive(adaptive, theta, step, config, acc_prob,
-                                        block_mask(model))
+                                        block_mask(model), chain_group)
         new_state = ChainState(theta=theta, nll=nll, generator=state.generator, step=step,
                                n_accepted=state.n_accepted + accept.to(torch.int32),
                                adaptive=adaptive)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.collectives import all_reduce_sum
 from ..core.precision import ATYPE, LARGE_LOGL
 from ..params.parameterset import ParameterSet
 from ..params.state import PriorModel, propose_step
@@ -140,23 +141,34 @@ class FitModel(nn.Module):
         return self.total_nll_batch_parts(thetas)[0]
 
     def total_nll_batch_parts(
-        self, thetas: torch.Tensor
+        self, thetas: torch.Tensor, event_group=None
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Total -logL [C] with its per-handler [C, H] and per-sample [C, S]
         pieces (the reference's ``LogL_systematic_*`` / ``LogL_sample_*``
         branches, ``FitterBase.cpp:185-197``). When the prior is at the
         out-of-bounds sentinel, the sample term is replaced by
-        ``n_samples * LARGE_LOGL`` (``MR2T2::ProposeStep``)."""
+        ``n_samples * LARGE_LOGL`` (``MR2T2::ProposeStep``).
+
+        ``event_group``: the process group over which an event-sharded
+        model's samples are split (``distributed/mesh.shard_fit_model``).
+        Every sample's partial histograms are summed over it in one
+        all-reduce before the statistics; the prior is computed on every
+        rank alike."""
         prior_parts = self.prior_nll_breakdown(thetas)
         prior = prior_parts.sum(1)
         oob = prior >= LARGE_LOGL
         if len(self.samples):
             tables = self._shared_osc_tables(thetas)
-            sample_parts = torch.stack(
-                [s.log_likelihood_batch(thetas, osc_grids_batch=tables[i])
-                 for i, s in enumerate(self.samples)],
-                dim=1,
-            )
+            if event_group is None:
+                parts = [s.log_likelihood_batch(thetas, osc_grids_batch=tables[i])
+                         for i, s in enumerate(self.samples)]
+            else:
+                hists = all_reduce_sum([h for i, s in enumerate(self.samples)
+                                        for h in s.reweight_batch(thetas, tables[i])],
+                                       event_group)
+                parts = [s._stat_sum(hists[2 * i], hists[2 * i + 1])
+                         for i, s in enumerate(self.samples)]
+            sample_parts = torch.stack(parts, dim=1)
         else:
             sample_parts = torch.zeros((thetas.shape[0], 0), dtype=ATYPE, device=thetas.device)
         sample = sample_parts.sum(1)

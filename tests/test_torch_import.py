@@ -27,7 +27,7 @@ def test_port_imports_with_jax_blocked():
         cwd=PKG.parent, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 77
+    assert int(out.stdout.strip().splitlines()[-1]) >= 88
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
