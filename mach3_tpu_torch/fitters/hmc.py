@@ -11,21 +11,35 @@ Leapfrog HMC over a chain batch with a diagonal mass matrix (from the prior,
 then adapted from pooled Welford moments), dual-averaging step size (Hoffman
 & Gelman 2014, Algorithm 5), jittered or fixed trajectory lengths, and ChEES
 trajectory-time adaptation (Hoffman, Radul & Sountsov 2021) with Adam on
-log T. Hard bounds act through rejection (−inf outside). The chunk loop is
-plain Python; a ChEES step with the dynamic bound reads its trajectory
-length on the host once. Every random draw (momenta, uniforms, lengths) can
-be injected, so a test can replay another implementation's draws.
+log T. Hard bounds act through rejection (−inf outside). MALA is HMC with
+one fixed leapfrog step (``fitters/factory.py``).
+
+The state lives on the chains' device, its step counter and Welford count
+included, and the adaptation windows are device ``torch.where``s, as the JAX
+package's ``jnp.where``s are: a step has no host branch. It runs in three
+parts: the prologue draws the momenta and the lengths, each iteration is one
+gradient evaluation of the leapfrog (JAX's ``fori_loop`` body), the
+epilogue accepts and adapts. ``HMC.run`` is ``ChunkedSampler``'s loop: on
+the card a step with a static iteration count (fixed or jittered lengths,
+MALA, ``chees_static_bound``) is captured whole as one CUDA graph and
+replayed with no host read; ChEES with the dynamic bound (JAX's
+``while_loop``) replays three graphs, the prologue, the iteration (one
+forward and one backward) as many times as the step's length plus one,
+which the host reads once a step (8 bytes), and the epilogue. The eager loop
+(``graph=False``, and the CPU) runs the same three parts. Every random draw
+(momenta, uniforms, lengths) can be injected into :meth:`HMC.step`, so a
+test can replay another implementation's draws.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
 
 from ..core.precision import ATYPE
+from .mcmc import ChunkedSampler, GraphChunk
 from .model import FitModel
 
 TRAJ_LEARNING_RATE = 0.025  # Adam's step on log T (ChEES)
@@ -68,7 +82,7 @@ class HMCState:
     theta: torch.Tensor  # [C, P] f64
     logp: torch.Tensor  # [C]
     generator: torch.Generator
-    step: int  # global step counter (host)
+    step: torch.Tensor  # 0-d int32 global step counter, on the chains' device
     n_accepted: torch.Tensor  # [C] int32
     # dual averaging (shared across chains), 0-d f64
     log_eps: torch.Tensor
@@ -78,7 +92,7 @@ class HMCState:
     minv: torch.Tensor  # [P]
     mass_mean: torch.Tensor  # [P]
     mass_m2: torch.Tensor  # [P]
-    mass_n: float  # pooled count (host)
+    mass_n: torch.Tensor  # 0-d f64 pooled count
     # ChEES trajectory adaptation, 0-d f64
     log_traj: torch.Tensor
     log_traj_bar: torch.Tensor
@@ -86,15 +100,39 @@ class HMCState:
     traj_v: torch.Tensor
 
 
-def _halton2(i: int, bits: int = 16) -> float:
-    """Base-2 radical inverse of the step index: ChEES's quasi-random jitter
-    of the trajectory time."""
-    r, f = 0.0, 0.5
-    for _ in range(bits):
-        r += f * (i & 1)
-        i >>= 1
-        f *= 0.5
-    return r
+@dataclasses.dataclass
+class Trajectory:
+    """A step's trajectory in flight: what the prologue hands the
+    iterations (the leapfrog's loop carry, ``hmc.py:197-213`` of the JAX
+    package) and the iterations the epilogue."""
+
+    theta: torch.Tensor  # [C, P] position
+    p: torch.Tensor  # [C, P] momentum
+    logp_end: torch.Tensor  # [C] log-density at each chain's end point
+    i: torch.Tensor  # 0-d int64: the next iteration
+    n_active: torch.Tensor  # [C] int64 leapfrog steps of each chain
+    eps: torch.Tensor  # 0-d step size
+    ke0: torch.Tensor  # [C] kinetic energy at the start
+    traj_t: torch.Tensor | None = None  # ChEES: 0-d trajectory time
+    n_shared: torch.Tensor | None = None  # ChEES: 0-d int64 length shared by the chains
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """The static state of the three captured parts of a dynamic-length step."""
+
+    state: HMCState
+    traj: Trajectory
+
+
+def _halton2(i: torch.Tensor, bits: int = 16) -> torch.Tensor:
+    """Base-2 radical inverse of the (device) step index: ChEES's
+    quasi-random jitter of the trajectory time. The low ``bits`` bits
+    reversed as an integer, over 2^bits: exact, so equal to the JAX
+    package's sum of halves bit for bit."""
+    k = torch.arange(bits, dtype=torch.int64, device=i.device)
+    rev = (((i.to(torch.int64) >> k) & 1) << (bits - 1 - k)).sum()
+    return rev.to(ATYPE) / float(1 << bits)
 
 
 def _bounds_logp_batch(model: FitModel, thetas: torch.Tensor) -> torch.Tensor:
@@ -104,19 +142,28 @@ def _bounds_logp_batch(model: FitModel, thetas: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, -math.inf, 0.0).to(ATYPE)
 
 
-class HMC:
-    """Chain-batched HMC / ChEES-HMC. The model and ``init_theta`` decide the
-    device. ``n_logp_evals`` and ``n_grad_evals`` count the forward-only and
-    the forward-and-backward evaluations of the log-density."""
+class HMC(ChunkedSampler):
+    """Chain-batched HMC / ChEES-HMC / MALA. The model and ``init_theta``
+    decide the device. ``graph`` (default: on a CUDA device) replays
+    captured CUDA graphs; ``graph=False`` runs the eager loop.
+    ``n_logp_evals`` and ``n_grad_evals`` count the forward-only and the
+    forward-and-backward evaluations of the log-density (a graph's replays
+    included)."""
 
-    def __init__(self, model: FitModel, config: HMCConfig, init_theta, seed: int = 0):
+    def __init__(self, model: FitModel, config: HMCConfig, init_theta, seed: int = 0,
+                 graph: bool | None = None):
         self.model = model
         self.config = config
-        self.n_logp_evals = 0
-        self.n_grad_evals = 0
+        self.graph = self._use_graph(graph)
+        self._evals = {"logp": 0, "grad": 0}
+        if config.adapt_trajectory and not config.chees_static_bound:
+            self._iterations = None  # the step's own length + 1, read once a step
+        else:
+            self._iterations = (config.max_leapfrog if config.adapt_trajectory
+                                else config.n_leapfrog) + 1
         device = model.flat.prefit.device
         minv = torch.cat([torch.diag(p.chol @ p.chol.T) for p in model.priors])
-        theta0 = torch.as_tensor(np.asarray(init_theta), dtype=ATYPE, device=device)
+        theta0 = torch.tensor(np.asarray(init_theta), dtype=ATYPE, device=device)  # a copy
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         with torch.no_grad():
@@ -129,122 +176,149 @@ class HMC:
                              else 4.0 * config.step_size)
         zeros = torch.zeros(model.n_params, dtype=ATYPE, device=device)
         self.state = HMCState(
-            theta=theta0, logp=logp0, generator=generator, step=0,
+            theta=theta0, logp=logp0, generator=generator,
+            step=torch.zeros((), dtype=torch.int32, device=device),
             n_accepted=torch.zeros(theta0.shape[0], dtype=torch.int32, device=device),
             log_eps=scalar(math.log(config.step_size)),
             log_eps_bar=scalar(math.log(config.step_size)), h_bar=scalar(0.0),
-            minv=minv, mass_mean=zeros, mass_m2=zeros.clone(), mass_n=0.0,
+            minv=minv, mass_mean=zeros, mass_m2=zeros.clone(), mass_n=scalar(0.0),
             log_traj=scalar(log_traj0), log_traj_bar=scalar(log_traj0),
             traj_m=scalar(0.0), traj_v=scalar(0.0),
         )
 
+    @property
+    def n_logp_evals(self) -> int:
+        return self._evals["logp"]
+
+    @property
+    def n_grad_evals(self) -> int:
+        return self._evals["grad"]
+
     # ------------------------------------------------------- log-density
     def logp_batch(self, thetas: torch.Tensor) -> torch.Tensor:
         """[C, P] -> [C] log-density with the hard bounds (forward only)."""
-        self.n_logp_evals += 1
+        self._evals["logp"] += 1
         return self.model.log_posterior_batch(thetas) + _bounds_logp_batch(self.model, thetas)
 
     def value_grad_batch(self, thetas: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """([C] log-density, [C, P] its gradient) from one forward and one
         backward pass: chains are independent, so the gradient of the sum is
-        each chain's own."""
-        self.n_grad_evals += 1
+        each chain's own. ``autograd.grad``: no ``.grad`` accumulates, so a
+        graph can hold the evaluation."""
+        self._evals["grad"] += 1
         with torch.enable_grad():
             th = thetas.detach().requires_grad_(True)
             val = self.model.log_posterior_batch(th)
             (g,) = torch.autograd.grad(val.sum(), th)
         return val.detach(), g
 
-    def _leapfrog(self, theta, p, eps, n_active, minv, n_max: int):
-        """Velocity Verlet with per-chain lengths: chain c integrates
-        ``n_active[c]`` steps in n_max + 1 gradient evaluations. Iteration i
-        kicks with ½ at the ends (i == 0, i == n_active), 1 inside and 0
-        after, and the evaluation at i == n_active is the endpoint logp."""
-        logp_end = torch.zeros(theta.shape[0], dtype=theta.dtype, device=theta.device)
-        for i in range(n_max + 1):
-            val, g = self.value_grad_batch(theta)
-            at_end = n_active == i
-            kick = torch.where(at_end | (i == 0), 0.5, torch.where(i < n_active, 1.0, 0.0))
-            p = p + eps * kick.to(theta.dtype)[:, None] * g
-            logp_end = torch.where(at_end, val, logp_end)
-            drift = (i < n_active).to(theta.dtype)[:, None]
-            theta = theta + eps * minv * p * drift
-        return theta, p, logp_end
-
     # -------------------------------------------------------------- step
-    def step(self, state: HMCState, z=None, u=None, n_active=None):
-        """One transition. ``z [C, P]`` (standard normals of the momenta),
-        ``u [C]`` (accept uniforms) and ``n_active [C]`` (jittered lengths)
-        may be injected; by default they come from ``state.generator``.
-        Returns (new state, {theta, logp, accepted, accept_prob, n_leapfrog})."""
+    def prologue(self, state: HMCState, z=None, n_active=None) -> Trajectory:
+        """The trajectory's start: each chain's length (ChEES: one shared,
+        halton-jittered length from the device step; jittered: drawn from
+        [1, n_leapfrog]) and its momenta. ``z [C, P]`` standard normals and
+        ``n_active [C]`` jittered lengths may be injected."""
         cfg = self.config
         c, n_par = state.theta.shape
         dev = state.theta.device
         eps = torch.exp(state.log_eps)
-        traj_t = None
+        traj_t = n_shared = None
         if cfg.adapt_trajectory:
             traj_t = _halton2(state.step) * torch.exp(state.log_traj)
             ratio = traj_t / eps
+            # A non-finite time must not reach the integer cast.
             ratio = torch.where(torch.isfinite(ratio), ratio, 1.0)
             n_shared = torch.ceil(ratio).clamp(1, cfg.max_leapfrog).to(torch.int64)
-            n_active = n_shared.expand(c)
-            n_max = cfg.max_leapfrog if cfg.chees_static_bound else int(n_shared)
+            n_active = n_shared.expand(c).clone()
         elif cfg.jitter_trajectory:
             if n_active is None:
                 n_active = torch.randint(1, cfg.n_leapfrog + 1, (c,), generator=state.generator,
                                          device=dev)
-            n_max = cfg.n_leapfrog
         else:
             n_active = torch.full((c,), cfg.n_leapfrog, dtype=torch.int64, device=dev)
-            n_max = cfg.n_leapfrog
         n_active = torch.as_tensor(n_active, device=dev).to(torch.int64)
-
-        minv = state.minv
         if z is None:
             z = torch.randn((c, n_par), generator=state.generator, dtype=ATYPE, device=dev)
-        p0 = z.to(ATYPE) / torch.sqrt(minv)
-        ke0 = 0.5 * (minv * p0 * p0).sum(1)
-        theta_new, p_new, logp_end = self._leapfrog(state.theta, p0, eps, n_active, minv, n_max)
-        logp_new = logp_end + _bounds_logp_batch(self.model, theta_new)
+        p0 = z.to(ATYPE) / torch.sqrt(state.minv)
+        ke0 = 0.5 * (state.minv * p0 * p0).sum(1)
+        return Trajectory(theta=state.theta, p=p0,
+                          logp_end=torch.zeros(c, dtype=ATYPE, device=dev),
+                          i=torch.zeros((), dtype=torch.int64, device=dev), n_active=n_active,
+                          eps=eps, ke0=ke0, traj_t=traj_t, n_shared=n_shared)
+
+    def iterate(self, state: HMCState, traj: Trajectory) -> Trajectory:
+        """One leapfrog iteration (velocity Verlet with per-chain lengths,
+        one gradient evaluation): iteration i kicks with ½ at the ends
+        (i == 0, i == n_active), 1 inside and 0 after, and the evaluation at
+        i == n_active is the endpoint logp."""
+        i, n_active = traj.i, traj.n_active
+        val, g = self.value_grad_batch(traj.theta)
+        at_end = n_active == i
+        kick = torch.where(at_end | (i == 0), 0.5, torch.where(i < n_active, 1.0, 0.0))
+        p = traj.p + traj.eps * kick.to(ATYPE)[:, None] * g
+        logp_end = torch.where(at_end, val, traj.logp_end)
+        drift = (i < n_active).to(ATYPE)[:, None]
+        theta = traj.theta + traj.eps * state.minv * p * drift
+        return dataclasses.replace(traj, theta=theta, p=p, logp_end=logp_end, i=i + 1)
+
+    def n_iterations(self, traj: Trajectory) -> int:
+        """Leapfrog iterations of the step: static, or (ChEES with the
+        dynamic bound) its shared length + 1, read on the host."""
+        if self._iterations is not None:
+            return self._iterations
+        return int(traj.n_shared) + 1
+
+    def epilogue(self, state: HMCState, traj: Trajectory, u=None):
+        """The accept test and the adaptation, every window a device
+        ``torch.where`` on the step counter. ``u [C]`` accept uniforms may be
+        injected. Returns (new state, {theta, logp, accepted, accept_prob,
+        n_leapfrog})."""
+        cfg = self.config
+        c = state.theta.shape[0]
+        minv = state.minv
+        theta_new, p_new = traj.theta, traj.p
+        logp_new = traj.logp_end + _bounds_logp_batch(self.model, theta_new)
         ke_new = 0.5 * (minv * p_new * p_new).sum(1)
-        log_ratio = ((logp_new - ke_new) - (state.logp - ke0)).clamp(max=0.0)
+        log_ratio = ((logp_new - ke_new) - (state.logp - traj.ke0)).clamp(max=0.0)
         log_ratio = torch.where(torch.isnan(log_ratio), -math.inf, log_ratio)
         if u is None:
-            u = torch.rand((c,), generator=state.generator, dtype=ATYPE, device=dev)
+            u = torch.rand((c,), generator=state.generator, dtype=ATYPE,
+                           device=state.theta.device)
         accept = torch.log(u.to(ATYPE)) < log_ratio
         theta = torch.where(accept[:, None], theta_new, state.theta)
         logp = torch.where(accept, logp_new, state.logp)
         alpha = torch.exp(log_ratio)
 
         # Dual averaging on the mean acceptance probability.
-        t = state.step + 1.0
+        t = state.step.to(ATYPE) + 1.0
         in_window = state.step < cfg.adapt_steps
-        log_eps, log_eps_bar, h_bar = state.log_eps, state.log_eps_bar, state.h_bar
-        if in_window and cfg.adapt_step_size:
-            kappa, gamma, t0 = 0.75, 0.05, 10.0
-            mu = math.log(10.0 * cfg.step_size)
-            h_bar = (1.0 - 1.0 / (t + t0)) * h_bar + (cfg.target_accept - alpha.mean()) / (t + t0)
-            log_eps = mu - math.sqrt(t) / gamma * h_bar
-            eta = t ** (-kappa)
-            log_eps_bar = eta * log_eps + (1.0 - eta) * log_eps_bar
-        if state.step == cfg.adapt_steps:  # after adaptation: the averaged step size
-            log_eps = log_eps_bar
+        in_adapt = in_window & cfg.adapt_step_size
+        at_end = state.step == cfg.adapt_steps
+        kappa, gamma, t0 = 0.75, 0.05, 10.0
+        mu = math.log(10.0 * cfg.step_size)
+        h_bar = torch.where(in_adapt, (1.0 - 1.0 / (t + t0)) * state.h_bar
+                            + (cfg.target_accept - alpha.mean()) / (t + t0), state.h_bar)
+        log_eps = torch.where(in_adapt, mu - torch.sqrt(t) / gamma * h_bar, state.log_eps)
+        eta = t ** (-kappa)
+        log_eps_bar = torch.where(in_adapt, eta * log_eps + (1.0 - eta) * state.log_eps_bar,
+                                  state.log_eps_bar)
+        log_eps = torch.where(at_end, log_eps_bar, log_eps)  # then the averaged step size
 
         # Pooled Welford moments of the accepted positions (Chan et al.'s
         # exact batch update); the inverse mass refreshes on its cadence.
-        in_mass = cfg.adapt_mass and cfg.mass_start_update <= state.step < cfg.adapt_steps
-        mass_mean, mass_m2, mass_n, minv_new = state.mass_mean, state.mass_m2, state.mass_n, minv
-        if in_mass:
-            cnt = state.mass_n + c
-            batch_mean = theta.mean(0)
-            delta = batch_mean - state.mass_mean
-            mass_mean = state.mass_mean + delta * (c / cnt)
-            m2_b = ((theta - batch_mean) ** 2).sum(0)
-            mass_m2 = state.mass_m2 + m2_b + delta * delta * state.mass_n * c / cnt
-            mass_n = cnt
-            if cnt > 2.0 * c and state.step % cfg.mass_update_every == 0:
-                var_est = mass_m2 / max(cnt - 1.0, 1.0)
-                minv_new = torch.maximum(var_est, 1e-12 * var_est.max())
+        in_mass = ((state.step >= cfg.mass_start_update) & (state.step < cfg.adapt_steps)
+                   & cfg.adapt_mass)
+        cnt = state.mass_n + in_mass.to(ATYPE) * c
+        batch_mean = theta.mean(0)
+        delta = batch_mean - state.mass_mean
+        safe_cnt = cnt.clamp(min=1.0)
+        mass_mean = state.mass_mean + torch.where(in_mass, delta * (c / safe_cnt), 0.0)
+        dev_b = theta - batch_mean
+        cross = delta * delta * state.mass_n * c / safe_cnt
+        mass_m2 = state.mass_m2 + torch.where(in_mass, (dev_b * dev_b).sum(0) + cross, 0.0)
+        refresh = in_mass & (cnt > 2.0 * c) & (state.step % cfg.mass_update_every == 0)
+        var_est = mass_m2 / (cnt - 1.0).clamp(min=1.0)
+        minv_new = torch.where(refresh, torch.maximum(var_est, 1e-12 * var_est.max()), minv)
 
         log_traj, log_traj_bar = state.log_traj, state.log_traj_bar
         traj_m, traj_v = state.traj_m, state.traj_v
@@ -257,62 +331,100 @@ class HMC:
             dot = ((theta_new - mu_new) * (minv * p_new)).sum(1)
             per_chain = alpha * dsq * dot
             per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
-            ghat = per_chain.sum() / alpha.sum().clamp(min=1e-10) * traj_t
+            ghat = per_chain.sum() / alpha.sum().clamp(min=1e-10) * traj.traj_t
             ghat = torch.where(torch.isfinite(ghat), ghat, 0.0)
-            if in_window:
-                b1, b2, eps_a = 0.9, 0.95, 1e-8
-                traj_m = b1 * traj_m + (1 - b1) * ghat
-                traj_v = b2 * traj_v + (1 - b2) * ghat * ghat
-                upd = (TRAJ_LEARNING_RATE * (traj_m / (1.0 - b1**t))
-                       / (torch.sqrt(traj_v / (1.0 - b2**t)) + eps_a))
-                log_traj = log_traj + upd
+            b1, b2, eps_a = 0.9, 0.95, 1e-8
+            traj_m = torch.where(in_window, b1 * traj_m + (1 - b1) * ghat, traj_m)
+            traj_v = torch.where(in_window, b2 * traj_v + (1 - b2) * ghat * ghat, traj_v)
+            upd = (TRAJ_LEARNING_RATE * (traj_m / (1.0 - b1**t))
+                   / (torch.sqrt(traj_v / (1.0 - b2**t)) + eps_a))
+            log_traj = torch.where(in_window, log_traj + upd, log_traj)
             log_traj = torch.minimum(torch.maximum(log_traj, state.log_eps),
                                      state.log_eps + math.log(cfg.max_leapfrog))
-            if in_window:
-                eta_t = t ** (-0.75)
-                log_traj_bar = eta_t * log_traj + (1.0 - eta_t) * log_traj_bar
-            if state.step == cfg.adapt_steps:
-                log_traj = log_traj_bar
+            eta_t = t ** (-0.75)
+            log_traj_bar = torch.where(in_window, eta_t * log_traj + (1.0 - eta_t) * log_traj_bar,
+                                       log_traj_bar)
+            log_traj = torch.where(at_end, log_traj_bar, log_traj)
 
         new_state = HMCState(
             theta=theta, logp=logp, generator=state.generator, step=state.step + 1,
             n_accepted=state.n_accepted + accept.to(torch.int32), log_eps=log_eps,
             log_eps_bar=log_eps_bar, h_bar=h_bar, minv=minv_new, mass_mean=mass_mean,
-            mass_m2=mass_m2, mass_n=mass_n, log_traj=log_traj, log_traj_bar=log_traj_bar,
+            mass_m2=mass_m2, mass_n=cnt, log_traj=log_traj, log_traj_bar=log_traj_bar,
             traj_m=traj_m, traj_v=traj_v,
         )
         out = {"theta": theta, "logp": logp, "accepted": accept, "accept_prob": alpha,
-               "n_leapfrog": n_active}
+               "n_leapfrog": traj.n_active}
         return new_state, out
 
-    def run(self, n_steps: int | None = None, callback=None,
-            collect: bool = True) -> dict[str, np.ndarray]:
-        """Run the chains; returns host arrays theta [S, C, P], logp, accepted,
-        accept_prob, n_leapfrog [S, C] and step_time [S] (per-step wall
-        seconds, averaged over each chunk). callback(done, state, chunk) sees
-        each chunk's host arrays; collect=False keeps nothing."""
-        n_steps = n_steps or self.config.n_steps
-        chunks: list[dict[str, np.ndarray]] = []
-        keep = collect or callback is not None
-        done = 0
-        with torch.no_grad():
-            while done < n_steps:
-                n = min(self.config.chunk_size, n_steps - done)
-                t0 = time.perf_counter()
-                outs = []
-                for _ in range(n):
-                    self.state, out = self.step(self.state)
-                    if keep:
-                        outs.append(out)
-                done += n
-                if not keep:
-                    continue
-                host = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
-                host["step_time"] = np.full(n, (time.perf_counter() - t0) / n)
-                if collect:
-                    chunks.append(host)
-                if callback is not None:
-                    callback(done, self.state, host)
-        if not chunks:
-            return {}
-        return {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+    def step(self, state: HMCState, z=None, u=None, n_active=None):
+        """One transition: the prologue, :meth:`n_iterations` iterations and
+        the epilogue. ``z [C, P]`` (standard normals of the momenta), ``u
+        [C]`` (accept uniforms) and ``n_active [C]`` (jittered lengths) may
+        be injected; by default they come from ``state.generator``.
+        Returns (new state, {theta, logp, accepted, accept_prob, n_leapfrog})."""
+        traj = self.prologue(state, z=z, n_active=n_active)
+        for _ in range(self.n_iterations(traj)):
+            traj = self.iterate(state, traj)
+        return self.epilogue(state, traj, u=u)
+
+    # ------------------------------------------------------- chunk runner
+    def _step(self, model: FitModel, state: HMCState):
+        return self.step(state)
+
+    def _capture(self):
+        if self._iterations is not None:
+            return GraphChunk(self._step, self.model, self.state, self.config.chunk_size,
+                              counters=(self._evals,))
+        return SegmentedStep(self)
+
+
+class SegmentedStep:
+    """A dynamic-length step (ChEES with the dynamic bound) as three CUDA
+    graphs on one static state: the prologue, one leapfrog iteration (one
+    forward and one backward) and the epilogue. :meth:`replay` replays the
+    prologue, reads the step's shared length (one 8-byte copy to the host,
+    the step's only read), replays the iteration length + 1 times and the
+    epilogue: length + 3 graph launches and one copy a step. The interface
+    is :class:`GraphChunk`'s (``adopt``, ``check_model``, ``index``,
+    ``outputs``, ``replay``, ``launches`` per iteration)."""
+
+    def __init__(self, fit: HMC):
+        chunk, model, counters = fit.config.chunk_size, fit.model, (fit._evals,)
+        gen = torch.Generator(device=fit.state.theta.device)
+        gen.set_state(fit.state.generator.get_state())
+        template = fit.prologue(dataclasses.replace(fit.state, generator=gen))
+        traj = dataclasses.replace(template, **{
+            f.name: getattr(template, f.name).clone() for f in dataclasses.fields(template)})
+        self.static = _InFlight(fit.state, traj)
+
+        def start(_, s):
+            return dataclasses.replace(s, traj=fit.prologue(s.state)), {}
+
+        def advance(_, s):
+            return dataclasses.replace(s, traj=fit.iterate(s.state, s.traj)), {}
+
+        def finish(_, s):
+            new, out = fit.epilogue(s.state, s.traj)
+            return dataclasses.replace(s, state=new), out
+
+        self.prologue = GraphChunk(start, model, self.static, chunk, counters)
+        self.iteration = GraphChunk(advance, model, self.static, chunk, counters)
+        self.epilogue = GraphChunk(finish, model, self.static, chunk, counters)
+        self.outputs, self.index = self.epilogue.outputs, self.epilogue.index
+        self.launches = self.iteration.launches
+        self._iterations = fit.n_iterations
+
+    def check_model(self, model: FitModel) -> None:
+        self.epilogue.check_model(model)
+
+    def adopt(self, state: HMCState) -> HMCState:
+        if state is not self.static.state:
+            self.epilogue.adopt(_InFlight(state, self.static.traj))
+        return self.static.state
+
+    def replay(self) -> None:
+        self.prologue.replay()
+        for _ in range(self._iterations(self.static.traj)):
+            self.iteration.replay()
+        self.epilogue.replay()

@@ -336,41 +336,64 @@ def _model_fingerprint(model: FitModel) -> tuple:
     return (id(model), tuple(b.data_ptr() for b in model.buffers()), settings)
 
 
+def _generator_copies(state):
+    """``state`` with each of its generators (nested dataclasses walked)
+    replaced by a new generator in the same state."""
+    changes = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Generator):
+            changes[f.name] = torch.Generator(device=v.device)
+            changes[f.name].set_state(v.get_state())
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = _generator_copies(v)
+    return dataclasses.replace(state, **changes)
+
+
 class GraphChunk:
-    """A step captured once as a CUDA graph, replayed ``n <= chunk`` times a
-    chunk (the counterpart of the JAX package's compiled ``lax.scan``). The
-    state is any sampler state dataclass with a ``generator`` field
-    (:class:`ChainState`, ``tempering.PTState``, ``ensemble.EnsembleState``).
+    """A ``state -> state`` function captured once as a CUDA graph,
+    replayed ``n <= chunk`` times a chunk (the counterpart of the JAX
+    package's compiled ``lax.scan``): a sampler's step, or a part of one
+    (``hmc.SegmentedStep``). The state is any dataclass whose tensors the
+    function reads and whose generators it draws from, nested dataclasses
+    included (:class:`ChainState`, ``tempering.PTState``,
+    ``ensemble.EnsembleState``, ``hmc.HMCState``).
 
-    The graph reads and writes the static state ``self.state`` in place and
-    writes each step's outputs into ``self.outputs[k]`` [chunk, ...] at the
-    device index ``self.index``. The state's generator is registered with
-    the graph, so a replay draws what the eager step would from the same
-    generator state. The kernel launches seen while capturing are the
-    launches of one replay: each replay adds them to ``reweight.LAUNCHES``.
-    The model is fixed for the graph's life (``check_model``). A capture
-    that fails (a host sync inside the step, for one) raises."""
+    ``step_fn(model, state) -> (new state, outputs)``. The graph reads and
+    writes the static state ``self.state`` in place and writes each
+    replay's outputs (if any) into ``self.outputs[k]`` [chunk, ...] at the
+    device index ``self.index``. The state's generators are registered
+    with the graph, so a replay draws what the eager function would from
+    the same generator state. The counts seen while capturing (the kernel
+    launches of ``reweight.LAUNCHES`` and those of each dict in
+    ``counters``, a fitter's evaluations say) are the counts of one replay:
+    each replay adds them. The model is fixed for the graph's life
+    (``check_model``). A capture that fails (a host sync inside the step,
+    for one) raises."""
 
-    def __init__(self, step_fn, model: FitModel, state, chunk: int):
+    def __init__(self, step_fn, model: FitModel, state, chunk: int, counters=()):
         self._fingerprint = _model_fingerprint(model)
         self.state = state
         dev = model.flat.prefit.device
-        # Warm up on a copy (libraries, handles, lazily built kernels), on a
-        # side stream as capture wants; the chains do not move.
+        # Warm up on a copy (libraries, handles, lazily built kernels, the
+        # autograd engine), on a side stream as capture wants; the chains
+        # do not move.
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            gen = torch.Generator(device=dev)
-            gen.set_state(state.generator.get_state())
-            _, out = step_fn(model, dataclasses.replace(state, generator=gen))
+            _, out = step_fn(model, _generator_copies(state))
         torch.cuda.current_stream(dev).wait_stream(side)
         self.outputs = {k: torch.empty((chunk,) + tuple(v.shape), dtype=v.dtype, device=dev)
                         for k, v in out.items()}
         self.index = torch.zeros(1, dtype=torch.long, device=dev)
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(state.generator)
-        static = {k: v for k, v in state_leaves(state).items() if isinstance(v, torch.Tensor)}
-        before = dict(reweight.LAUNCHES)
+        leaves = state_leaves(state)
+        generators = [v for v in leaves.values() if isinstance(v, torch.Generator)]
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        static = {k: v for k, v in leaves.items() if isinstance(v, torch.Tensor)}
+        self._counters = (reweight.LAUNCHES,) + tuple(counters)
+        before = [dict(c) for c in self._counters]
         try:
             with torch.cuda.graph(self.graph):
                 new, out = step_fn(model, state)
@@ -379,16 +402,27 @@ class GraphChunk:
                         static[k].copy_(v)
                 for k, v in out.items():
                     self.outputs[k].index_copy_(0, self.index, v.unsqueeze(0))
-                self.index.add_(1)
+                if out:
+                    self.index.add_(1)
         except RuntimeError as err:
+            # The failed capture ended before it released the generators it
+            # registered (the state's and the device's default one): they
+            # are still marked as capturing, and an eager draw would raise.
+            # Each gets a fresh copy of its state, which is not.
+            default = torch.cuda.default_generators[
+                dev.index if dev.index is not None else torch.cuda.current_device()]
+            for gen in generators + [default]:
+                gen.graphsafe_set_state(gen.clone_state())
             raise RuntimeError(
                 "capturing the sampler's step as a CUDA graph failed (a host sync or an "
                 "operation a graph cannot hold inside the step); construct the fitter with "
                 "graph=False to run the eager loop") from err
         finally:
-            captured = {k: reweight.LAUNCHES[k] - before.get(k, 0) for k in reweight.LAUNCHES}
-            reweight.LAUNCHES.update(before)
-        self.launches = {k: v for k, v in captured.items() if v}
+            self._counted = [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
+                             for c, b in zip(self._counters, before)]
+            for c, b in zip(self._counters, before):
+                c.update(b)
+        self.launches = self._counted[0]
 
     def check_model(self, model: FitModel) -> None:
         """Refuse a model other than the one captured (the graph holds its
@@ -400,32 +434,36 @@ class GraphChunk:
                 "for the model as it is now.")
 
     def adopt(self, state):
-        """Copy ``state`` into the static state (a no-op for the static state
-        itself) and return the static state."""
+        """Copy ``state`` into the static state, its generators' states
+        included (a no-op for the static state itself), and return the
+        static state."""
         if state is not self.state:
             static = state_leaves(self.state)
             for k, v in state_leaves(state).items():
                 if isinstance(v, torch.Tensor):
                     static[k].copy_(v)
-            self.state.generator.set_state(state.generator.get_state())
+                elif isinstance(v, torch.Generator):
+                    static[k].set_state(v.get_state())
         return self.state
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, v in self.launches.items():
-            reweight.LAUNCHES[k] += v
+        for c, d in zip(self._counters, self._counted):
+            for k, v in d.items():
+                c[k] += v
 
 
 class ChunkedSampler:
     """The chunk loop of the samplers (MR2T2, DelayedMR2T2, parallel
-    tempering, the ensemble sampler; ``MCMCBase::RunMCMC``,
+    tempering, the ensemble sampler, HMC; ``MCMCBase::RunMCMC``,
     ``Fitters/MCMCBase.cpp:32-123``). A subclass sets ``self.model``,
     ``self.config`` (its ``chunk_size``), ``self.state`` (a state dataclass
     with a device ``step`` counter and a ``generator``), ``self._step``
     (``step(model, state) -> (state, outputs)``) and ``self.graph``: on the
-    card each chunk replays one step captured as a CUDA graph
-    (:class:`GraphChunk`); ``graph=False`` and the CPU run the eager loop.
-    :meth:`_after_step` runs between steps in both loops, outside the graph."""
+    card each chunk replays the step captured by :meth:`_capture` (one CUDA
+    graph, :class:`GraphChunk`); ``graph=False`` and the CPU run the eager
+    loop. :meth:`_after_step` runs between steps in both loops, outside the
+    graph."""
 
     model: FitModel
     _graph: GraphChunk | None = None
@@ -450,9 +488,14 @@ class ChunkedSampler:
                 outs.append(out)
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]} if keep else None
 
+    def _capture(self):
+        """The captured step: a :class:`GraphChunk` of ``self._step`` (a
+        subclass may return another object with its interface)."""
+        return GraphChunk(self._step, self.model, self.state, self.config.chunk_size)
+
     def _graph_chunk(self, n: int, step0: int, keep: bool) -> dict | None:
         if self._graph is None:
-            self._graph = GraphChunk(self._step, self.model, self.state, self.config.chunk_size)
+            self._graph = self._capture()
         g = self._graph
         g.check_model(self.model)
         self.state = g.adopt(self.state)

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.device import as_device_tensor
+from ..core.device import as_device_tensor, take
 from ..core.precision import ATYPE
 from .kernels import c_abs2, evolution_from_eigensystem, herm_eigensystem, herm_evolution
 from .pmns import hamiltonian_real, pmns_matrix_real
@@ -100,7 +100,7 @@ def _evolve_layers(eig: dict, ll_b: torch.Tensor, ri_b: torch.Tensor, n_batch: i
     package multiplies the first operator into the identity, which changes
     no bit; the matmuls sum in another order than its unrolled products
     (f32 rounding)."""
-    eg = {key: v[(slice(None),) * n_batch + (ri_b,)] for key, v in eig.items()}
+    eg = {key: take(v, n_batch, ri_b) for key, v in eig.items()}
     op_r, op_i = evolution_from_eigensystem(eg, ll_b[..., None])  # [*batch, *lead, NL, NE, 3, 3]
     op = torch.complex(op_r, op_i)
     amp = op[..., 0, :, :, :]

@@ -27,6 +27,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
+from ..core.device import prod_last, take
 from ..core.precision import ATYPE, FTYPE
 from ..osc.prob import (
     OscParams,
@@ -130,6 +131,8 @@ class OscConfig(nn.Module):
         self.register_buffer("event_channel", torch.as_tensor(event_channel, dtype=long))
         self.register_buffer("chan_alpha", torch.as_tensor(chan_alpha, dtype=long))
         self.register_buffer("chan_beta", torch.as_tensor(chan_beta, dtype=long))
+        # (alpha, beta) as one index into a flattened 3 x 3 probability matrix.
+        self.register_buffer("chan_flat", self.chan_alpha * 3 + self.chan_beta, persistent=False)
         self.register_buffer("chan_anti", torch.as_tensor(chan_anti, dtype=torch.bool))
         self.register_buffer("nc_mask", torch.as_tensor(nc_mask, dtype=torch.bool))
         self.register_buffer("osc_param_idx", torch.as_tensor(osc_param_idx, dtype=long))
@@ -147,7 +150,7 @@ class OscConfig(nn.Module):
     def prob_grids(self, thetas: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(nu, antinu) probability grids [C, NE, 3, 3] — shareable between
         samples with equal (grid, baseline, density) (``share_signature``)."""
-        pars = OscParams.from_array(thetas[:, self.osc_param_idx].to(ATYPE))
+        pars = OscParams.from_array(take(thetas, 1, self.osc_param_idx).to(ATYPE))
         kw = dict(length=self.baseline, rho=self.density, ye=self.electron_fraction,
                   dtype=self.dtype, phase_dtype=self.phase_dtype)
         p_nu = probabilities_const_density(pars, self.e_grid, antineutrino=False, **kw)
@@ -157,8 +160,8 @@ class OscConfig(nn.Module):
     def chan_table(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
         """Per-channel probability rows [C, NC, NE]."""
         p_nu, p_bar = self.prob_grids(thetas) if grids is None else grids
-        chan_nu = p_nu[..., self.chan_alpha, self.chan_beta].transpose(-1, -2)
-        chan_bar = p_bar[..., self.chan_alpha, self.chan_beta].transpose(-1, -2)
+        chan_nu = take(p_nu.flatten(-2), -1, self.chan_flat).transpose(-1, -2)
+        chan_bar = take(p_bar.flatten(-2), -1, self.chan_flat).transpose(-1, -2)
         return torch.where(self.chan_anti[:, None], chan_bar, chan_nu)
 
     def weights(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
@@ -224,6 +227,8 @@ class AtmoOscConfig(nn.Module):
         self.register_buffer("event_flat_idx", torch.as_tensor(event_flat_idx, dtype=long))
         self.register_buffer("chan_alpha", torch.as_tensor(chan_alpha, dtype=long))
         self.register_buffer("chan_beta", torch.as_tensor(chan_beta, dtype=long))
+        # (alpha, beta) as one index into a flattened 3 x 3 probability matrix.
+        self.register_buffer("chan_flat", self.chan_alpha * 3 + self.chan_beta, persistent=False)
         self.register_buffer("chan_anti", torch.as_tensor(chan_anti, dtype=torch.bool))
         self.register_buffer("nc_mask", torch.as_tensor(nc_mask, dtype=torch.bool))
         self.register_buffer("osc_param_idx", torch.as_tensor(osc_param_idx, dtype=long))
@@ -240,7 +245,7 @@ class AtmoOscConfig(nn.Module):
         """(nu, antinu) probability grids [C, NZ, NE, 3, 3], averaged over
         the production heights when there are several; shareable between
         samples with equal ``share_signature``."""
-        pars = OscParams.from_array(thetas[:, self.osc_param_idx].to(ATYPE))
+        pars = OscParams.from_array(take(thetas, 1, self.osc_param_idx).to(ATYPE))
 
         def one(antineutrino):
             p = probabilities_layered(
@@ -259,8 +264,8 @@ class AtmoOscConfig(nn.Module):
     def chan_table(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
         """Flat per-channel table [C, NC * NZ * NE]."""
         p_nu, p_bar = self.prob_grids(thetas) if grids is None else grids
-        chan_nu = p_nu[..., self.chan_alpha, self.chan_beta]  # [C, NZ, NE, NC]
-        chan_bar = p_bar[..., self.chan_alpha, self.chan_beta]
+        chan_nu = take(p_nu.flatten(-2), -1, self.chan_flat)  # [C, NZ, NE, NC]
+        chan_bar = take(p_bar.flatten(-2), -1, self.chan_flat)
         chan = torch.where(self.chan_anti, chan_bar, chan_nu)
         return chan.movedim(-1, 1).reshape(chan.shape[0], -1)
 
@@ -439,20 +444,18 @@ class SampleModel(nn.Module):
     def _norm_ext_batch(self, thetas: torch.Tensor) -> torch.Tensor:
         """[C, NP] -> [C, NA+1] f32: the sample's applied norm params plus
         the literal 1.0 unit slot that padding indexes."""
-        t = thetas if self.norm_applied is None else thetas[:, self.norm_applied]
+        t = thetas if self.norm_applied is None else take(thetas, 1, self.norm_applied)
         ones = torch.ones((t.shape[0], 1), dtype=FTYPE, device=t.device)
         return torch.cat([t.to(FTYPE), ones], dim=1)
 
     def _norm_weights(self, thetas: torch.Tensor) -> torch.Tensor:
         """[C, E] product of each event's matched norm values (exact zero for
         a zero norm; the reference's ``norm_pointers`` product)."""
-        # index_select here and in the oscillation gathers: its backward is an
-        # atomic index_add, while that of advanced indexing sorts the ~E x W
-        # repeated indices (72 of 110 ms of device time per gradient
-        # evaluation of the large fixture on an H100).
-        ext = self._norm_ext_batch(thetas)
-        return ext.index_select(1, self.norm_idx.reshape(-1)).reshape(
-            (ext.shape[0],) + tuple(self.norm_idx.shape)).prod(-1)
+        # index_select (``take``) here and in the oscillation gathers: its
+        # backward is an atomic index_add, while that of advanced indexing
+        # sorts the ~E x W repeated indices (72 of 110 ms of device time per
+        # gradient evaluation of the large fixture on an H100).
+        return prod_last(take(self._norm_ext_batch(thetas), 1, self.norm_idx))
 
     def _osc_weights(self, thetas: torch.Tensor, osc_grids: tuple | None = None) -> torch.Tensor:
         """[C, E] f32; ``osc_grids`` injects (nu, antinu) grids shared across
@@ -542,7 +545,7 @@ class SampleModel(nn.Module):
         norm_in_kernel = self.norm_s is not None
         base_w = self._base_weight(thetas, osc_grids_batch, norm=not norm_in_kernel)
         table = self.spline_table
-        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        seg, t = find_segments(table.knots_x, table.n_knots, take(thetas, 1, table.param_index))
         kind, param_index, stride_j, n_axis_j = self.kernel_shift
         args = (
             seg.contiguous(), t.contiguous(), table.coeffs, base_w.contiguous(),
@@ -561,7 +564,7 @@ class SampleModel(nn.Module):
         """Arguments of the shared-route kernel call for a chain batch."""
         base_w = self._base_weight(thetas, osc_grids_batch, norm=self.norm_s is None)
         table = self.spline_table
-        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        seg, t = find_segments(table.knots_x, table.n_knots, take(thetas, 1, table.param_index))
         args = (seg.contiguous(), t.contiguous(), table.coeffs, base_w.contiguous(),
                 self.static_bins)
         kwargs = dict(n_bins=self.n_bins, tile_start=self.hist_tile_start,
@@ -591,7 +594,7 @@ class SampleModel(nn.Module):
         norm_in_kernel = self.norm_s is not None
         base_w = self._base_weight(thetas, osc_grids_batch, norm=not norm_in_kernel)
         table = self.spline_table
-        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        seg, t = find_segments(table.knots_x, table.n_knots, take(thetas, 1, table.param_index))
         kwargs = dict(n_bins=self.n_bins, hist=self.perchain_hist, plan_ptr=self.hist_plan_ptr,
                       plan_idx=self.hist_plan_idx)
         if norm_in_kernel:
@@ -647,7 +650,7 @@ class SampleModel(nn.Module):
         run under the sample's activity plan."""
         base_w = self._base_weight(thetas, osc_grids_batch, norm=True)
         table = self.spline_table
-        seg, t = find_segments(table.knots_x, table.n_knots, thetas[:, table.param_index])
+        seg, t = find_segments(table.knots_x, table.n_knots, take(thetas, 1, table.param_index))
         head = (t, base_w, seg, table.coeffs)
         route = self._diff_route()
         if route == "shared":

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.device import take
 from ..core.logging import get_logger
 from ..core.precision import FTYPE
 
@@ -58,7 +59,7 @@ class TF1Table(nn.Module):
         """Per-event product of the responses, each floored at 0 (a negative
         event weight is unphysical): thetas [C, NP] -> [C, E] f32. The
         value is rounded to f32 first, as the JAX package does."""
-        v = thetas[:, self.param_index].to(FTYPE)
+        v = take(thetas, 1, self.param_index).to(FTYPE)
         w = None
         for p in range(self.n_tf1_params):
             resp = (self.intercept[p] + self.slope[p] * v[:, p, None]).clamp(min=0.0)
