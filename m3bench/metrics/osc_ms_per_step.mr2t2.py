@@ -1,0 +1,8 @@
+"""Device ms of the oscillation grids in one MR2T2 step: the program's stamp
+``osc`` (the grids, once per shared signature) in the last replay of the
+step's graph in the traced chunk."""
+from ..program_trace import graph_layer_ms
+
+
+def read(ctx):
+    return graph_layer_ms(ctx, "mr2t2.step", "osc")

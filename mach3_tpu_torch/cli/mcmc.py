@@ -33,7 +33,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     parser.add_argument(
         "--profile", default=None, metavar="DIR",
-        help="Write a torch.profiler trace of one chunk into DIR (Chrome trace format)",
+        help="Write a torch.profiler trace of one chunk into DIR (Chrome trace format, "
+        "trace.json) and the program's own spans, counters and per-layer device ms of "
+        "every chunk (spans.json)",
     )
     parser.add_argument(
         "--stream", choices=["auto", "on", "off"], default="auto",
@@ -47,6 +49,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     device = setup_platform(args)
 
+    from ..core import tracing
     from ..core.logging import get_logger
     from ..diagnostics.chain_io import (
         ChainShardWriter,
@@ -58,6 +61,8 @@ def main(argv: list[str] | None = None) -> int:
     from ..fitters.factory import make_fitter, manager_from_args
 
     log = get_logger("cli.mcmc")
+    if args.profile:
+        tracing.enable()
     cfg = manager_from_args(args.configs)
 
     if cfg.has("Experiment"):
@@ -176,7 +181,10 @@ def main(argv: list[str] | None = None) -> int:
     out = fitter.run(n_steps=n_steps, callback=progress, collect=not streaming)
     if prof is not None:
         prof.stop()
-        log.info("profiler trace of the second chunk written to %s", args.profile)
+        tracing.write(os.path.join(args.profile, "spans.json"))
+        tracing.enable(False)
+        log.info("profiler trace of the second chunk and the run's spans written to %s",
+                 args.profile)
     beta_zero = hasattr(fitter, "cold_chain") and getattr(fitter.config, "beta_zero", False)
     if streaming:
         if beta_zero:
@@ -204,14 +212,18 @@ def chunk_profiler(out_dir: str, device):
     """A started ``torch.profiler`` that traces the second chunk of the run
     (the first builds the kernels and captures the graph) into
     ``out_dir/trace.json`` (Chrome trace format); the run's callback calls
-    its ``step()`` at each chunk's end."""
+    its ``step()`` at each chunk's end. The program's spans in that chunk
+    (``core.tracing``) appear in it as ``record_function`` ranges."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     os.makedirs(out_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities, schedule=schedule(wait=1, warmup=0, active=1),
+    # One cycle: with more, each later odd chunk is traced again and the
+    # last trace overwrites the second chunk's.
+    prof = profile(activities=activities,
+                   schedule=schedule(wait=1, warmup=0, active=1, repeat=1),
                    on_trace_ready=lambda p: p.export_chrome_trace(
                        os.path.join(out_dir, "trace.json")))
     prof.start()

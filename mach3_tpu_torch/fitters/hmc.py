@@ -38,6 +38,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.precision import ATYPE
 from .mcmc import ChunkedSampler, GraphChunk
 from .model import FitModel
@@ -155,7 +156,7 @@ class HMC(ChunkedSampler):
         self.model = model
         self.config = config
         self.graph = self._use_graph(graph)
-        self._evals = {"logp": 0, "grad": 0}
+        self._evals = tracing.counters("hmc.evals", ("logp", "grad"))
         if config.adapt_trajectory and not config.chees_static_bound:
             self._iterations = None  # the step's own length + 1, read once a step
         else:
@@ -206,10 +207,13 @@ class HMC(ChunkedSampler):
         each chain's own. ``autograd.grad``: no ``.grad`` accumulates, so a
         graph can hold the evaluation."""
         self._evals["grad"] += 1
+        tracing.stamp("forward")
         with torch.enable_grad():
             th = thetas.detach().requires_grad_(True)
             val = self.model.log_posterior_batch(th)
+            tracing.stamp("backward")
             (g,) = torch.autograd.grad(val.sum(), th)
+        tracing.stamp("leapfrog")
         return val.detach(), g
 
     # -------------------------------------------------------------- step
@@ -218,6 +222,7 @@ class HMC(ChunkedSampler):
         halton-jittered length from the device step; jittered: drawn from
         [1, n_leapfrog]) and its momenta. ``z [C, P]`` standard normals and
         ``n_active [C]`` jittered lengths may be injected."""
+        tracing.stamp("prologue")
         cfg = self.config
         c, n_par = state.theta.shape
         dev = state.theta.device
@@ -266,13 +271,15 @@ class HMC(ChunkedSampler):
         dynamic bound) its shared length + 1, read on the host."""
         if self._iterations is not None:
             return self._iterations
-        return int(traj.n_shared) + 1
+        with tracing.span("hmc.length_read"):
+            return tracing.read_int(traj.n_shared) + 1
 
     def epilogue(self, state: HMCState, traj: Trajectory, u=None):
         """The accept test and the adaptation, every window a device
         ``torch.where`` on the step counter. ``u [C]`` accept uniforms may be
         injected. Returns (new state, {theta, logp, accepted, accept_prob,
         n_leapfrog})."""
+        tracing.stamp("accept")
         cfg = self.config
         c = state.theta.shape[0]
         minv = state.minv
@@ -290,6 +297,7 @@ class HMC(ChunkedSampler):
         alpha = torch.exp(log_ratio)
 
         # Dual averaging on the mean acceptance probability.
+        tracing.stamp("adapt")
         t = state.step.to(ATYPE) + 1.0
         in_window = state.step < cfg.adapt_steps
         in_adapt = in_window & cfg.adapt_step_size
@@ -375,7 +383,7 @@ class HMC(ChunkedSampler):
     def _capture(self):
         if self._iterations is not None:
             return GraphChunk(self._step, self.model, self.state, self.config.chunk_size,
-                              counters=(self._evals,))
+                              self._graph_name)
         return SegmentedStep(self)
 
 
@@ -387,10 +395,11 @@ class SegmentedStep:
     the step's only read), replays the iteration length + 1 times and the
     epilogue: length + 3 graph launches and one copy a step. The interface
     is :class:`GraphChunk`'s (``adopt``, ``check_model``, ``index``,
-    ``outputs``, ``replay``, ``launches`` per iteration)."""
+    ``outputs``, ``replay``, ``launches`` per iteration, ``stamp_sets``: the
+    three graphs' stamps). The read is the span ``hmc.length_read``."""
 
     def __init__(self, fit: HMC):
-        chunk, model, counters = fit.config.chunk_size, fit.model, (fit._evals,)
+        chunk, model = fit.config.chunk_size, fit.model
         gen = torch.Generator(device=fit.state.theta.device)
         gen.set_state(fit.state.generator.get_state())
         template = fit.prologue(dataclasses.replace(fit.state, generator=gen))
@@ -408,9 +417,9 @@ class SegmentedStep:
             new, out = fit.epilogue(s.state, s.traj)
             return dataclasses.replace(s, state=new), out
 
-        self.prologue = GraphChunk(start, model, self.static, chunk, counters)
-        self.iteration = GraphChunk(advance, model, self.static, chunk, counters)
-        self.epilogue = GraphChunk(finish, model, self.static, chunk, counters)
+        self.prologue = GraphChunk(start, model, self.static, chunk, "hmc.prologue")
+        self.iteration = GraphChunk(advance, model, self.static, chunk, "hmc.iteration")
+        self.epilogue = GraphChunk(finish, model, self.static, chunk, "hmc.epilogue")
         self.outputs, self.index = self.epilogue.outputs, self.epilogue.index
         self.launches = self.iteration.launches
         self._iterations = fit.n_iterations
@@ -428,3 +437,6 @@ class SegmentedStep:
         for _ in range(self._iterations(self.static.traj)):
             self.iteration.replay()
         self.epilogue.replay()
+
+    def stamp_sets(self) -> list:
+        return [s for g in (self.prologue, self.iteration, self.epilogue) for s in g.stamp_sets()]

@@ -30,6 +30,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.collectives import all_reduce_mean
 from ..core.logging import get_logger
 from ..core.precision import ATYPE, LARGE_LOGL
@@ -197,7 +198,8 @@ def refresh_throw_matrix(ad: AdaptiveState | None, config: MCMCConfig, step: int
     column-major factors, whose product with the normals would reduce in
     another order), and a captured step reads the buffer it holds."""
     if refresh_due(config, step):
-        ad.chol.copy_(refreshed_chol(ad, config))
+        with tracing.span("runner.refresh"):
+            ad.chol.copy_(refreshed_chol(ad, config))
 
 
 def _moment_update(mean, cov, n, x, xxt):
@@ -289,6 +291,7 @@ def make_step_fn_args(
 
     def step_fn(model: FitModel, state: ChainState, z=None, flip_u=None, u_acc=None):
         n_chains = state.theta.shape[0]
+        tracing.stamp("propose")
         if state.adaptive is None:
             proposed = propose_step_batch(model.flat, state.theta, state.generator,
                                           z=z, flip_u=flip_u)
@@ -298,6 +301,7 @@ def make_step_fn_args(
         nll_prop, prior_parts, sample_parts = model.total_nll_batch_parts(
             proposed, event_group=event_group)
 
+        tracing.stamp("accept")
         log_acc = state.nll - nll_prop
         if config.anneal_temp is not None:
             log_acc = log_acc / torch.exp(-state.step.to(ATYPE) / config.anneal_temp)
@@ -312,6 +316,7 @@ def make_step_fn_args(
         step = state.step + 1
         adaptive = state.adaptive
         if adaptive is not None:
+            tracing.stamp("adapt")
             adaptive = _update_adaptive(adaptive, theta, step, config, acc_prob,
                                         block_mask(model), chain_group)
         new_state = ChainState(theta=theta, nll=nll, generator=state.generator, step=step,
@@ -364,16 +369,24 @@ class GraphChunk:
     replay's outputs (if any) into ``self.outputs[k]`` [chunk, ...] at the
     device index ``self.index``. The state's generators are registered
     with the graph, so a replay draws what the eager function would from
-    the same generator state. The counts seen while capturing (the kernel
-    launches of ``reweight.LAUNCHES`` and those of each dict in
-    ``counters``, a fitter's evaluations say) are the counts of one replay:
-    each replay adds them. The model is fixed for the graph's life
-    (``check_model``). A capture that fails (a host sync inside the step,
-    for one) raises."""
+    the same generator state. The counts seen while capturing (those of
+    every entry of the tracing registry: the kernel launches of
+    ``reweight.LAUNCHES``, a fitter's evaluations) are the counts of one
+    replay: each replay adds them. The graph holds its layers' device
+    stamps (``self.stamps``, ``core.tracing``) as event-record nodes;
+    ``name`` names it in the traces (``runner.replay.<name>``). The model is
+    fixed for the graph's life (``check_model``). A capture that fails (a
+    host sync inside the step, for one) raises."""
 
-    def __init__(self, step_fn, model: FitModel, state, chunk: int, counters=()):
+    #: The captured layers' stamps (None: nothing stamped).
+    stamps: tracing.Stamps | None = None
+
+    @tracing.setup_span("graph.capture")
+    def __init__(self, step_fn, model: FitModel, state, chunk: int, name: str = "step"):
         self._fingerprint = _model_fingerprint(model)
         self.state = state
+        self.name = name
+        self._replay_span = f"runner.replay.{name}"
         dev = model.flat.prefit.device
         # Warm up on a copy (libraries, handles, lazily built kernels, the
         # autograd engine), on a side stream as capture wants; the chains
@@ -392,11 +405,11 @@ class GraphChunk:
         for gen in generators:
             self.graph.register_generator_state(gen)
         static = {k: v for k, v in leaves.items() if isinstance(v, torch.Tensor)}
-        self._counters = (reweight.LAUNCHES,) + tuple(counters)
-        before = [dict(c) for c in self._counters]
+        self._seen = tracing.CaptureCounts()
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph), tracing.stamping(name, external=True) as stamps:
                 new, out = step_fn(model, state)
+                tracing.stamp("write")
                 for k, v in state_leaves(new).items():
                     if k in static:
                         static[k].copy_(v)
@@ -418,11 +431,10 @@ class GraphChunk:
                 "operation a graph cannot hold inside the step); construct the fitter with "
                 "graph=False to run the eager loop") from err
         finally:
-            self._counted = [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
-                             for c, b in zip(self._counters, before)]
-            for c, b in zip(self._counters, before):
-                c.update(b)
-        self.launches = self._counted[0]
+            self._seen.close()
+        self.stamps = stamps
+        self.launches = self._seen.of(reweight.LAUNCHES)
+        tracing.count("graph_captures")
 
     def check_model(self, model: FitModel) -> None:
         """Refuse a model other than the one captured (the graph holds its
@@ -447,10 +459,14 @@ class GraphChunk:
         return self.state
 
     def replay(self) -> None:
-        self.graph.replay()
-        for c, d in zip(self._counters, self._counted):
-            for k, v in d.items():
-                c[k] += v
+        with tracing.span(self._replay_span):
+            self.graph.replay()
+        tracing.count("graph_replays")
+        self._seen.replay()
+
+    def stamp_sets(self) -> list:
+        """The stamps of the graph (none without any)."""
+        return [] if self.stamps is None else [self.stamps]
 
 
 class ChunkedSampler:
@@ -463,10 +479,16 @@ class ChunkedSampler:
     card each chunk replays the step captured by :meth:`_capture` (one CUDA
     graph, :class:`GraphChunk`); ``graph=False`` and the CPU run the eager
     loop. :meth:`_after_step` runs between steps in both loops, outside the
-    graph."""
+    graph. While tracing is on (``core.tracing``), each chunk leaves a
+    record with the layers' device ms of its last step."""
 
     model: FitModel
     _graph: GraphChunk | None = None
+    _eager_stamps: tracing.Stamps | None = None
+
+    @property
+    def _graph_name(self) -> str:
+        return f"{type(self).__name__.lower()}.step"
 
     def _use_graph(self, graph: bool | None) -> bool:
         device = self.model.flat.prefit.device
@@ -481,8 +503,13 @@ class ChunkedSampler:
 
     def _eager_chunk(self, n: int, step0: int, keep: bool) -> dict | None:
         outs = []
+        stamped = tracing.is_on() and self.model.flat.prefit.device.type == "cuda"
         for i in range(n):
-            self.state, out = self._step(self.model, self.state)
+            if stamped:
+                with tracing.stamping(self._graph_name) as self._eager_stamps:
+                    self.state, out = self._step(self.model, self.state)
+            else:
+                self.state, out = self._step(self.model, self.state)
             self._after_step(step0 + i + 1)
             if keep:
                 outs.append(out)
@@ -491,7 +518,8 @@ class ChunkedSampler:
     def _capture(self):
         """The captured step: a :class:`GraphChunk` of ``self._step`` (a
         subclass may return another object with its interface)."""
-        return GraphChunk(self._step, self.model, self.state, self.config.chunk_size)
+        return GraphChunk(self._step, self.model, self.state, self.config.chunk_size,
+                          self._graph_name)
 
     def _graph_chunk(self, n: int, step0: int, keep: bool) -> dict | None:
         if self._graph is None:
@@ -504,6 +532,16 @@ class ChunkedSampler:
             g.replay()
             self._after_step(step0 + i + 1)
         return {k: v[:n] for k, v in g.outputs.items()} if keep else None
+
+    def _layer_ms(self) -> dict:
+        """{graph name: {layer: device ms}} of the last replay of each
+        captured graph, or of the last eager step on the card (after a read
+        that waited for them)."""
+        if self.graph:
+            sets = self._graph.stamp_sets() if self._graph is not None else []
+        else:
+            sets = [self._eager_stamps] if self._eager_stamps is not None else []
+        return {s.name: s.layer_ms() for s in sets}
 
     def run(
         self, n_steps: int | None = None, callback=None, collect: bool = True
@@ -523,24 +561,34 @@ class ChunkedSampler:
             return {}
         chunks: list[dict[str, np.ndarray]] = []
         keep = collect or callback is not None
-        step_host = int(self.state.step)  # the host's mirror: refresh schedule
+        step_host = None  # the host's mirror of the step counter: refresh schedule
         run_chunk = self._graph_chunk if self.graph else self._eager_chunk
         done = 0
         with torch.no_grad():
             while done < n_steps:
                 n = min(self.config.chunk_size, n_steps - done)
-                t0 = time.perf_counter()
-                outs = run_chunk(n, step_host, keep)
-                step_host += n
-                done += n
-                if not keep:
-                    continue
-                host = {k: v.cpu().numpy() for k, v in outs.items()}
-                host["step_time"] = np.full(n, (time.perf_counter() - t0) / n)
-                if collect:
-                    chunks.append(host)
-                if callback is not None:
-                    callback(done, self.state, host)
+                tracing.poll()
+                with tracing.chunk() as record:
+                    if step_host is None:
+                        step_host = tracing.read_int(self.state.step)
+                    t0 = time.perf_counter()
+                    outs = run_chunk(n, step_host, keep)
+                    step_host += n
+                    done += n
+                    if record is not None:
+                        record.steps = n
+                    if not keep:
+                        continue
+                    with tracing.span("runner.collect"):
+                        host = {k: tracing.to_host(v) for k, v in outs.items()}
+                    host["step_time"] = np.full(n, (time.perf_counter() - t0) / n)
+                    if record is not None:
+                        record.layers = self._layer_ms()
+                    if collect:
+                        chunks.append(host)
+                    if callback is not None:
+                        with tracing.span("runner.callback"):
+                            callback(done, self.state, host)
         if not chunks:
             return {}
         return {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}

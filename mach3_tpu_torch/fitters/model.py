@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import tracing
 from ..core.collectives import all_reduce_sum
 from ..core.precision import ATYPE, LARGE_LOGL
 from ..params.parameterset import ParameterSet
@@ -154,6 +155,7 @@ class FitModel(nn.Module):
         Every sample's partial histograms are summed over it in one
         all-reduce before the statistics; the prior is computed on every
         rank alike."""
+        tracing.stamp("prior")
         prior_parts = self.prior_nll_breakdown(thetas)
         prior = prior_parts.sum(1)
         oob = prior >= LARGE_LOGL
@@ -185,6 +187,7 @@ class FitModel(nn.Module):
         :meth:`SampleModel.log_likelihood_batch_plain` (plain torch ops,
         differentiable to any order). No out-of-bounds sentinel: hard bounds
         are the caller's (HMC masks them to −inf outside the gradient)."""
+        tracing.stamp("prior")
         flat = self.flat
         d = torch.where(flat.flat_prior, 0.0, thetas.to(ATYPE) - flat.prefit)
         total = -0.5 * (d * (d @ flat.inv_cov.T)).sum(1)
@@ -201,6 +204,7 @@ class FitModel(nn.Module):
     def _shared_osc_tables(self, thetas: torch.Tensor) -> list:
         """Per-sample oscillation grids, computed once per unique signature
         (``OscillationHandler.cpp:18-35``, "up to 12x" saving)."""
+        tracing.stamp("osc")
         tables: list = [None] * len(self.samples)
         cache: dict = {}
         for i, g in enumerate(self.osc_groups):

@@ -21,6 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from ..core import tracing
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -70,13 +72,16 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}_{_digest(source)}.so"
 
 
+@tracing.setup_span("kernels.build")
 def build_all(stems) -> dict[str, tuple[Path, float, str]]:
     """Compile ``csrc/<stem>.cu`` for every stem whose library does not exist
     yet, one ``nvcc`` per source, all started together.
 
     Returns {stem: (library path, build seconds (0.0 when it existed),
     nvcc's output, which with ``-Xptxas -v`` lists registers and shared
-    memory)}. Raises ``KernelBuildError`` if any source fails."""
+    memory)}. Raises ``KernelBuildError`` if any source fails. Counts
+    ``kernel_builds`` (nvcc ran) and ``kernel_loads`` (the library existed)
+    in ``core.tracing.PROGRAM``."""
     out: dict[str, tuple[Path, float, str]] = {}
     running = []
     for stem in stems:
@@ -84,6 +89,7 @@ def build_all(stems) -> dict[str, tuple[Path, float, str]]:
         log = lib.with_suffix(".log")
         if lib.is_file():
             out[stem] = (lib, 0.0, log.read_text() if log.is_file() else "")
+            tracing.count("kernel_loads")
             continue
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -105,6 +111,7 @@ def build_all(stems) -> dict[str, tuple[Path, float, str]]:
                 os.unlink(tmp)
         lib.with_suffix(".log").write_text(output)
         out[stem] = (lib, time.perf_counter() - t0, output)
+        tracing.count("kernel_builds")
     if failed:
         raise KernelBuildError("\n".join(failed))
     return out

@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.exceptions import ConfigError
 from ..core.logging import get_logger
 from ..core.precision import ATYPE, FTYPE
@@ -141,6 +142,7 @@ def _nearest(grid, vals) -> np.ndarray:
     return np.where(np.abs(g[left] - vals) < np.abs(g[idx] - vals), left, idx)
 
 
+@tracing.setup_span("build.osc")
 def build_osc_config(
     events: EventData,
     e_grid: np.ndarray,
@@ -177,6 +179,7 @@ def build_osc_config(
     )
 
 
+@tracing.setup_span("build.osc")
 def build_atmo_osc_config(
     events: EventData,
     e_grid: np.ndarray,
@@ -341,6 +344,7 @@ def apply_shifted_layout(name: str, arrays: dict) -> dict:
     return _take_events(arrays, table, lay)
 
 
+@tracing.setup_span("build.sample")
 def build_sample_model(
     name: str,
     events: EventData,

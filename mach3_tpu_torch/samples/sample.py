@@ -27,6 +27,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
+from ..core import tracing
 from ..core.device import prod_last, take
 from ..core.precision import ATYPE, FTYPE
 from ..osc.prob import (
@@ -607,6 +608,7 @@ class SampleModel(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Chain-batched reweight on the sample's route: [C, NP] ->
         (mc [C, B], w2 [C, B])."""
+        tracing.stamp("base")
         route = self.kernel_route
         if not route.use_kernel:
             return self.reweight_batch_plain(thetas, osc_grids_batch)
@@ -614,6 +616,7 @@ class SampleModel(nn.Module):
             raise NotImplementedError(f"{self.name}: no kernel route {route.variant!r}")
         make_args, kernel = _FORWARD[route.variant]
         args, kwargs = make_args(self, thetas, osc_grids_batch)
+        tracing.stamp("reweight")
         return kernel(*args, **kwargs)
 
     def _diff_route(self) -> str | None:
@@ -674,15 +677,18 @@ class SampleModel(nn.Module):
         forward is the sample's reweight kernel with the norm product in the
         base weight, the backward the kernel of ``splines/grad.py``. A
         sample with no kernel route takes :meth:`log_likelihood_batch_plain`."""
+        tracing.stamp("base")
         route = self._diff_route()
         if route is None:
             return self.log_likelihood_batch_plain(thetas, osc_grids_batch)
         args, kwargs = self.diff_kernel_args(thetas, osc_grids_batch)
+        tracing.stamp("reweight")
         return self._stat_sum(*_DIFF[route](*args, **kwargs))
 
     def _stat_sum(self, mc: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
         """Per-bin test statistic (in ``stat_dtype``, default f64) summed over
         bins in f64 (``SampleHandlerFD.cpp:1284-1300``): [..., B] -> [...]."""
+        tracing.stamp("stat")
         sd = self.stat_dtype or ATYPE
         stat_fn = get_test_stat_fn(self.test_statistic)
         per_bin = stat_fn(self.data.to(sd), mc.to(sd), w2.to(sd))

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import tracing
 from ..core.logging import get_logger
 from ..core.precision import FTYPE
 from ..params.parameterset import SplineInterpolation
@@ -99,6 +100,7 @@ def _spec_coefficients(spec: SplineParamSpec) -> tuple[np.ndarray, ...]:
     return y, b, c, d
 
 
+@tracing.setup_span("build.table")
 def build_dense_table(
     specs: Sequence[SplineParamSpec], n_events: int, low_memory: bool = False
 ) -> DenseSplineTable:

@@ -47,6 +47,7 @@ import dataclasses
 
 import torch
 
+from ..core import tracing
 from ..core.precision import FTYPE
 from ..samples.binning import count_edges_le, histogram
 from .eval import spline_product
@@ -94,10 +95,12 @@ MAX_SMEM = 232448
 BIN_MAP_BYTES = 116
 
 #: Launches of each CUDA kernel since its count was last set to 0, the
-#: backward of ``splines/grad.py`` included. Only a CUDA launch adds to a
-#: count; the plain versions do not.
-LAUNCHES = {"reweight_shifted": 0, "reweight_shared": 0, "reweight_perchain": 0,
-            "reweight_perchain_blockdiag": 0, "reweight_backward": 0}
+#: backward of ``splines/grad.py`` included (an entry of the tracing
+#: registry, ``core.tracing.counters``). Only a CUDA launch adds to a count;
+#: the plain versions do not.
+LAUNCHES = tracing.counters("launches", ("reweight_shifted", "reweight_shared",
+                                         "reweight_perchain", "reweight_perchain_blockdiag",
+                                         "reweight_backward"))
 #: Histogram forms of ``fused_reweight_histogram``.
 HIST_FORMS = ("maskreduce", "blockdiag")
 #: Event tiles a block of the per-chain kernel walks: the atomics form

@@ -2,6 +2,7 @@
 experiment of ``tutorial/experiment_files.py`` at 3,000 events with 4
 chains, held in RAM and streamed, a kill and a resume that reproduce an
 uninterrupted run bit for bit, and chain files the JAX package reads."""
+import json
 import os
 import subprocess
 import sys
@@ -14,6 +15,7 @@ import torch
 
 from mach3_tpu.diagnostics.chain_io import load_chain as jload_chain
 from mach3_tpu_torch.cli import mcmc as cli_mcmc
+from mach3_tpu_torch.core import tracing
 from mach3_tpu_torch.core.exceptions import ConfigError
 from mach3_tpu_torch.diagnostics.chain_io import load_chain
 from mach3_tpu_torch.tutorial.experiment_files import write_experiment
@@ -114,7 +116,20 @@ def test_toy_delayed_and_the_algorithms_not_ported(tmp_path):
 
 
 def test_profile_writes_a_trace(experiment, tmp_path):
+    """``--profile DIR``: the profiler's trace of the second chunk, with the
+    program's spans in it, and the program's own spans, counters and chunk
+    records (``core/tracing.py``) in ``spans.json``."""
     out, prof = str(tmp_path / "c.npz"), str(tmp_path / "prof")
     assert cli_mcmc.main(_argv(experiment, 30, 10, ["-o", out, "--profile", prof])) == 0
     assert os.path.getsize(os.path.join(prof, "trace.json")) > 0
     assert load_chain(out)[0]["theta"].shape[0] == 30
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"runner.chunk", "runner.collect", "runner.callback"} <= names
+    with open(os.path.join(prof, "spans.json")) as f:
+        spans = json.load(f)
+    assert set(spans) == {"spans", "counters", "chunks"}
+    assert spans["spans"]["runner.chunk"]["count"] == 3
+    assert "build.sample" in spans["spans"] and "launches" in spans["counters"]
+    assert [c["steps"] for c in spans["chunks"][-3:]] == [10, 10, 10]
+    assert not tracing.is_on()
