@@ -263,7 +263,8 @@ GRAD_RTOL = 1e-5  # x P
 # That order changes from run to run, so the bound is 5e-3: 66x the CPU
 # gap, 6x the card's.
 GRAD_E2E = 5e-3
-# Kernel launches per gradient evaluation (one forward, one backward).
+# Kernel launches per gradient evaluation (one forward, one backward;
+# ``with_gathers`` adds the gathers' backwards).
 TOY_GRAD_LAUNCHES = {"reweight_shifted": 2, "reweight_backward": 2}
 LARGE_GRAD_LAUNCHES = {"reweight_shared": 2, "reweight_shifted": 1, "reweight_backward": 3}
 # The experiment path (tutorial/experiment_files.py) at the toy's width.
@@ -835,6 +836,32 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
     full = {k: want.get(k, 0) for k in got}
     if got != full:
         raise AssertionError(f"{tag}: kernel launches {got} != {full}")
+
+
+#: Kernels that run once a gradient evaluation's backward.
+BACKWARD_KERNELS = ("reweight_backward", "gather_backward", "gather_backward_fallback")
+
+
+def with_gathers(model, per_eval: dict) -> dict:
+    """``per_eval`` with the gathers' backwards of one gradient evaluation of
+    ``model`` (``samples/gather.py``): a sample's norm product and, with
+    oscillation, its flat gather, each the kernel or, for a table too wide
+    for its blocks (an atmospheric one), ``index_add``."""
+    from mach3_tpu_torch.samples.gather import kernel_blocking
+    from mach3_tpu_torch.samples.sample import AtmoOscConfig
+
+    out = dict(per_eval, gather_backward=0, gather_backward_fallback=0)
+    for s in model.samples:
+        n_norm = (model.n_params if s.norm_applied is None else s.norm_applied.numel()) + 1
+        takes = [kernel_blocking(n_norm, True)]
+        if s.osc is not None:
+            n_osc = s.osc.chan_alpha.numel() * s.osc.e_grid.numel()
+            if isinstance(s.osc, AtmoOscConfig):
+                n_osc *= s.osc.layer_lengths.shape[-2]  # zeniths
+            takes.append(kernel_blocking(n_osc, False))
+        for kernel in takes:
+            out["gather_backward" if kernel else "gather_backward_fallback"] += 1
+    return out
 
 
 def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per_step: dict,
@@ -1498,7 +1525,7 @@ def posterior_grad_vs_plain(tag: str, model, thetas, per_eval: dict, smi: str) -
     lp = model.log_posterior_batch(t)
     (g,) = torch.autograd.grad(lp.sum(), t)
     torch.cuda.synchronize()
-    check_launches(f"{tag} gradient", dict(reweight.LAUNCHES), per_eval)
+    check_launches(f"{tag} gradient", dict(reweight.LAUNCHES), with_gathers(model, per_eval))
     lp_p = model.log_posterior_batch(t, plain=True)
     (g_p,) = torch.autograd.grad(lp_p.sum(), t)
     if not bool(torch.isfinite(g).all() and torch.isfinite(lp).all()):
@@ -1546,8 +1573,15 @@ def toy_minimize(model, smi: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n = res.n_evaluations
-    check_launches("toy:minimize", dict(reweight.LAUNCHES),
-                   {k: v * n for k, v in TOY_GRAD_LAUNCHES.items()})
+    # Hesse's Hessian of the plain route (which runs no reweight kernel): its
+    # first backward builds a graph, so each gather takes the plain version
+    # there, counted as a fallback; then a backward a parameter through that
+    # graph, each through the gathers' kernel.
+    per = with_gathers(model, TOY_GRAD_LAUNCHES)
+    want = {k: v * n for k, v in per.items()}
+    want["gather_backward"] += per["gather_backward"] * model.n_params
+    want["gather_backward_fallback"] += per["gather_backward"] + per["gather_backward_fallback"]
+    check_launches("toy:minimize", dict(reweight.LAUNCHES), want)
     if not res.success or not res.chi2 <= chi2_0:
         raise AssertionError(f"toy:minimize: {res.message}; chi2 {res.chi2:.6g} from {chi2_0:.6g}")
     if res.covariance is None or not np.isfinite(res.errors).all():
@@ -1689,7 +1723,8 @@ def hmc_timed(tag: str, mode: str, fit, steps: int, per_eval: dict, smi: str) ->
     n_grad = fit.n_grad_evals - n_grad0
     n_evals = n_grad + fit.n_logp_evals - n_logp0
     check_launches(f"{tag} {mode}", launches, {
-        k: v * (n_grad if k == "reweight_backward" else n_evals) for k, v in per_eval.items()})
+        k: v * (n_grad if k in BACKWARD_KERNELS else n_evals)
+        for k, v in with_gathers(fit.model, per_eval).items()})
     if not (np.isfinite(out["logp"]).all() and bool(torch.isfinite(fit.state.logp).all())):
         raise AssertionError(f"{tag} {mode}: non-finite logp")
     acc = float((fit.state.n_accepted - acc0).sum()) / (n_chains * steps)
@@ -3943,6 +3978,191 @@ def large_dist(model, thetas, names, dev, smi: str) -> dict:
             for k in ("reweight_shared", "reweight_shifted")}
 
 
+# The gathers' backward (csrc/gather_backward.cu via samples/gather.py) on
+# the reference-scale fixture's two beam samples at beam1det's event counts
+# (the port's own builder, tutorial/large.py, whose default draws select
+# 190,828 numu and 60,000 nue events; 43 splines; its atmospheric sample
+# left out), 128 chains. First
+# one gradient of log_posterior_batch through autograd, with the launch
+# counts set to 0 before it: 4 kernel launches, 0 by index_add. Then each
+# gather's backward as the autograd function runs it (norm_product_backward
+# / event_gather_backward, the wrapper's choice included) against the plain
+# version in f64 on the card (a slot's error over Σ|terms| of that slot, as
+# tests/test_torch_gather_cuda.py), timed beside its bound, its plain
+# version (f32: the other factors' product and index_add) and the library's
+# form before the kernel (index_add and, for the norm product, the product's
+# former backward before it).
+GATHER_SPLINES = 43
+GATHER_CHAINS = 128
+GATHER_REPS = 50
+GATHER_TOL = 1e-5
+GATHER_SEED = 2200000101
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph (after two on a side stream), one replay timed with CUDA events,
+    so that no host time of the calls enters."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _former_norm_backward(g, x, out, idx, n_slots):
+    """The norm product's backward as the port ran it before the kernel:
+    from the saved gathered factors x [C, E, W] and product out, the other
+    factors' product from running products (elementwise ops and a stack),
+    a where on zero factors, g·out/x, then index_add into the table."""
+    import torch
+
+    xs = x.unbind(-1)
+    before = [torch.ones_like(xs[0])]
+    for f in xs[:-1]:
+        before.append(before[-1] * f)
+    after = [torch.ones_like(xs[0])]
+    for f in xs[:0:-1]:
+        after.append(after[-1] * f)
+    others = torch.stack([b * a for b, a in zip(before, after[::-1])], -1)
+    gu = g.unsqueeze(-1)
+    gx = torch.where(x == 0, gu * others, gu * (out.unsqueeze(-1) / x))
+    return torch.zeros(g.shape[0], n_slots, device=g.device).index_add_(
+        1, idx.reshape(-1), gx.reshape(g.shape[0], -1))
+
+
+def gather_kernel_times(dev, smi: str) -> dict:
+    """[gather:*] The gathers' backward kernel on beam1det's shapes (see
+    GATHER_SPLINES): the main path's launches, then per gather the error,
+    kernel ms (launch and the partials' sum, as the backward runs it;
+    device time of graph replays, as the sampler runs it, since the
+    wrapper's host time exceeds the kernel's), bound (bytes: the cotangent,
+    the index, the table and the result once, over 3.35 TB/s; operations
+    over 67 TFLOP/s), the plain version's and the library's ms. Returns the
+    kernel table's row, ms and bounds summed over the four."""
+    import torch
+
+    from mach3_tpu_torch.core.device import take
+    from mach3_tpu_torch.fitters.model import FitModel
+    from mach3_tpu_torch.samples import gather as gm
+    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.tutorial.large import build_large
+
+    t0 = time.perf_counter()
+    exp = build_large(n_atmo=2_000, n_splines=GATHER_SPLINES, low_memory=True, device="cpu")
+    model = FitModel.build([exp.xsec, exp.osc], exp.samples[:2]).to(dev)
+    c = GATHER_CHAINS
+    gen = torch.Generator(device=dev).manual_seed(GATHER_SEED)
+    theta = model.prefit_vector().to(dev).expand(c, -1).clone()
+    theta = (theta + 1e-3 * torch.randn(theta.shape, dtype=theta.dtype, device=dev,
+                                        generator=gen)).requires_grad_(True)
+    model.log_posterior_batch(theta)  # builds the kernels
+    reset_launches()
+    (grad,) = torch.autograd.grad(model.log_posterior_batch(theta).sum(), theta)
+    torch.cuda.synchronize()
+    launches = dict(reweight.LAUNCHES)
+    if (launches["gather_backward"] != 4 or launches["gather_backward_fallback"] != 0
+            or not bool(torch.isfinite(grad).all())):
+        raise AssertionError(f"gather:launches: one gradient at {c} chains launched "
+                             f"{launches['gather_backward']} gathers' kernels and "
+                             f"{launches['gather_backward_fallback']} fallbacks, not 4 and 0, "
+                             f"or a gradient is not finite")
+    shapes = [(s.name, s.n_events, s.norm_idx.shape[1], s.norm_applied.numel() + 1,
+               s.osc.chan_alpha.numel() * s.osc.e_grid.numel()) for s in model.samples]
+    phase(f"[gather:launches] {shapes} (name, E, W, norm slots, oscillation slots), built in "
+          f"{time.perf_counter() - t0:.1f} s: one gradient at {c} chains, "
+          f"{launches['gather_backward']} launches, {launches['gather_backward_fallback']} "
+          f"fallbacks | {smi}")
+    row = dict(launches=launches["gather_backward"], ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, bound_by="bytes", max_abs_err=0.0)
+    with torch.no_grad():
+        for s in model.samples:
+            e = s.n_events
+            n_norm = s.norm_applied.numel() + 1
+            ext = 1.0 + 0.2 * torch.randn(c, n_norm, device=dev, generator=gen)
+            ext[:, -1] = 1.0
+            n_osc = s.osc.chan_alpha.numel() * s.osc.e_grid.numel()
+            table = torch.rand(c, n_osc, device=dev, generator=gen)
+            g = torch.randn(c, e, device=dev, generator=gen)
+            w = s.norm_idx.shape[1]
+            x = take(ext, 1, s.norm_idx)
+            out = x.prod(-1)
+            osc_shape = (c, n_osc)
+            cases = {
+                "norm": (w, n_norm, s.norm_idx,
+                         lambda: gm.norm_product_backward(g, ext, s.norm_idx),
+                         lambda: gm.norm_product_backward_ref(g, ext, s.norm_idx),
+                         lambda: _former_norm_backward(g, x, out, s.norm_idx, n_norm),
+                         lambda gg, xx: gm.norm_product_backward_ref(gg, xx, s.norm_idx),
+                         ext),
+                "osc": (1, n_osc, s.osc.flat_idx,
+                        lambda: gm.event_gather_backward(g, osc_shape, torch.float32,
+                                                         s.osc.flat_idx),
+                        lambda: gm.event_gather_backward_ref(g, osc_shape, torch.float32,
+                                                             s.osc.flat_idx),
+                        lambda: gm.event_gather_backward_ref(g, osc_shape, torch.float32,
+                                                             s.osc.flat_idx),
+                        lambda gg, xx: gm.event_gather_backward_ref(gg, osc_shape, gg.dtype,
+                                                                    s.osc.flat_idx),
+                        table),
+            }
+            for kind, (width, n_slots, idx, kern, plain, library, ref, tab) in cases.items():
+                before = dict(reweight.LAUNCHES)
+                got = kern()
+                again = kern()
+                if (reweight.LAUNCHES["gather_backward"] - before["gather_backward"] != 2
+                        or reweight.LAUNCHES["gather_backward_fallback"]
+                        != before["gather_backward_fallback"]):
+                    raise AssertionError(f"gather:{s.name}:{kind}: the wrapper did not launch "
+                                         f"the kernel")
+                want = ref(g.double(), tab.double())
+                scale = ref(g.double().abs(), tab.double().abs())
+                err = float(((got.double() - want).abs() / scale.clamp_min(1e-300)).max())
+                err_plain = float(((plain().double() - want).abs()
+                                   / scale.clamp_min(1e-300)).max())
+                if err > GATHER_TOL or not torch.equal(got, again):
+                    raise AssertionError(f"gather:{s.name}:{kind}: error {err:.3e} > "
+                                         f"{GATHER_TOL} or a second call differs")
+                ms = graph_ms(kern, GATHER_REPS)
+                plain_ms = graph_ms(plain, GATHER_REPS)
+                library_ms = graph_ms(library, GATHER_REPS)
+                chains, events = gm.kernel_blocking(n_slots, kind == "norm")
+                nbytes = (4 * c * e + 8 * e * width
+                          + 4 * c * n_slots * (2 if kind == "norm" else 1))
+                flops = c * e * (4 * width if kind == "norm" else 1)
+                bound_ms = 1e3 * max(nbytes / 3.35e12, flops / 67e12)
+                phase(f"[gather:kernel-time] {s.name} {kind} (C={c} E={e} W={width} "
+                      f"S={n_slots}, {chains} chains x {events} events a block): kernel "
+                      f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of "
+                      f"it), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms; error / "
+                      f"Σ|terms| kernel {err:.2e}, plain {err_plain:.2e}; bit-identical "
+                      f"twice | {smi}")
+                row["ms"] += ms
+                row["plain_ms"] += plain_ms
+                row["library_ms"] += library_ms
+                row["bound_ms"] += bound_ms
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+    phase(f"[gather:kernel-time] all four: kernel {row['ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms; {row['launches']} launches a gradient | {smi}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3972,6 +4192,7 @@ def main() -> int:
     if sys.argv[1:] == ["--kernel-times"]:
         toy_path(dev, smi, quick=True)
         large_grad_kernels(large_path(dev, smi, quick=True)[1], dev, smi)
+        gather_kernel_times(dev, smi)
         print(smi)
         return 0
     if sys.argv[1:]:
@@ -3996,6 +4217,8 @@ def main() -> int:
     results["K6b"] = dict(k6, max_abs_err=max(v[1] for v in every.values()))  # ḡ_t
     del model
     torch.cuda.empty_cache()
+    gather = gather_kernel_times(dev, smi)
+    torch.cuda.empty_cache()
     l7_pred = large700_path(dev, smi)
     results["K2"]["launches"] += l7_pred["reweight_shared"]
     results["K3"]["launches"] += l7_pred["reweight_shifted"]
@@ -4005,7 +4228,8 @@ def main() -> int:
          "source": f"mach3_tpu_torch/csrc/{SOURCES[k]}.cu", "replaces": TPU_KERNELS[k],
          "library_ms": None, **{f: v for f, v in results[k].items() if f != "responses"}}
         for k in TPU_KERNELS
-    ]}))
+    ] + [{"name": "gather_backward", "route": "cuda",
+          "source": "mach3_tpu_torch/csrc/gather_backward.cu", "replaces": None, **gather}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,6 +1,6 @@
 """The device a builder puts its model on: the card, unless the caller asks
-for the CPU; device fills, and a gather and a product whose backward a CUDA
-graph can hold."""
+for the CPU; device fills, and a gather whose backward a CUDA graph can
+hold."""
 from __future__ import annotations
 
 import numpy as np
@@ -40,39 +40,3 @@ def take(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
     dim = dim % x.dim()
     out = x.index_select(dim, index.reshape(-1))
     return out.reshape(x.shape[:dim] + index.shape + x.shape[dim + 1:])
-
-
-class _LastAxisProduct(torch.autograd.Function):
-    """``x.prod(-1)`` whose backward reads nothing on the host. ``prod``'s
-    own asks the host whether any factor is zero, which a CUDA graph cannot
-    hold; this one takes its formula, grad · result / x, where x ≠ 0 (the
-    same bits) and the product of the other factors where x = 0."""
-
-    @staticmethod
-    def forward(ctx, x):
-        out = x.prod(-1)
-        ctx.save_for_backward(x, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        x, out = ctx.saved_tensors
-        # The other factors' product from running products from both ends,
-        # as elementwise multiplies: the axis is short (a few norms), and a
-        # scan along it takes hundreds of times longer on the card.
-        xs = x.unbind(-1)
-        before = [torch.ones_like(xs[0])]
-        for f in xs[:-1]:
-            before.append(before[-1] * f)
-        after = [torch.ones_like(xs[0])]
-        for f in xs[:0:-1]:
-            after.append(after[-1] * f)
-        others = torch.stack([b * a for b, a in zip(before, after[::-1])], -1)
-        g = grad.unsqueeze(-1)
-        return torch.where(x == 0, g * others, g * (out.unsqueeze(-1) / x))
-
-
-def prod_last(x: torch.Tensor) -> torch.Tensor:
-    """The product over the last axis, ``x.prod(-1)``, with a backward that
-    a CUDA graph can hold."""
-    return _LastAxisProduct.apply(x)

@@ -24,6 +24,7 @@ Random draws come from one ``torch.Generator`` on the chains' device
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable
 
@@ -406,6 +407,14 @@ class GraphChunk:
             self.graph.register_generator_state(gen)
         static = {k: v for k, v in leaves.items() if isinstance(v, torch.Tensor)}
         self._seen = tracing.CaptureCounts()
+        # A dead reference cycle holding CUDA objects (an earlier fitter and
+        # its graphs, streams and events) must not be collected while this
+        # graph captures: releasing them there invalidates the capture.
+        # Collect now and keep the cyclic collector off until the capture
+        # ends (torch's capture no longer collects first).
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph), tracing.stamping(name, external=True) as stamps:
                 new, out = step_fn(model, state)
@@ -431,6 +440,8 @@ class GraphChunk:
                 "operation a graph cannot hold inside the step); construct the fitter with "
                 "graph=False to run the eager loop") from err
         finally:
+            if collecting:
+                gc.enable()
             self._seen.close()
         self.stamps = stamps
         self.launches = self._seen.of(reweight.LAUNCHES)

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ..core import tracing
-from ..core.device import prod_last, take
+from ..core.device import take
 from ..core.precision import ATYPE, FTYPE
 from ..osc.prob import (
     OscParams,
@@ -50,6 +50,7 @@ from ..splines.reweight import (
     fused_reweight_histogram_shifted,
 )
 from .binning import NonUniformBinning, PolygonBinning, SampleBinning, histogram
+from .gather import event_gather, norm_product
 from .routing import KernelRoute
 from .teststats import TestStatistic, get_test_stat_fn
 
@@ -168,7 +169,9 @@ class OscConfig(nn.Module):
     def weights(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
         """Per-event oscillation weights [C, E] f32 (one flat gather)."""
         chan = self.chan_table(thetas, grids)
-        w = chan.reshape(chan.shape[0], -1).index_select(1, self.flat_idx).to(FTYPE)
+        # The table in f32 before the gather (the same values as after it):
+        # the gathers' backward kernel sums f32.
+        w = event_gather(chan.reshape(chan.shape[0], -1).to(FTYPE), self.flat_idx)
         return torch.where(self.nc_mask, 1.0, w)
 
     def event_sort_key(self) -> torch.Tensor:
@@ -272,7 +275,7 @@ class AtmoOscConfig(nn.Module):
 
     def weights(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
         """Per-event oscillation weights [C, E] f32 (one flat gather)."""
-        w = self.chan_table(thetas, grids).index_select(1, self.event_flat_idx).to(FTYPE)
+        w = event_gather(self.chan_table(thetas, grids).to(FTYPE), self.event_flat_idx)
         return torch.where(self.nc_mask, 1.0, w)
 
     def event_sort_key(self) -> torch.Tensor:
@@ -451,12 +454,10 @@ class SampleModel(nn.Module):
 
     def _norm_weights(self, thetas: torch.Tensor) -> torch.Tensor:
         """[C, E] product of each event's matched norm values (exact zero for
-        a zero norm; the reference's ``norm_pointers`` product)."""
-        # index_select (``take``) here and in the oscillation gathers: its
-        # backward is an atomic index_add, while that of advanced indexing
-        # sorts the ~E x W repeated indices (72 of 110 ms of device time per
-        # gradient evaluation of the large fixture on an H100).
-        return prod_last(take(self._norm_ext_batch(thetas), 1, self.norm_idx))
+        a zero norm; the reference's ``norm_pointers`` product): an
+        ``index_select`` and a product forward, the gathers' kernel backward
+        (``samples/gather.py``)."""
+        return norm_product(self._norm_ext_batch(thetas), self.norm_idx)
 
     def _osc_weights(self, thetas: torch.Tensor, osc_grids: tuple | None = None) -> torch.Tensor:
         """[C, E] f32; ``osc_grids`` injects (nu, antinu) grids shared across

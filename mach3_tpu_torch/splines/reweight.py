@@ -95,12 +95,15 @@ MAX_SMEM = 232448
 BIN_MAP_BYTES = 116
 
 #: Launches of each CUDA kernel since its count was last set to 0, the
-#: backward of ``splines/grad.py`` included (an entry of the tracing
-#: registry, ``core.tracing.counters``). Only a CUDA launch adds to a count;
-#: the plain versions do not.
+#: backwards of ``splines/grad.py`` and ``samples/gather.py`` included (an
+#: entry of the tracing registry, ``core.tracing.counters``). Only a CUDA
+#: launch adds to a count; the plain versions do not, but for
+#: ``gather_backward_fallback``: the gathers' backwards on the card that took
+#: ``index_add`` by their shape.
 LAUNCHES = tracing.counters("launches", ("reweight_shifted", "reweight_shared",
                                          "reweight_perchain", "reweight_perchain_blockdiag",
-                                         "reweight_backward"))
+                                         "reweight_backward", "gather_backward",
+                                         "gather_backward_fallback"))
 #: Histogram forms of ``fused_reweight_histogram``.
 HIST_FORMS = ("maskreduce", "blockdiag")
 #: Event tiles a block of the per-chain kernel walks: the atomics form

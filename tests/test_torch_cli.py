@@ -120,6 +120,10 @@ def test_profile_writes_a_trace(experiment, tmp_path):
     program's spans in it, and the program's own spans, counters and chunk
     records (``core/tracing.py``) in ``spans.json``."""
     out, prof = str(tmp_path / "c.npz"), str(tmp_path / "prof")
+    # spans.json holds the process's span totals: count this run's chunks
+    # from what earlier tests in the process left.
+    chunks_before = tracing.totals().get("runner.chunk")
+    chunks_before = 0 if chunks_before is None else chunks_before.count
     assert cli_mcmc.main(_argv(experiment, 30, 10, ["-o", out, "--profile", prof])) == 0
     assert os.path.getsize(os.path.join(prof, "trace.json")) > 0
     assert load_chain(out)[0]["theta"].shape[0] == 30
@@ -129,7 +133,7 @@ def test_profile_writes_a_trace(experiment, tmp_path):
     with open(os.path.join(prof, "spans.json")) as f:
         spans = json.load(f)
     assert set(spans) == {"spans", "counters", "chunks"}
-    assert spans["spans"]["runner.chunk"]["count"] == 3
+    assert spans["spans"]["runner.chunk"]["count"] - chunks_before == 3
     assert "build.sample" in spans["spans"] and "launches" in spans["counters"]
     assert [c["steps"] for c in spans["chunks"][-3:]] == [10, 10, 10]
     assert not tracing.is_on()

@@ -1,10 +1,10 @@
 """HMC, MALA and ChEES-HMC chunks as replayed CUDA graphs, on the card.
 
 Every test here needs a CUDA device and nvcc and skips without one. Each
-gradient evaluation runs K1 forward (float atomics into the histograms)
-and the backward kernel plus the gathers' ``index_add`` backward (atomics
-again), so a graph step and an eager step from the same state agree to the
-likelihood's last bits, not bit for bit. The tests shadow each graph step
+gradient evaluation runs K1 forward (float atomics into the histograms),
+the backward kernel and the gathers' backward kernel, so a graph step and
+an eager step from the same state agree to the likelihood's last bits,
+not bit for bit. The tests shadow each graph step
 with one eager step from the graph's state before it: the draws (the
 generators' states) must match exactly; a chain may decide differently
 only where its two log α differ by at most NEAR_TIE; θ of the others
@@ -39,7 +39,10 @@ MODES = {
     "chees_static": dict(adapt_trajectory=True, max_leapfrog=6, initial_traj_length=0.06,
                          chees_static_bound=True),
 }
-PER_EVAL = {"reweight_shifted": 2, "reweight_backward": 2}  # the toy's two samples
+# The toy's two samples: a forward and a backward kernel each, and the
+# backwards of each sample's two gathers (its norm product and its
+# oscillation weights).
+PER_EVAL = {"reweight_shifted": 2, "reweight_backward": 2, "gather_backward": 4}
 
 
 @pytest.fixture()

@@ -289,10 +289,10 @@ def test_gradient_evaluation_reads_nothing_on_the_host(name, tmp_path, monkeypat
 
 @pytest.mark.parametrize("zeros", [False, True])
 def test_graph_safe_gather_and_product(zeros):
-    """``core.device.take`` equals advanced indexing, forward and backward;
-    ``prod_last`` equals ``prod(-1)`` and, without a zero factor, its
-    gradient bit for bit (with zeros, the product of the other factors)."""
-    from mach3_tpu_torch.core.device import prod_last, take
+    """``core.device.take`` equals advanced indexing, forward and backward,
+    with and without zero entries. (The product over the last axis is the
+    norm product of ``samples/gather.py``, in ``tests/test_torch_gather.py``.)"""
+    from mach3_tpu_torch.core.device import take
 
     gen = torch.Generator().manual_seed(3)
     x = torch.randn(4, 6, 3, generator=gen)
@@ -304,11 +304,3 @@ def test_graph_safe_gather_and_product(zeros):
     g = torch.randn(4, 3, 2, 3, generator=gen)
     assert torch.equal(torch.autograd.grad(take(a, 1, idx), a, g)[0],
                        torch.autograd.grad(b[:, idx], b, g)[0])
-    g = torch.randn(4, 6, generator=gen)
-    assert torch.equal(prod_last(a), b.prod(-1))
-    got, want = (torch.autograd.grad(f, t, g)[0] for f, t in ((prod_last(a), a), (b.prod(-1), b)))
-    if zeros:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-    else:
-        assert torch.equal(got, want)
-    assert torch.autograd.gradcheck(prod_last, (x.double().requires_grad_(True),))
