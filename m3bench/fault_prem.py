@@ -1,5 +1,4 @@
-"""The fault that keeps the atmospheric configurations out of the benchmark:
-the program's PREM paths.
+"""A probe of the program's PREM paths against the reference's.
 
     python3 -m m3bench.fault_prem [--config large] [--seeds 1 2 3] [--chains 16]
 
@@ -8,7 +7,7 @@ For each seed it builds a configuration with atmospheric samples
 program's model; then at ``--chains`` points near the prefit point it
 prints each sample's NLL gap between the program and the reference, and
 between the program and the reference fed the program's own layer paths
-(the witness: it agrees with the program where the reference does not).
+(the witness: it isolates the paths from the rest of the likelihood).
 The geometry is printed beside it: per zenith, the density-weighted path
 length ∫ Ye·ρ dl of the program's layers and of the reference's."""
 from __future__ import annotations

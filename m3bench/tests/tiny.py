@@ -18,12 +18,16 @@ CELLS = ("tiny.mr2t2", "tiny.chees")
 
 
 def make_copy(tmp: Path, base: str = "beam2det") -> Path:
-    """The copy under ``tmp``; returns its BENCHMARK.json."""
+    """The copy under ``tmp``, its configuration ``base`` cut to a few
+    thousand events (atmospheric ones too, where ``base`` has them);
+    returns its BENCHMARK.json."""
     shutil.copytree(REPO / "m3bench", tmp / "m3bench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     spec = json.loads((REPO / "m3bench" / "configs" / f"{base}.json").read_text())
     spec.update(name="tiny", n_numu=1500, n_nue=500, n_beam_generated=4000)
+    if "n_atmo" in spec:
+        spec["n_atmo"] = 1500
     cfg = tmp / "m3bench" / "configs"
     (cfg / "tiny.json").write_text(json.dumps(spec))
     (cfg / "tiny.py").write_text(f"from .{base} import build  # noqa: F401\n")
