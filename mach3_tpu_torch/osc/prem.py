@@ -6,6 +6,15 @@ cut into segments through concentric density shells: the (layer_lengths,
 layer_rho) inputs of :func:`mach3_tpu_torch.osc.prob.probabilities_layered`.
 The geometry is numpy, computed once per zenith binning on the host, as in
 the JAX package; only the per-step 3-flavour evolution runs on the device.
+
+The way up departs from the JAX package on purpose: its
+``path_through_earth`` lists every crossed radius but the innermost there,
+so the innermost shell's exit is lost and the shell outside it runs on
+(9 of 20 zeniths of a -0.99..0.99 grid lack a layer). Here the way up lists
+every crossed radius but the surface's, as the way down does, and a path is
+air and then a palindrome of 2k - 1 shells. ``tests/test_torch_prem_reference.py``
+holds the paths, probabilities and atmospheric likelihoods to the
+benchmark's plain reference (``m3bench/reference/osc.py``).
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ def path_through_earth(
 
     cos_zenith: [NZ] (cosZ = 1 down-going from above, -1 up-going through the
     core). Returns (lengths [NZ, NL], rho [NZ, NL], ye [NZ, NL]) zero-padded;
-    segments ordered from production to detector.
+    segments ordered from production to detector: air, then each crossed
+    shell going in, the innermost once, and each going out.
     """
     cos_zenith = np.atleast_1d(np.asarray(cos_zenith, np.float64))
     r_det = EARTH_RADIUS_KM - detector_depth_km
@@ -68,8 +78,10 @@ def path_through_earth(
             s_air = s_total - (np.sqrt(EARTH_RADIUS_KM**2 - b**2) - r_det * cz)
             if s_air > 0:
                 segs.append((s_air, 0.0, 0.5))
-            # The chord crosses every shell with radius > b: boundaries on the
-            # way down, then mirrored on the way up to the detector.
+            # The chord crosses every shell with radius > b: the boundaries
+            # inside the surface on the way down (outermost first), then the
+            # same radii mirrored on the way up to the detector. The innermost
+            # crossed shell is entered and left once.
             crossing = radii[radii > b]
             half = {r: np.sqrt(r**2 - b**2) for r in crossing}
             surf_half = np.sqrt(EARTH_RADIUS_KM**2 - b**2)
@@ -78,7 +90,7 @@ def path_through_earth(
             shells_desc = sorted(crossing)[::-1]  # outermost first
             for r in shells_desc[1:]:
                 bounds.append(surf_half - half[r])
-            for r in sorted(crossing)[1:]:
+            for r in sorted(crossing)[:-1]:
                 bounds.append(surf_half + half[r])
             bounds = sorted(set(b_ for b_ in bounds if 0.0 < b_ < det_pos))
             positions = [0.0] + bounds + [det_pos]

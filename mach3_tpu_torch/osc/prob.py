@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.device import as_device_tensor, take
 from ..core.precision import ATYPE
 from .kernels import c_abs2, evolution_from_eigensystem, herm_eigensystem, herm_evolution
@@ -99,11 +100,13 @@ def _evolve_layers(eig: dict, ll_b: torch.Tensor, ri_b: torch.Tensor, n_batch: i
     dozen device ops: the step is bound by the host's launches. The JAX
     package multiplies the first operator into the identity, which changes
     no bit; the matmuls sum in another order than its unrolled products
-    (f32 rounding)."""
+    (f32 rounding). The products count as ``osc_layer_products`` in
+    ``tracing.PROGRAM``."""
     eg = {key: take(v, n_batch, ri_b) for key, v in eig.items()}
     op_r, op_i = evolution_from_eigensystem(eg, ll_b[..., None])  # [*batch, *lead, NL, NE, 3, 3]
     op = torch.complex(op_r, op_i)
     amp = op[..., 0, :, :, :]
+    tracing.count("osc_layer_products", (ll_b.shape[-1] - 1) * amp[..., 0, 0].numel())
     for k in range(1, ll_b.shape[-1]):
         amp = op[..., k, :, :, :] @ amp
     return amp.real, amp.imag

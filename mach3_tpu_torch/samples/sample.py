@@ -248,7 +248,9 @@ class AtmoOscConfig(nn.Module):
     def prob_grids(self, thetas: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(nu, antinu) probability grids [C, NZ, NE, 3, 3], averaged over
         the production heights when there are several; shareable between
-        samples with equal ``share_signature``."""
+        samples with equal ``share_signature``. Each call counts one
+        ``osc_layered_grids`` in ``tracing.PROGRAM``."""
+        tracing.count("osc_layered_grids")
         pars = OscParams.from_array(take(thetas, 1, self.osc_param_idx).to(ATYPE))
 
         def one(antineutrino):

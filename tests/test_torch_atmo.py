@@ -2,7 +2,11 @@
 ``probabilities_layered``, ``AtmoOscConfig``, ``build_atmo_osc_config``)
 vs the JAX package.
 
-* PREM path geometry is numpy on both sides: equal to the bit.
+* PREM path geometry (numpy): a geometry check of the port's own. The port
+  repairs the way up, which the JAX package's paths get wrong (they lose
+  the innermost shell's exit), so the JAX side below is built on the port's
+  paths (``jax_prem.py``); ``test_torch_prem_reference.py`` holds the paths
+  to the benchmark's plain reference.
 * Probabilities through the layered earth, f32 matrix work with f64
   phases (the atmospheric default), chain-batched in the port: within
   5e-6 absolute — f32 3x3 products summed in another order (the port
@@ -17,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_prem import repaired_paths
 
 from mach3_tpu.osc import prem as jprem
 from mach3_tpu.osc import prob as jprob
@@ -47,14 +52,36 @@ def _z_groups(lengths):
 
 
 def test_path_through_earth_is_jax_s():
+    """The chord's geometry: the segments add up to the chord from the
+    production point to the detector; up-going, one air segment and then
+    every crossed shell twice but the innermost, which is crossed once, its
+    densities (and, for a detector at the surface, its lengths) mirrored
+    about the chord's midpoint; down-going, one air segment. The name is
+    kept for the test's id: the paths are no longer JAX's, whose way up
+    loses the innermost shell's exit."""
+    cosz = np.concatenate([COSZ, [-1.0, -0.5]])
+    radii = np.array([s[0] for s in prem.PREM_COARSE])
+    rhos = [s[1] for s in prem.PREM_COARSE]
     for h, depth in ((15.0, 0.0), (25.0, 1.0)):
-        got = prem.path_through_earth(COSZ, production_height_km=h, detector_depth_km=depth)
-        want = jprem.path_through_earth(COSZ, production_height_km=h, detector_depth_km=depth)
-        for g, w in zip(got, want):
-            assert np.array_equal(g, w)
-    lengths = got[0]
-    assert (lengths[COSZ >= 0] > 0).sum(1).max() == 1  # down-going: one air segment
-    assert (lengths[COSZ < 0] > 0).sum(1).max() > 5  # through the core
+        lengths, rho, ye = prem.path_through_earth(cosz, production_height_km=h,
+                                                   detector_depth_km=depth)
+        r_det, r_prod = prem.EARTH_RADIUS_KM - depth, prem.EARTH_RADIUS_KM + h
+        chord = np.sqrt(r_prod**2 - r_det**2 * (1 - cosz**2)) - r_det * cosz
+        np.testing.assert_allclose(lengths.sum(1), chord, rtol=1e-12)
+        for cz, ls, rs, ys in zip(cosz, lengths, rho, ye):
+            n = int((ls > 0).sum())
+            assert (ls[n:] == 0).all() and rs[0] == 0.0 and ys[0] == 0.5  # air first
+            if cz >= 0:
+                assert n == 1
+                continue
+            earth_l, earth_rho = ls[1:n], list(rs[1:n])
+            crossed = radii[radii > r_det * np.sqrt(1 - cz**2)]
+            assert earth_rho == earth_rho[::-1]
+            assert [earth_rho.count(r) for r in rhos[-len(crossed):]] == [1] + [2] * (
+                len(crossed) - 1)
+            if depth == 0.0:
+                np.testing.assert_allclose(earth_l, earth_l[::-1], rtol=1e-9)
+        assert (lengths[cosz < 0] > 0).sum(1).max() == 2 * len(radii)  # through the core
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["all_layers", "z_groups"])
@@ -83,8 +110,9 @@ def test_probabilities_layered_match_jax(grouped, anti):
 def test_atmospheric_probabilities_wrapper():
     got = prem.atmospheric_probabilities(
         prob.OscParams.from_array(torch.from_numpy(THETAS[0])), E_GRID, COSZ).numpy()
-    want = np.asarray(jprem.atmospheric_probabilities(
-        jprob.OscParams.from_array(jnp.asarray(THETAS[0])), E_GRID, COSZ))
+    with repaired_paths():
+        want = np.asarray(jprem.atmospheric_probabilities(
+            jprob.OscParams.from_array(jnp.asarray(THETAS[0])), E_GRID, COSZ))
     assert got.shape == (len(COSZ), len(E_GRID), 3, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)  # f64 on both sides
 
@@ -111,7 +139,8 @@ def test_atmo_osc_config_matches_jax(case):
     if case == "height_average":
         kw.update(HEIGHTS)
     cfg = build_atmo_osc_config(ev, **kw)
-    jcfg = jbuild_atmo(jev, **kw)
+    with repaired_paths():
+        jcfg = jbuild_atmo(jev, **kw)
     for f in ("e_grid", "layer_lengths", "layer_rho", "rho_unique", "rho_idx", "event_flat_idx",
               "chan_alpha", "chan_beta", "chan_anti", "nc_mask", "osc_param_idx"):
         assert np.array_equal(getattr(cfg, f).numpy(), np.asarray(getattr(jcfg, f))), f

@@ -5,6 +5,8 @@ package's, at the CPU-test size of ``tests/test_large.py`` (4,000 / 1,500 /
 * Same fixture: the port draws the same numpy random numbers, so events,
   norm matches, spline tables and oscillation indices are equal before the
   shared route's event layout (both built on the plain route), exactly.
+  The JAX side is built on the port's PREM paths (``jax_prem.py``: the port
+  repairs the way up, which the JAX package's paths get wrong).
 * Layout: the shared-route samples hold JAX's events reordered and padded
   with zero-weight copies; every plan lists exactly its tiles' active
   parameters (``test_torch_shared.py`` holds the helpers).
@@ -27,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_prem import repaired_paths
 
 from mach3_tpu.fitters.model import FitModel as JFitModel
 from mach3_tpu.samples.binning import histogram as jhistogram
@@ -58,14 +61,16 @@ def port_plain():
 
 @pytest.fixture(scope="module")
 def jax_plain():
-    return jbuild_large(**SIZE, use_pallas=False, asimov=False)
+    with repaired_paths():
+        return jbuild_large(**SIZE, use_pallas=False, asimov=False)
 
 
 @pytest.fixture(scope="module")
 def jax_routed(port):
     """JAX's Pallas-routed (sorted, padded) model carrying the port's Asimov
     data, so both sides score the same observed histograms."""
-    j = jbuild_large(**SIZE, use_pallas=True, asimov=False)
+    with repaired_paths():
+        j = jbuild_large(**SIZE, use_pallas=True, asimov=False)
     samples = [s.with_data(t.data.numpy()) for s, t in zip(j.samples, port.samples)]
     return JFitModel.build([j.xsec, j.osc], samples)
 

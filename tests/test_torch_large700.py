@@ -49,12 +49,15 @@ def port_plain():
 
 @pytest.fixture(scope="module")
 def jax_model(port):
-    """JAX's model (its XLA route on the CPU, events unsorted) carrying the
-    port's Asimov data, so both sides score the same observed histograms."""
+    """JAX's model (its XLA route on the CPU, events unsorted) on the port's
+    PREM paths (``jax_prem.py``), carrying the port's Asimov data, so both
+    sides score the same observed histograms."""
+    from jax_prem import repaired_paths
     from mach3_tpu.fitters.model import FitModel as JFitModel
     from mach3_tpu.tutorial.large import build_large700 as jbuild_large700
 
-    j = jbuild_large700(**SIZE, asimov=False)
+    with repaired_paths():
+        j = jbuild_large700(**SIZE, asimov=False)
     samples = [s.with_data(t.data.numpy()) for s, t in zip(j.samples, port.samples)]
     return j, JFitModel.build([j.xsec, j.osc], samples)
 

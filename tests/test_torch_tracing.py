@@ -1,6 +1,8 @@
 """The program's tracing (``mach3_tpu_torch/core/tracing.py``) on the CPU:
 spans and their parents and chunk ids in the eager loop, the counter
-registry and the capture's replay accounting, chains that tracing leaves
+registry and the capture's replay accounting (the program's own counts:
+its device work alone), the layered oscillation's stamp after every
+constant-density grid, chains that tracing leaves
 bit for bit as they were, no ``record_function`` and no host read while it
 is off, and the model build's set-up spans (``--profile``'s ``spans.json``
 is ``test_torch_cli.py``'s).
@@ -91,6 +93,51 @@ def test_capture_counts_are_replayed():
     assert entry["a"] == 6 and reweight.LAUNCHES["reweight_shifted"] == before[
         "reweight_shifted"] + 3
     assert seen.of(tracing.PROGRAM) == {}
+
+
+def test_capture_replays_the_programs_device_work():
+    """Of the program's own counts a capture takes back out, and each
+    replay adds again, only the layered oscillation's work."""
+    before = dict(tracing.PROGRAM)
+    seen = tracing.CaptureCounts()
+    tracing.count("osc_layered_grids")
+    tracing.count("osc_layer_products", 40)
+    tracing.count("graph_replays")
+    seen.close()
+    after = {k: tracing.PROGRAM.get(k, 0) - before.get(k, 0) for k in tracing.PROGRAM}
+    assert {k: v for k, v in after.items() if v} == {"graph_replays": 1}
+    assert seen.of(tracing.PROGRAM) == {"osc_layered_grids": 1, "osc_layer_products": 40}
+    for _ in range(3):
+        seen.replay()
+    assert tracing.PROGRAM["osc_layer_products"] == before.get("osc_layer_products", 0) + 120
+    assert tracing.PROGRAM["osc_layered_grids"] == before.get("osc_layered_grids", 0) + 3
+
+
+def test_layered_grids_follow_the_constant_density_ones(monkeypatch):
+    """The stamp ``osc_layered`` falls between the last constant-density
+    grid and the first layered one, whatever the samples' order; a model
+    without a layered grid takes no such stamp."""
+    from mach3_tpu_torch.fitters.model import FitModel
+    from mach3_tpu_torch.samples.sample import AtmoOscConfig, OscConfig
+    from mach3_tpu_torch.tutorial.large import build_large
+
+    model = build_large(n_numu=600, n_nue=300, n_atmo=600, e_grid_size=10, atmo_e_grid_size=6,
+                        atmo_cosz_grid_size=6, asimov=False, device="cpu").model
+    marks = []
+    monkeypatch.setattr(tracing, "stamp", marks.append)
+    for cls, name in ((OscConfig, "beam"), (AtmoOscConfig, "layered")):
+        def grids(self, thetas, real=cls.prob_grids, name=name):
+            marks.append(name)
+            return real(self, thetas)
+        monkeypatch.setattr(cls, "prob_grids", grids)
+    th = model.prefit_vector()[None]
+    samples = list(model.samples)  # numu_beam, nue_beam (one beam grid), atmo
+    for order, want in ((samples, ["osc", "beam", "osc_layered", "layered"]),
+                        (samples[::-1], ["osc", "beam", "osc_layered", "layered"]),
+                        (samples[:2], ["osc", "beam"])):
+        marks.clear()
+        FitModel(model.priors, order, model.slices, model.flat)._shared_osc_tables(th)
+        assert marks == want
 
 
 def test_registry_holds_the_launches_and_a_samplers_evaluations(toy):
