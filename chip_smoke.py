@@ -347,7 +347,7 @@ L7_CHAINS = 128
 L7_NLL_CHAINS = (32, 128)
 L7_NLL_ITERS = 10
 L7_ROUTES = ["shared", "shifted", "shared", "shifted", "shared", "shared", "shared"]
-L7_LAUNCHES = {"reweight_shared": 5, "reweight_shifted": 2}
+L7_LAUNCHES = {"reweight_shared": 5, "reweight_shifted": 2, "osc_layered": 1}
 L7_ADAPTIVE = dict(adaptive=True, adaption_mode="pooled", adaption_start_update=30,
                    adaption_start_throw=150, adaption_update_step=50)
 L7_CHUNK = 100
@@ -838,19 +838,34 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{tag}: kernel launches {got} != {full}")
 
 
-#: Kernels that run once a gradient evaluation's backward.
-BACKWARD_KERNELS = ("reweight_backward", "gather_backward", "gather_backward_fallback")
+#: Kernels that run once a gradient evaluation's backward, and the layered
+#: grids that a gradient evaluation's forward takes by the plain path.
+BACKWARD_KERNELS = ("reweight_backward", "gather_backward", "gather_backward_fallback",
+                    "osc_layered_fallback")
+
+
+def layered_grids_of(model) -> int:
+    """The distinct layered (atmospheric) grids one evaluation of ``model``
+    computes (``FitModel._shared_osc_tables``): one launch of the layered
+    kernel each on a forward-only evaluation, one ``osc_layered_fallback``
+    each on a gradient evaluation."""
+    from mach3_tpu_torch.samples.sample import AtmoOscConfig
+
+    return len({g for g, s in zip(model.osc_groups, model.samples)
+                if g >= 0 and isinstance(s.osc, AtmoOscConfig)})
 
 
 def with_gathers(model, per_eval: dict) -> dict:
     """``per_eval`` with the gathers' backwards of one gradient evaluation of
     ``model`` (``samples/gather.py``): a sample's norm product and, with
     oscillation, its flat gather, each the kernel or, for a table too wide
-    for its blocks (an atmospheric one), ``index_add``."""
+    for its blocks (an atmospheric one), ``index_add``; and its layered
+    grids, each by the plain path (``osc_layered_fallback``)."""
     from mach3_tpu_torch.samples.gather import kernel_blocking
     from mach3_tpu_torch.samples.sample import AtmoOscConfig
 
-    out = dict(per_eval, gather_backward=0, gather_backward_fallback=0)
+    out = dict(per_eval, gather_backward=0, gather_backward_fallback=0,
+               osc_layered_fallback=layered_grids_of(model))
     for s in model.samples:
         n_norm = (model.n_params if s.norm_applied is None else s.norm_applied.numel()) + 1
         takes = [kernel_blocking(n_norm, True)]
@@ -1722,9 +1737,10 @@ def hmc_timed(tag: str, mode: str, fit, steps: int, per_eval: dict, smi: str) ->
     launches = dict(reweight.LAUNCHES)
     n_grad = fit.n_grad_evals - n_grad0
     n_evals = n_grad + fit.n_logp_evals - n_logp0
-    check_launches(f"{tag} {mode}", launches, {
-        k: v * (n_grad if k in BACKWARD_KERNELS else n_evals)
-        for k, v in with_gathers(fit.model, per_eval).items()})
+    want = {k: v * (n_grad if k in BACKWARD_KERNELS else n_evals)
+            for k, v in with_gathers(fit.model, per_eval).items()}
+    want["osc_layered"] = layered_grids_of(fit.model) * (n_evals - n_grad)  # forward-only
+    check_launches(f"{tag} {mode}", launches, want)
     if not (np.isfinite(out["logp"]).all() and bool(torch.isfinite(fit.state.logp).all())):
         raise AssertionError(f"{tag} {mode}: non-finite logp")
     acc = float((fit.state.n_accepted - acc0).sum()) / (n_chains * steps)
@@ -2127,7 +2143,8 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
 
     fitter, step_ms, launches = run_mr2t2(
         "large", model, thetas, LARGE_WARM, LARGE_STEPS, LARGE_WARM,
-        {"reweight_shared": 2, "reweight_shifted": 1}, smi, None, LARGE_EAGER_STEPS,
+        {"reweight_shared": 2, "reweight_shifted": 1, "osc_layered": 1}, smi, None,
+        LARGE_EAGER_STEPS,
         ["reweight_shared", "reweight_perchain_kernel"])
     roofline_line("large:graph", model, LARGE_CHAINS, step_ms, smi)
     dist_launches = large_dist(model, thetas, exp.names, dev, smi)
@@ -2148,6 +2165,7 @@ def large_path(dev, smi: str, quick: bool = False) -> tuple[dict, object]:
                    ms=sum(v[0] for v in shared), plain_ms=sum(v[1] for v in shared),
                    **summed([v[2] for v in shared])),
         "K4b": wide,
+        "osc_layered": launches["osc_layered"] + dist_launches["osc_layered"],
     }
     del fitter, checked
     large_scan(model, smi)
@@ -3144,7 +3162,8 @@ def large_scan(model, smi: str) -> None:
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_launches("large:scan", dict(reweight.LAUNCHES),
-                   {"reweight_shared": 2 * n_chunks, "reweight_shifted": n_chunks})
+                   {"reweight_shared": 2 * n_chunks, "reweight_shifted": n_chunks,
+                    "osc_layered": n_chunks})
     if not np.isfinite(scan["total"]).all():
         raise AssertionError("large:scan: non-finite scan values")
     prefit = model.prefit_vector().cpu().numpy()
@@ -3317,7 +3336,7 @@ def timed_predictive(tag: str, model, toys, smi: str, categories=None):
     launches = dict(reweight.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_chunks = -(-len(toys) // res.chunk)
-    want: dict = {}
+    want: dict = {"osc_layered": layered_grids_of(model) * n_chunks}
     for s in model.samples:
         name = kernel_of(s)[0]
         want[name] = want.get(name, 0) + n_chunks
@@ -3861,7 +3880,7 @@ def large_dist_rank(rank: int, world: int, port: int, tmp: str, device: str) -> 
     res["launches"] = dict(reweight.LAUNCHES)
     check_launches(f"large:dist-2proc rank {rank}", res["launches"],
                    {"reweight_shared": 2 * DIST_LARGE_STEPS,
-                    "reweight_shifted": DIST_LARGE_STEPS})
+                    "reweight_shifted": DIST_LARGE_STEPS, "osc_layered": DIST_LARGE_STEPS})
     with torch.no_grad():
         anew = sharded_total_nll(mesh, shard, fit.state.theta)
     res["state_vs_anew"] = float((fit.state.nll - anew).abs().max())
@@ -3916,7 +3935,8 @@ def large_dist(model, thetas, names, dev, smi: str) -> dict:
     NLLs with nll_vs_plain's tolerance, then spawns two ranks
     (``large_dist_rank``) and reads their figures. Gloo stages the
     collectives through the host, so the times are written down, not
-    gated. Returns K2's and K3's launches in the ranks' timed runs."""
+    gated. Returns K2's, K3's and the layered oscillation kernel's launches
+    in the ranks' timed runs."""
     import multiprocessing as mp
     import os
     import tempfile
@@ -3975,7 +3995,7 @@ def large_dist(model, thetas, names, dev, smi: str) -> dict:
           f"check that the merged file reads); fixture written in {save_s:.1f} s; two ranks "
           f"{wall:.1f} s wall, start-up included | {smi}")
     return {k: sum(x["launches"].get(k, 0) + x["file_launches"].get(k, 0) for x in res)
-            for k in ("reweight_shared", "reweight_shifted")}
+            for k in ("reweight_shared", "reweight_shifted", "osc_layered")}
 
 
 # The gathers' backward (csrc/gather_backward.cu via samples/gather.py) on
@@ -4163,6 +4183,90 @@ def gather_kernel_times(dev, smi: str) -> dict:
     return row
 
 
+# The layered-PREM oscillation kernel (csrc/osc_layered.cu via
+# osc/layered.py) at large700's atmospheric grid: 20 zeniths from 15 km (up
+# to 10 layers a path), 50 energies, 512 chains (the benchmark cell's), the
+# oscillation parameters drawn about the fixture's prefit point (sin²θ23 and
+# δCP uniform). One prob_grids call through the kernel (one launch, no
+# fallback), the largest |P - P_plain| against the plain path on the card,
+# then the kernel's and the plain path's device ms (graph replays, CUDA
+# events) beside the bound: the two grids written once over 3.35 TB/s, or
+# the benchmark's operations (216 a 3x3 complex product, ceil(n/2) products a
+# path of n layers) over 67 TFLOP/s.
+OSC_CHAINS = 512
+OSC_ENERGIES = (0.5, 100.0, 50)
+OSC_ZENITHS = (-0.99, 0.99, 20)
+OSC_REPS = 50
+OSC_PLAIN_REPS = 5
+OSC_TOL = 2e-5
+OSC_SEED = 2200000121
+
+
+def osc_layered_kernel_times(dev, smi: str) -> dict:
+    """[osc-layered:*] The layered oscillation kernel at large700's grid
+    (see OSC_CHAINS): one call's launches, the largest |P - P_plain|, kernel
+    and plain ms and the bound. Returns the kernel table's row but for its
+    launches, which the main paths count."""
+    import numpy as np
+    import torch
+
+    from mach3_tpu_torch.osc import layered
+    from mach3_tpu_torch.osc.prob import OscParams, probabilities_layered
+    from mach3_tpu_torch.samples.events import EventData, build_atmo_osc_config
+    from mach3_tpu_torch.splines import reweight
+
+    n = 4
+    ev = EventData(kinematics={"e_true": np.full(n, 5.0), "cos_zenith": np.full(n, -0.5)},
+                   mode=np.zeros(n, np.int32), target=np.full(n, 12, np.int32),
+                   pdg=np.full(n, 14, np.int32), preosc_pdg=np.full(n, 14, np.int32),
+                   mc_weight=np.ones(n))
+    cfg = build_atmo_osc_config(ev, np.geomspace(*OSC_ENERGIES), np.linspace(*OSC_ZENITHS),
+                                list(range(6))).to(dev)
+    rng = np.random.default_rng(OSC_SEED)
+    c = OSC_CHAINS
+    theta = torch.as_tensor(np.stack([
+        0.307 + 0.013 * rng.normal(size=c), 0.0220 + 0.0007 * rng.normal(size=c),
+        rng.uniform(0.4, 0.62, c), rng.uniform(-np.pi, np.pi, c),
+        7.53e-5 + 1.8e-6 * rng.normal(size=c), 2.494e-3 + 3e-5 * rng.normal(size=c)], 1),
+        device=dev)
+    pars = OscParams.from_array(theta)
+    paths = (cfg.e_grid, cfg.layer_lengths, cfg.rho_idx, cfg.rho_unique)
+
+    def plain():
+        return torch.stack([probabilities_layered(
+            pars, cfg.e_grid, cfg.layer_lengths, cfg.layer_rho, antineutrino=anti,
+            dtype=cfg.dtype, rho_unique=cfg.rho_unique, rho_idx=cfg.rho_idx,
+            z_groups=cfg.z_groups, z_order=cfg.z_order, z_inverse=cfg.z_inverse)
+            for anti in (False, True)])
+
+    with torch.no_grad():
+        before = dict(reweight.LAUNCHES)
+        got = torch.stack(cfg.prob_grids(theta))
+        seen = {k: reweight.LAUNCHES[k] - before[k] for k in ("osc_layered",
+                                                              "osc_layered_fallback")}
+        err = float((got - plain()).abs().max())
+        again = torch.stack(cfg.prob_grids(theta))
+        torch.cuda.synchronize()
+        if seen != {"osc_layered": 1, "osc_layered_fallback": 0} or err > OSC_TOL \
+                or not torch.equal(got, again):
+            raise AssertionError(f"osc-layered: launches {seen}, max |P - P_plain| {err:.3e} "
+                                 f"(tolerance {OSC_TOL}), or a second call differs")
+        ms = graph_ms(lambda: layered.layered_grids(pars, *paths), OSC_REPS)
+        plain_ms = graph_ms(plain, OSC_PLAIN_REPS)
+    layers = (cfg.layer_lengths > 0).sum(-1).cpu().numpy()
+    n_e = cfg.e_grid.numel()
+    nbytes = got.numel() * 4
+    flops = 2 * c * n_e * 216 * int(((layers + 1) // 2).sum())
+    bnd = bound(nbytes, flops)
+    phase(f"[osc-layered:kernel-time] C={c} NZ={layers.shape[-1]} NE={n_e} paths of "
+          f"{sorted(set(layers.ravel().tolist()))} layers: kernel {ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {100 * bnd['bound_ms'] / ms:.1f}% of "
+          f"it), plain {plain_ms:.4f} ms "
+          f"({plain_ms / ms:.1f}x); max |P - P_plain| {err:.3e}; launches {seen}; "
+          f"bit-identical twice | {smi}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=err, **bnd)
+
+
 def main() -> int:
     import torch
 
@@ -4193,6 +4297,7 @@ def main() -> int:
         toy_path(dev, smi, quick=True)
         large_grad_kernels(large_path(dev, smi, quick=True)[1], dev, smi)
         gather_kernel_times(dev, smi)
+        osc_layered_kernel_times(dev, smi)
         print(smi)
         return 0
     if sys.argv[1:]:
@@ -4218,10 +4323,12 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     gather = gather_kernel_times(dev, smi)
+    osc = osc_layered_kernel_times(dev, smi)
     torch.cuda.empty_cache()
     l7_pred = large700_path(dev, smi)
     results["K2"]["launches"] += l7_pred["reweight_shared"]
     results["K3"]["launches"] += l7_pred["reweight_shifted"]
+    osc["launches"] = results.pop("osc_layered") + l7_pred["osc_layered"]
 
     print(json.dumps({"kernels": [
         {"name": NAMES.get(k, SOURCES[k]), "route": "cuda",
@@ -4229,7 +4336,9 @@ def main() -> int:
          "library_ms": None, **{f: v for f, v in results[k].items() if f != "responses"}}
         for k in TPU_KERNELS
     ] + [{"name": "gather_backward", "route": "cuda",
-          "source": "mach3_tpu_torch/csrc/gather_backward.cu", "replaces": None, **gather}]}))
+          "source": "mach3_tpu_torch/csrc/gather_backward.cu", "replaces": None, **gather},
+        {"name": "osc_layered", "route": "cuda", "source": "mach3_tpu_torch/csrc/osc_layered.cu",
+         "replaces": None, **osc}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -115,9 +115,13 @@ def atmospheric_probabilities(
 ) -> torch.Tensor:
     """P[..., NZ, NE, 3, 3] over an (E, cosZ) grid: the table the sample
     layer gathers per event. The per-segment electron fraction is folded into
-    an effective density ``rho * ye / 0.5``, so ``ye=0.5`` below is exact."""
+    an effective density ``rho * ye / 0.5``, so ``ye=0.5`` below is exact.
+    Float64 throughout, so it always takes the plain path; on the card that
+    counts an ``osc_layered_fallback``."""
+    from .layered import count_fallback
     from .prob import probabilities_layered
 
+    count_fallback(torch.as_tensor(params.dm31_sq))
     lengths, rho, ye = path_through_earth(cos_zeniths, shells)
     return probabilities_layered(
         params,

@@ -9,6 +9,7 @@ The parameters' batch shape (e.g. chains) leads every result.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -96,20 +97,31 @@ def _evolve_layers(eig: dict, ll_b: torch.Tensor, ri_b: torch.Tensor, n_batch: i
     (real, imag) amplitude pair [*batch, *lead, NE, 3, 3].
 
     Every layer's operator comes from one batched evaluation and the chain
-    of products runs as complex 3x3 matmuls, so the whole chain is a few
-    dozen device ops: the step is bound by the host's launches. The JAX
-    package multiplies the first operator into the identity, which changes
-    no bit; the matmuls sum in another order than its unrolled products
-    (f32 rounding). The products count as ``osc_layer_products`` in
-    ``tracing.PROGRAM``."""
+    of products runs as complex 3x3 matmuls. This is the plain version: on
+    the card it is device-bound (the operators in device memory, cuBLAS's
+    complex GEMM with 32x32 tiles for 3x3 matrices; 18 ms of a 512-chain
+    large700 step on an H100), and a forward grid there takes the kernel of
+    ``osc/layered.py``. The JAX package multiplies the first operator into
+    the identity, which changes no bit; the matmuls sum in another order
+    than its unrolled products (f32 rounding)."""
     eg = {key: take(v, n_batch, ri_b) for key, v in eig.items()}
     op_r, op_i = evolution_from_eigensystem(eg, ll_b[..., None])  # [*batch, *lead, NL, NE, 3, 3]
     op = torch.complex(op_r, op_i)
     amp = op[..., 0, :, :, :]
-    tracing.count("osc_layer_products", (ll_b.shape[-1] - 1) * amp[..., 0, 0].numel())
     for k in range(1, ll_b.shape[-1]):
         amp = op[..., k, :, :, :] @ amp
     return amp.real, amp.imag
+
+
+def layer_products(lead: tuple, n_layers: int, z_groups: tuple | None = None) -> int:
+    """The 3x3 products of :func:`probabilities_layered` per parameter set
+    and energy, over layer arrays of leading shape ``lead`` (zeniths last)
+    and ``n_layers`` layers: n - 1 a path of a zenith group of n layers. A
+    grid counts them as ``osc_layer_products`` in ``tracing.PROGRAM``,
+    whichever path computes it."""
+    if z_groups is None:
+        return math.prod(lead) * (n_layers - 1)
+    return math.prod(lead[:-1]) * sum(len(idxs) * (n - 1) for idxs, n in z_groups)
 
 
 def z_group_order(z_groups: tuple) -> tuple[np.ndarray, np.ndarray]:
@@ -181,6 +193,8 @@ def probabilities_layered(
 
     lead = torch.broadcast_shapes(layer_lengths.shape[:-1], rho_idx.shape[:-1])
     n_layers = layer_lengths.shape[-1]
+    tracing.count("osc_layer_products",
+                  math.prod(ur.shape[:-2]) * ne * layer_products(lead, n_layers, z_groups))
     ll_b = layer_lengths.expand(lead + (n_layers,))
     ri_b = rho_idx.expand(lead + (n_layers,))
     if z_groups is None:

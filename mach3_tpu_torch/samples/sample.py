@@ -30,8 +30,10 @@ from torch import nn
 from ..core import tracing
 from ..core.device import take
 from ..core.precision import ATYPE, FTYPE
+from ..osc.layered import count_fallback, kernel_takes, layered_grids
 from ..osc.prob import (
     OscParams,
+    layer_products,
     probabilities_const_density,
     probabilities_layered,
     z_group_order,
@@ -248,24 +250,31 @@ class AtmoOscConfig(nn.Module):
     def prob_grids(self, thetas: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(nu, antinu) probability grids [C, NZ, NE, 3, 3], averaged over
         the production heights when there are several; shareable between
-        samples with equal ``share_signature``. Each call counts one
-        ``osc_layered_grids`` in ``tracing.PROGRAM``."""
+        samples with equal ``share_signature``. Both from one launch of the
+        kernel where ``osc/layered.py``'s ``kernel_takes`` says so, else each
+        from the plain path. Each call counts one ``osc_layered_grids`` in
+        ``tracing.PROGRAM``, and ``osc_layer_products`` the plain path's
+        products (``osc/prob.py``'s ``layer_products``) on either path."""
         tracing.count("osc_layered_grids")
         pars = OscParams.from_array(take(thetas, 1, self.osc_param_idx).to(ATYPE))
-
-        def one(antineutrino):
-            p = probabilities_layered(
+        if kernel_takes(pars.dm31_sq, self.dtype):
+            tracing.count("osc_layer_products", 2 * pars.dm31_sq.numel() * self.e_grid.numel()
+                          * layer_products(self.layer_lengths.shape[:-1],
+                                           self.layer_lengths.shape[-1], self.z_groups))
+            grids = layered_grids(pars, self.e_grid, self.layer_lengths, self.rho_idx,
+                                  self.rho_unique).unbind(0)
+        else:
+            count_fallback(pars.dm31_sq)
+            grids = [probabilities_layered(
                 pars, self.e_grid, self.layer_lengths, self.layer_rho,
                 antineutrino=antineutrino, dtype=self.dtype,
                 rho_unique=self.rho_unique, rho_idx=self.rho_idx, z_groups=self.z_groups,
                 z_order=self.z_order, z_inverse=self.z_inverse,
-            )
-            if self.height_weights is not None:  # p [C, H, NZ, NE, 3, 3]
-                w = self.height_weights.to(p.dtype)
-                p = (w[:, None, None, None, None] * p).sum(1)
-            return p
-
-        return one(False), one(True)
+            ) for antineutrino in (False, True)]
+        if self.height_weights is not None:  # p [C, H, NZ, NE, 3, 3]
+            w = self.height_weights.to(grids[0].dtype)
+            grids = [(w[:, None, None, None, None] * p).sum(1) for p in grids]
+        return grids[0], grids[1]
 
     def chan_table(self, thetas: torch.Tensor, grids: tuple | None = None) -> torch.Tensor:
         """Flat per-channel table [C, NC * NZ * NE]."""

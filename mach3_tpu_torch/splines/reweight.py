@@ -95,15 +95,18 @@ MAX_SMEM = 232448
 BIN_MAP_BYTES = 116
 
 #: Launches of each CUDA kernel since its count was last set to 0, the
-#: backwards of ``splines/grad.py`` and ``samples/gather.py`` included (an
-#: entry of the tracing registry, ``core.tracing.counters``). Only a CUDA
-#: launch adds to a count; the plain versions do not, but for
-#: ``gather_backward_fallback``: the gathers' backwards on the card that took
-#: ``index_add`` by their shape.
+#: backwards of ``splines/grad.py`` and ``samples/gather.py`` and the layered
+#: oscillation of ``osc/layered.py`` included (an entry of the tracing
+#: registry, ``core.tracing.counters``). Only a CUDA launch adds to a count;
+#: the plain versions do not, but for ``gather_backward_fallback`` (the
+#: gathers' backwards on the card that took ``index_add`` by their shape) and
+#: ``osc_layered_fallback`` (layered grids on the card that took the plain
+#: path: a gradient or float64 call).
 LAUNCHES = tracing.counters("launches", ("reweight_shifted", "reweight_shared",
                                          "reweight_perchain", "reweight_perchain_blockdiag",
                                          "reweight_backward", "gather_backward",
-                                         "gather_backward_fallback"))
+                                         "gather_backward_fallback", "osc_layered",
+                                         "osc_layered_fallback"))
 #: Histogram forms of ``fused_reweight_histogram``.
 HIST_FORMS = ("maskreduce", "blockdiag")
 #: Event tiles a block of the per-chain kernel walks: the atomics form
