@@ -705,10 +705,10 @@ def kernel_of(sample):
 
 
 def reset_launches() -> None:
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
-    for k in reweight.LAUNCHES:
-        reweight.LAUNCHES[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def kernels_vs_plain(tag: str, model, thetas, tables, smi: str) -> dict:
@@ -890,7 +890,7 @@ def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per
     import numpy as np
     import torch
 
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     n_chains, chunk = fitter.state.theta.shape[0], fitter.config.chunk_size
     if warm:
@@ -908,7 +908,7 @@ def run_sampler(tag: str, mode: str, fitter, warm: int, steps: int, launches_per
     parts.append(fitter.run(n_steps=steps - head, collect=collect))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(reweight.LAUNCHES)
+    launches = dict(LAUNCHES)
     check_launches(f"{tag} {mode} ({steps} steps)", launches,
                    {k: v * steps for k, v in launches_per_step.items()})
     d_nll = nll_recheck(f"{tag} {mode}", fitter)
@@ -936,17 +936,17 @@ def nll_recheck(tag: str, fitter, rtol: float = 0.0) -> float:
     wrong NLL fails here. Returns the largest difference."""
     import torch
 
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     st = fitter.state
     nll = st.nll if hasattr(st, "nll") else st.prior_nll + st.sample_nll  # parallel tempering
     if not bool(torch.isfinite(nll).all()):
         raise AssertionError(f"{tag}: non-finite chain NLL")
-    counted = dict(reweight.LAUNCHES)
+    counted = dict(LAUNCHES)
     with torch.no_grad():
         anew = fitter.model.total_nll_batch(fitter.state.theta)
-    reweight.LAUNCHES.clear()  # a check's launches are not the path's
-    reweight.LAUNCHES.update(counted)
+    LAUNCHES.clear()  # a check's launches are not the path's
+    LAUNCHES.update(counted)
     gap = (nll - anew).abs()
     d = float(gap.max())
     if not bool((gap <= GVE_NLL + rtol * anew.abs()).all()):
@@ -1533,14 +1533,14 @@ def posterior_grad_vs_plain(tag: str, model, thetas, per_eval: dict, smi: str) -
     component."""
     import torch
 
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     t = thetas.detach().clone().requires_grad_(True)
     reset_launches()
     lp = model.log_posterior_batch(t)
     (g,) = torch.autograd.grad(lp.sum(), t)
     torch.cuda.synchronize()
-    check_launches(f"{tag} gradient", dict(reweight.LAUNCHES), with_gathers(model, per_eval))
+    check_launches(f"{tag} gradient", dict(LAUNCHES), with_gathers(model, per_eval))
     lp_p = model.log_posterior_batch(t, plain=True)
     (g_p,) = torch.autograd.grad(lp_p.sum(), t)
     if not bool(torch.isfinite(g).all() and torch.isfinite(lp).all()):
@@ -1573,7 +1573,7 @@ def toy_minimize(model, smi: str) -> dict:
     import torch
 
     from mach3_tpu_torch.fitters.minimize import run_minimizer, shift_params
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     dev = model.flat.prefit.device
     x0 = jitter_init(model, 1, np.random.default_rng(3), frac=0.5)[0]
@@ -1596,7 +1596,7 @@ def toy_minimize(model, smi: str) -> dict:
     want = {k: v * n for k, v in per.items()}
     want["gather_backward"] += per["gather_backward"] * model.n_params
     want["gather_backward_fallback"] += per["gather_backward"] + per["gather_backward_fallback"]
-    check_launches("toy:minimize", dict(reweight.LAUNCHES), want)
+    check_launches("toy:minimize", dict(LAUNCHES), want)
     if not res.success or not res.chi2 <= chi2_0:
         raise AssertionError(f"toy:minimize: {res.message}; chi2 {res.chi2:.6g} from {chi2_0:.6g}")
     if res.covariance is None or not np.isfinite(res.errors).all():
@@ -1613,7 +1613,7 @@ def toy_minimize(model, smi: str) -> dict:
           f"{dt:.3f} s ({1e3 * dt / n:.3f} ms/evaluation incl. Hesse); {int(free.sum())} free "
           f"params, covariance eigenvalues in [{eig.min():.3e}, {eig.max():.3e}], largest "
           f"|x - prefit| / error {pull.max():.3e} (bound {MIN_PULL}); launches "
-          f"{dict(reweight.LAUNCHES)} | {smi}")
+          f"{dict(LAUNCHES)} | {smi}")
     return dict(chi2=res.chi2, n=n, dt=dt)
 
 
@@ -1666,7 +1666,7 @@ def grad_budget(tag: str, model, thetas, smi: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     t = thetas.detach().clone().requires_grad_(True)
 
@@ -1677,10 +1677,10 @@ def grad_budget(tag: str, model, thetas, smi: str) -> None:
         fused = timed_ms(lambda: model.total_nll_batch(thetas), BUDGET_ITERS)
         fwd = timed_ms(lambda: model.log_posterior_batch(thetas), BUDGET_ITERS)
     grad_ms = timed_ms(grad_eval, BUDGET_ITERS)
-    counted = dict(reweight.LAUNCHES)
+    counted = dict(LAUNCHES)
     replay, g_graph = captured_grad(model, thetas)
     captured_ms = timed_ms(replay, BUDGET_ITERS)
-    reweight.LAUNCHES.update(counted)  # a timing's launches are no path's
+    LAUNCHES.update(counted)  # a timing's launches are no path's
     (g_eager,) = grad_eval()
     gap = float(((g_graph - g_eager).abs() / g_eager.abs().amax(1, keepdim=True)).max())
     if not (bool(torch.isfinite(g_graph).all()) and gap <= GRAD_E2E):
@@ -1722,7 +1722,7 @@ def hmc_timed(tag: str, mode: str, fit, steps: int, per_eval: dict, smi: str) ->
     import numpy as np
     import torch
 
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     n_chains = fit.state.theta.shape[0]
     torch.cuda.synchronize()
@@ -1734,7 +1734,7 @@ def hmc_timed(tag: str, mode: str, fit, steps: int, per_eval: dict, smi: str) ->
     out = fit.run(n_steps=steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(reweight.LAUNCHES)
+    launches = dict(LAUNCHES)
     n_grad = fit.n_grad_evals - n_grad0
     n_evals = n_grad + fit.n_logp_evals - n_logp0
     want = {k: v * (n_grad if k in BACKWARD_KERNELS else n_evals)
@@ -1962,7 +1962,7 @@ def toy_hmc_cli(dev, smi: str) -> None:
 
     from mach3_tpu_torch.cli import mcmc as cli
     from mach3_tpu_torch.diagnostics.chain_io import load_chain
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     c = HMC_CLI
     with tempfile.TemporaryDirectory() as tmp:
@@ -1984,7 +1984,7 @@ def toy_hmc_cli(dev, smi: str) -> None:
         t2 = time.perf_counter()
         d2, _, _ = load_chain(out)
         _, _, ck = load_chain(out + ".ckpt")
-    launches = dict(reweight.LAUNCHES)
+    launches = dict(LAUNCHES)
     n_par = len(meta["names"])
     if d1["theta"].shape != (c["steps"], c["chains"], n_par) or d2["theta"].shape[0] != c[
             "resumed"] or int(ck["st.step"]) != c["resumed"]:
@@ -2284,7 +2284,7 @@ def exp_path(dev, smi: str) -> dict:
     from mach3_tpu_torch.core.config import Config
     from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
     from mach3_tpu_torch.samples.experiment import build_experiment
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
     from mach3_tpu_torch.tutorial.experiment_files import write_experiment
 
     t0 = time.perf_counter()
@@ -2336,7 +2336,7 @@ def exp_path(dev, smi: str) -> dict:
     fitter.run(n_steps=EXP_DET_STEPS, collect=False)
     torch.cuda.synchronize()
     det_s = time.perf_counter() - t0
-    det_launches = dict(reweight.LAUNCHES)
+    det_launches = dict(LAUNCHES)
     check_launches("exp:mr2t2-blockdiag", det_launches,
                    {"reweight_perchain_blockdiag": 2 * EXP_DET_STEPS,
                     "reweight_shared": EXP_DET_STEPS})
@@ -2719,7 +2719,7 @@ def octant_mcmc(tag: str, toy, smi: str, jax_gates: bool) -> None:
 
     from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
     from mach3_tpu_torch.fitters.tempering import ParallelTempering, PTConfig
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     m, i23 = toy.model, toy.names.index("osc_sin2th23")
     init = octant_init(toy, OCT_WALKERS)
@@ -2737,7 +2737,7 @@ def octant_mcmc(tag: str, toy, smi: str, jax_gates: bool) -> None:
         out = fit.run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        check_launches(f"{tag}:{name}", dict(reweight.LAUNCHES),
+        check_launches(f"{tag}:{name}", dict(LAUNCHES),
                        {k: v * (OCT_STEPS + capture_steps(m)) for k, v in per_step.items()})
         d_nll = nll_recheck(f"{tag}:{name}", fit, rtol=PT_NLL_RTOL)
         cold = fit.cold_chain(out) if name == "pt" else out
@@ -2773,7 +2773,7 @@ def octant_log_z(tag: str, toy, smi: str) -> tuple[float, float]:
     import torch
 
     from mach3_tpu_torch.fitters.tempering import ParallelTempering, PTConfig
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     pt = ParallelTempering(toy.model, PTConfig(n_steps=OCT_EVIDENCE_STEPS, chunk_size=OCT_CHUNK,
                                                **OCT_EVIDENCE),
@@ -2783,7 +2783,7 @@ def octant_log_z(tag: str, toy, smi: str) -> tuple[float, float]:
     out = pt.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    check_launches(tag, dict(reweight.LAUNCHES),
+    check_launches(tag, dict(LAUNCHES),
                    {"reweight_shifted": 2 * (OCT_EVIDENCE_STEPS + capture_steps(toy.model))})
     d_nll = nll_recheck(tag, pt, rtol=PT_NLL_RTOL)
     ss, ti = pt.log_evidence(out), pt.log_evidence(out, method="thermodynamic")
@@ -2806,7 +2806,7 @@ def octant_path(dev, smi: str) -> None:
     import numpy as np
     import torch
 
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
     from mach3_tpu_torch.tutorial.toy import build_octant_toy
 
     t0 = time.perf_counter()
@@ -2826,7 +2826,7 @@ def octant_path(dev, smi: str) -> None:
     reset_launches()
     with torch.no_grad():
         nll = m.total_nll_batch(th).cpu().numpy()
-    check_launches("octant:profile", dict(reweight.LAUNCHES), {"reweight_shifted": 2})
+    check_launches("octant:profile", dict(LAUNCHES), {"reweight_shifted": 2})
     nll = nll - nll.min()
     at = {v: int(np.argmin(np.abs(vals - v))) for v in (0.45, 0.51, 0.55)}
     phase(f"[octant] build_octant_toy(n_events={OCT_EVENTS}) NH and IH in {build_s:.1f} s; "
@@ -3040,7 +3040,7 @@ def toy_pso(model, smi: str, fit_result: dict) -> None:
     import torch
 
     from mach3_tpu_torch.fitters.pso import PSOConfig, run_pso
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     cfg = PSOConfig(**PSO_CFG)
     reset_launches()
@@ -3049,7 +3049,7 @@ def toy_pso(model, smi: str, fit_result: dict) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     # The initial batch, the capture's warm-up iteration and every iteration.
-    check_launches("toy:pso", dict(reweight.LAUNCHES),
+    check_launches("toy:pso", dict(LAUNCHES),
                    {"reweight_shifted": 2 * (cfg.n_iterations + 1 + capture_steps(model))})
     if not (np.isfinite(res.chi2) and res.chi2 <= res.initial_chi2):
         raise AssertionError(f"toy:pso: χ² {res.chi2} above the best initial particle's "
@@ -3069,7 +3069,7 @@ def toy_scan2d(toy, smi: str) -> None:
     import torch
 
     from mach3_tpu_torch.fitters.scans import llh_scan_2d
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     ix, iy = toy.names.index("osc_sin2th23"), toy.names.index("osc_dm2_31")
     reset_launches()
@@ -3077,7 +3077,7 @@ def toy_scan2d(toy, smi: str) -> None:
     s2 = llh_scan_2d(toy.model, ix, iy, n_points=SCAN2D_POINTS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    check_launches("toy:scan2d", dict(reweight.LAUNCHES), {"reweight_shifted": 2})
+    check_launches("toy:scan2d", dict(LAUNCHES), {"reweight_shifted": 2})
     at = np.unravel_index(np.argmin(s2["total"]), s2["total"].shape)
     centre = (SCAN2D_POINTS // 2, SCAN2D_POINTS // 2)
     phase(f"[toy:scan2d] {SCAN2D_POINTS} x {SCAN2D_POINTS} points in {dt:.3f} s "
@@ -3099,7 +3099,7 @@ def toy_llhscan_cli(dev, smi: str) -> None:
     import torch
 
     from mach3_tpu_torch.cli import llhscan
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "llhscan.npz")
@@ -3120,7 +3120,7 @@ def toy_llhscan_cli(dev, smi: str) -> None:
             "sigvar_numu_sample_hists": (16, 5, 30), "sigvar_nue_sample_hists": (16, 5, 15)}
     if any(shapes.get(k) != v for k, v in want.items()) or not finite:
         raise AssertionError(f"toy:llhscan-cli: output {shapes} (finite {finite})")
-    launches = dict(reweight.LAUNCHES)
+    launches = dict(LAUNCHES)
     if not launches.get("reweight_shifted"):
         raise AssertionError("toy:llhscan-cli: the shifted kernel was not launched")
     phase(f"[toy:llhscan-cli] mach3-llhscan-torch, {N_EVENTS} events: {len(shapes)} arrays "
@@ -3146,7 +3146,7 @@ def large_scan(model, smi: str) -> None:
         llh_scan_1d,
         sigma_variations,
     )
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     dev = model.flat.prefit.device
     n_par = model.n_params
@@ -3161,7 +3161,7 @@ def large_scan(model, smi: str) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check_launches("large:scan", dict(reweight.LAUNCHES),
+    check_launches("large:scan", dict(LAUNCHES),
                    {"reweight_shared": 2 * n_chunks, "reweight_shifted": n_chunks,
                     "osc_layered": n_chunks})
     if not np.isfinite(scan["total"]).all():
@@ -3212,7 +3212,7 @@ def large_scan(model, smi: str) -> None:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n_sv = sv["values"].size
-        check_launches(f"large:sigma-var:{s.name}", dict(reweight.LAUNCHES),
+        check_launches(f"large:sigma-var:{s.name}", dict(LAUNCHES),
                        {kern: math.ceil(n_sv / chunk)})
         th = points(np.repeat(np.arange(n_par), len(sv["sigmas"])), sv["values"].reshape(-1))
         with torch.no_grad():
@@ -3242,7 +3242,7 @@ def exp_cli_pt(dev, smi: str) -> None:
 
     from mach3_tpu_torch.cli import mcmc as cli
     from mach3_tpu_torch.diagnostics.chain_io import load_chain
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
     from mach3_tpu_torch.tutorial.experiment_files import write_experiment
 
     n_chains = EXP_PT_TEMPS * EXP_PT_WALKERS
@@ -3284,7 +3284,7 @@ def exp_cli_pt(dev, smi: str) -> None:
         raise AssertionError(f"exp:cli-pt: log_evidence in the metadata: {lz}")
     if not np.isfinite(d2["nll"]).all():
         raise AssertionError("exp:cli-pt: non-finite NLLs in the chain")
-    launches = dict(reweight.LAUNCHES)
+    launches = dict(LAUNCHES)
     if not (launches.get("reweight_perchain") and launches.get("reweight_shared")):
         raise AssertionError(f"exp:cli-pt: a kernel of the path was not launched: {launches}")
     phase(f"[exp:cli-pt] mach3-mcmc-torch, parallel tempering {EXP_PT_TEMPS} levels (beta = 0 "
@@ -3321,7 +3321,7 @@ def timed_predictive(tag: str, model, toys, smi: str, categories=None):
     import torch
 
     from mach3_tpu_torch.diagnostics.predictive import run_predictive
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     t0 = time.perf_counter()
     run_predictive(model, toys, seed=PRED_SEED, categories=categories)
@@ -3333,7 +3333,7 @@ def timed_predictive(tag: str, model, toys, smi: str, categories=None):
     res = run_predictive(model, toys, seed=PRED_SEED, categories=categories)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(reweight.LAUNCHES)
+    launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_chunks = -(-len(toys) // res.chunk)
     want: dict = {"osc_layered": layered_grids_of(model) * n_chunks}
@@ -3601,7 +3601,7 @@ def toy_post_cli(toy, draws: dict, smi: str) -> None:
     from mach3_tpu_torch.cli import combine, predictive, rhat
     from mach3_tpu_torch.diagnostics.chain_io import load_chain, save_chain
     from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     model = toy.model
     init = draws["theta"][-1]
@@ -3636,7 +3636,7 @@ def toy_post_cli(toy, draws: dict, smi: str) -> None:
         with np.load(out) as f:
             got = set(f.files)
         keys = PRED_KEYS | {p + s.name for p in PRED_SAMPLE_KEYS for s in model.samples}
-        launches = dict(reweight.LAUNCHES)
+        launches = dict(LAUNCHES)
         if rc != 0 or got != keys or not launches.get("reweight_shifted"):
             raise AssertionError(f"toy:post-cli: mach3-predictive-torch rc {rc}, keys "
                                  f"{sorted(got ^ keys)} differ, launches {launches}")
@@ -3841,7 +3841,7 @@ def large_dist_rank(rank: int, world: int, port: int, tmp: str, device: str) -> 
     )
     from mach3_tpu_torch.distributed.shard_step import ShardedMR2T2
     from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     disable_tf32()
     os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
@@ -3877,7 +3877,7 @@ def large_dist_rank(rank: int, world: int, port: int, tmp: str, device: str) -> 
     out = fit.run(n_steps=DIST_LARGE_STEPS)
     sync()
     res["step_ms"] = 1e3 * (time.perf_counter() - t0) / DIST_LARGE_STEPS
-    res["launches"] = dict(reweight.LAUNCHES)
+    res["launches"] = dict(LAUNCHES)
     check_launches(f"large:dist-2proc rank {rank}", res["launches"],
                    {"reweight_shared": 2 * DIST_LARGE_STEPS,
                     "reweight_shifted": DIST_LARGE_STEPS, "osc_layered": DIST_LARGE_STEPS})
@@ -3905,7 +3905,7 @@ def large_dist_rank(rank: int, world: int, port: int, tmp: str, device: str) -> 
     out = fit.run(n_steps=DIST_FILE_STEPS)
     sync()
     res["file_step_ms"] = 1e3 * (time.perf_counter() - t0) / DIST_FILE_STEPS
-    res["file_launches"] = dict(reweight.LAUNCHES)
+    res["file_launches"] = dict(LAUNCHES)
     res["file_acc"] = float(out["accepted"].mean())
     names = [str(n) for n in inp["names"]]
     path = save_host_shard(os.path.join(tmp, "chain{host}.npz"),
@@ -4080,7 +4080,7 @@ def gather_kernel_times(dev, smi: str) -> dict:
     from mach3_tpu_torch.core.device import take
     from mach3_tpu_torch.fitters.model import FitModel
     from mach3_tpu_torch.samples import gather as gm
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
     from mach3_tpu_torch.tutorial.large import build_large
 
     t0 = time.perf_counter()
@@ -4095,7 +4095,7 @@ def gather_kernel_times(dev, smi: str) -> dict:
     reset_launches()
     (grad,) = torch.autograd.grad(model.log_posterior_batch(theta).sum(), theta)
     torch.cuda.synchronize()
-    launches = dict(reweight.LAUNCHES)
+    launches = dict(LAUNCHES)
     if (launches["gather_backward"] != 4 or launches["gather_backward_fallback"] != 0
             or not bool(torch.isfinite(grad).all())):
         raise AssertionError(f"gather:launches: one gradient at {c} chains launched "
@@ -4142,11 +4142,11 @@ def gather_kernel_times(dev, smi: str) -> dict:
                         table),
             }
             for kind, (width, n_slots, idx, kern, plain, library, ref, tab) in cases.items():
-                before = dict(reweight.LAUNCHES)
+                before = dict(LAUNCHES)
                 got = kern()
                 again = kern()
-                if (reweight.LAUNCHES["gather_backward"] - before["gather_backward"] != 2
-                        or reweight.LAUNCHES["gather_backward_fallback"]
+                if (LAUNCHES["gather_backward"] - before["gather_backward"] != 2
+                        or LAUNCHES["gather_backward_fallback"]
                         != before["gather_backward_fallback"]):
                     raise AssertionError(f"gather:{s.name}:{kind}: the wrapper did not launch "
                                          f"the kernel")
@@ -4213,7 +4213,7 @@ def osc_layered_kernel_times(dev, smi: str) -> dict:
     from mach3_tpu_torch.osc import layered
     from mach3_tpu_torch.osc.prob import OscParams, probabilities_layered
     from mach3_tpu_torch.samples.events import EventData, build_atmo_osc_config
-    from mach3_tpu_torch.splines import reweight
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
 
     n = 4
     ev = EventData(kinematics={"e_true": np.full(n, 5.0), "cos_zenith": np.full(n, -0.5)},
@@ -4240,9 +4240,9 @@ def osc_layered_kernel_times(dev, smi: str) -> dict:
             for anti in (False, True)])
 
     with torch.no_grad():
-        before = dict(reweight.LAUNCHES)
+        before = dict(LAUNCHES)
         got = torch.stack(cfg.prob_grids(theta))
-        seen = {k: reweight.LAUNCHES[k] - before[k] for k in ("osc_layered",
+        seen = {k: LAUNCHES[k] - before[k] for k in ("osc_layered",
                                                               "osc_layered_fallback")}
         err = float((got - plain()).abs().max())
         again = torch.stack(cfg.prob_grids(theta))

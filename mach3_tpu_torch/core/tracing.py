@@ -13,12 +13,11 @@
   capture, or an eager step while tracing is on); elsewhere a stamp does
   nothing.
 * :func:`count` adds to the counter registry. Each entry is a dict of counts
-  (:func:`counters`): the kernels' launches (``reweight.LAUNCHES``), a
+  (:func:`counters`): the kernels' launches (``kernels.launch.LAUNCHES``), a
   sampler's evaluations, and :data:`PROGRAM` (host reads and their bytes,
-  graph replays and captures, kernel builds and loads, the layered
-  oscillation's grids and operator products). A CUDA graph's capture records
-  what every entry counted while capturing, and each replay adds it again
-  (:class:`CaptureCounts`; of :data:`PROGRAM`, its device work alone).
+  graph replays and captures, kernel builds and loads). A CUDA graph's
+  capture records what every entry counted while capturing, and each replay
+  adds it again (:class:`CaptureCounts`).
 
 Tracing is on while a ``torch.profiler`` records (``ChunkedSampler.run``
 checks once a chunk, :func:`poll`) or after :func:`enable`. On, each chunk
@@ -68,14 +67,8 @@ def counters(name: str, keys=()) -> Counts:
 
 #: The program's own counts: ``host_reads`` and ``host_read_bytes`` (blocking
 #: device-to-host reads on the sampling path), ``graph_replays``,
-#: ``graph_captures``, ``kernel_builds`` (nvcc ran) and ``kernel_loads``; and
-#: the work of the layered oscillation, :data:`DEVICE_WORK`.
+#: ``graph_captures``, ``kernel_builds`` (nvcc ran) and ``kernel_loads``.
 PROGRAM = counters("program")
-#: :data:`PROGRAM`'s counts of work on the device, which each replay of a
-#: captured graph does again: layered oscillation grids computed (a pair of
-#: neutrino and antineutrino grids counts once) and the 3x3 complex operator
-#: products of their chains of layers.
-DEVICE_WORK = ("osc_layered_grids", "osc_layer_products")
 
 
 def count(name: str, n: int = 1) -> None:
@@ -89,24 +82,22 @@ def snapshot() -> dict:
 
 
 class CaptureCounts:
-    """What every entry of the registry counts between its making and
+    """What every entry of the registry but :data:`PROGRAM` (whose counts are
+    host work, which no replay does again) counts between its making and
     :meth:`close` (a CUDA graph's capture), taken back out at the close (a
-    capture runs nothing) and added again by each :meth:`replay`. Of
-    :data:`PROGRAM` only the counts :data:`DEVICE_WORK`: its others count
-    host work, which no replay does again."""
+    capture runs nothing) and added again by each :meth:`replay`."""
 
     def __init__(self):
-        self._before = [(entry, dict(entry)) for entry in list(_REGISTRY.values())]
+        self._before = [(entry, dict(entry)) for entry in list(_REGISTRY.values())
+                        if entry is not PROGRAM]
         self.seen: list = []
 
     def close(self) -> None:
         for entry, before in self._before:
-            keys = [k for k in entry if entry is not PROGRAM or k in DEVICE_WORK]
-            seen = {k: entry[k] - before.get(k, 0) for k in keys
-                    if entry[k] != before.get(k, 0)}
+            seen = {k: v - before.get(k, 0) for k, v in entry.items() if v != before.get(k, 0)}
             if seen:
                 self.seen.append((entry, seen))
-            for k in keys:
+            for k in entry:
                 entry[k] = before.get(k, 0)
 
     def of(self, entry: Counts) -> dict:

@@ -649,17 +649,18 @@ extern "C" int m3_reweight_shifted(
 // or null). Any row pitch of the table. A block walks `tiles` event tiles.
 // Without partial (null) the atomics tail adds into the zeroed mc and w2
 // [C, n_bins]; with it the deterministic tail writes every entry of partial
-// [ceil(ceil(E / event_tile) / tiles), 2, C, n_bins].
+// [ceil(ceil(E / event_tile) / tiles), 2, C, n_bins]. The stream comes last,
+// after the outputs, as in every entry of this package.
 #define M3_PERCHAIN_PARAMS                                                                   \
   const void *seg, const void *t, const void *coeffs, int coef_bf16, const void *base_w,     \
       const void *bins, const void *kin, const void *shift_vals, const void *static_base,    \
       const void *edges, const void *cells, const int *desc, const void *plan_ptr,           \
       const void *plan_idx, const void *norm_ext, const void *norm_s, int na1, int C, int P, \
-      int K4, int E, int n_bins, int event_tile, int chain_tile, int tiles, void *stream
+      int K4, int E, int n_bins, int event_tile, int chain_tile, int tiles
 
 namespace {
 
-int perchain(M3_PERCHAIN_PARAMS, float* mc, float* w2, float* partial) {
+int perchain(M3_PERCHAIN_PARAMS, void* stream, float* mc, float* w2, float* partial) {
   Args a{};
   const bool map = bins == nullptr;
   if (map && !m3::parse_bin_map(desc, &a.map)) return static_cast<int>(cudaErrorInvalidValue);
@@ -698,14 +699,14 @@ int perchain(M3_PERCHAIN_PARAMS, float* mc, float* w2, float* partial) {
 
 }  // namespace
 
-extern "C" int m3_reweight_perchain(M3_PERCHAIN_PARAMS, void* mc, void* w2) {
+extern "C" int m3_reweight_perchain(M3_PERCHAIN_PARAMS, void* mc, void* w2, void* stream) {
   return perchain(seg, t, coeffs, coef_bf16, base_w, bins, kin, shift_vals, static_base, edges,
                   cells, desc, plan_ptr, plan_idx, norm_ext, norm_s, na1, C, P, K4, E, n_bins,
                   event_tile, chain_tile, tiles, stream, static_cast<float*>(mc),
                   static_cast<float*>(w2), nullptr);
 }
 
-extern "C" int m3_reweight_perchain_det(M3_PERCHAIN_PARAMS, void* partial) {
+extern "C" int m3_reweight_perchain_det(M3_PERCHAIN_PARAMS, void* partial, void* stream) {
   if (partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return perchain(seg, t, coeffs, coef_bf16, base_w, bins, kin, shift_vals, static_base, edges,
                   cells, desc, plan_ptr, plan_idx, norm_ext, norm_s, na1, C, P, K4, E, n_bins,

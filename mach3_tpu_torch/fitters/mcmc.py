@@ -35,8 +35,8 @@ from ..core import tracing
 from ..core.collectives import all_reduce_mean
 from ..core.logging import get_logger
 from ..core.precision import ATYPE, LARGE_LOGL
+from ..kernels.launch import LAUNCHES
 from ..params.state import circular_wrap, propose_step_batch
-from ..splines import reweight
 from .model import FitModel
 
 _log = get_logger("mcmc")
@@ -372,7 +372,7 @@ class GraphChunk:
     with the graph, so a replay draws what the eager function would from
     the same generator state. The counts seen while capturing (those of
     every entry of the tracing registry: the kernel launches of
-    ``reweight.LAUNCHES``, a fitter's evaluations) are the counts of one
+    ``kernels.launch.LAUNCHES``, a fitter's evaluations) are the counts of one
     replay: each replay adds them. The graph holds its layers' device
     stamps (``self.stamps``, ``core.tracing``) as event-record nodes;
     ``name`` names it in the traces (``runner.replay.<name>``). The model is
@@ -444,7 +444,7 @@ class GraphChunk:
                 gc.enable()
             self._seen.close()
         self.stamps = stamps
-        self.launches = self._seen.of(reweight.LAUNCHES)
+        self.launches = self._seen.of(LAUNCHES)
         tracing.count("graph_captures")
 
     def check_model(self, model: FitModel) -> None:

@@ -19,28 +19,18 @@ the caller's zenith order, so it needs no zenith groups.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core.precision import FTYPE
-from ..splines.reweight import LAUNCHES, _library, _raise_on
+from ..kernels.launch import LAUNCHES, launch, on_card
 from .prob import OscParams
-
-_C_VOIDP = ctypes.c_void_p
-_C_INT = ctypes.c_int
-_ARGTYPES = [_C_VOIDP] * 6 + [_C_INT] * 5 + [_C_VOIDP]
 
 
 def kernel_takes(x: torch.Tensor, dtype: torch.dtype) -> bool:
     """Whether a layered grid of oscillation parameters ``x`` (or a tensor
     of their device and autograd state) and matrix dtype ``dtype`` goes to
     the kernel: a CUDA tensor, float32 and no gradient needed."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"no layered oscillation kernel for device {x.device}")
-    return dtype == FTYPE and not (torch.is_grad_enabled() and x.requires_grad)
+    return on_card(x) and dtype == FTYPE and not (torch.is_grad_enabled() and x.requires_grad)
 
 
 def count_fallback(x: torch.Tensor) -> None:
@@ -80,19 +70,13 @@ def layered_grids(params: OscParams, energy: torch.Tensor, layer_lengths: torch.
                              f"{t.device}, not {shape} {dtype} on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"layered kernel: {what} not contiguous")
-    if dev.type != "cuda":
+    if not on_card(pars):
         raise ValueError(f"no layered oscillation kernel for device {dev}")
     out = torch.empty((2, c) + tuple(layer_lengths.shape[:-1]) + (ne, 3, 3), dtype=FTYPE,
                       device=dev)
     if out.numel() == 0:
         return out
     pars = pars.contiguous()
-    lib = _library("osc_layered", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.m3_osc_layered(pars.data_ptr(), energy.data_ptr(), rho_unique.data_ptr(),
-                                layer_lengths.data_ptr(), rho_idx.data_ptr(), out.data_ptr(),
-                                c, ne, nr, layer_lengths.numel() // nl, nl, stream)
-    _raise_on(lib, rc, "osc_layered")
-    LAUNCHES["osc_layered"] += 1
+    launch("osc_layered", "osc_layered", dev, pars, energy, rho_unique, layer_lengths, rho_idx,
+           out, c, ne, nr, layer_lengths.numel() // nl, nl)
     return out

@@ -9,12 +9,10 @@ The parameters' batch shape (e.g. chains) leads every result.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
-from ..core import tracing
 from ..core.device import as_device_tensor, take
 from ..core.precision import ATYPE
 from .kernels import c_abs2, evolution_from_eigensystem, herm_eigensystem, herm_evolution
@@ -113,17 +111,6 @@ def _evolve_layers(eig: dict, ll_b: torch.Tensor, ri_b: torch.Tensor, n_batch: i
     return amp.real, amp.imag
 
 
-def layer_products(lead: tuple, n_layers: int, z_groups: tuple | None = None) -> int:
-    """The 3x3 products of :func:`probabilities_layered` per parameter set
-    and energy, over layer arrays of leading shape ``lead`` (zeniths last)
-    and ``n_layers`` layers: n - 1 a path of a zenith group of n layers. A
-    grid counts them as ``osc_layer_products`` in ``tracing.PROGRAM``,
-    whichever path computes it."""
-    if z_groups is None:
-        return math.prod(lead) * (n_layers - 1)
-    return math.prod(lead[:-1]) * sum(len(idxs) * (n - 1) for idxs, n in z_groups)
-
-
 def z_group_order(z_groups: tuple) -> tuple[np.ndarray, np.ndarray]:
     """The zenith indices of ``z_groups`` in group order, and the
     permutation that puts the groups' results back in the original order."""
@@ -193,8 +180,6 @@ def probabilities_layered(
 
     lead = torch.broadcast_shapes(layer_lengths.shape[:-1], rho_idx.shape[:-1])
     n_layers = layer_lengths.shape[-1]
-    tracing.count("osc_layer_products",
-                  math.prod(ur.shape[:-2]) * ne * layer_products(lead, n_layers, z_groups))
     ll_b = layer_lengths.expand(lead + (n_layers,))
     ri_b = rho_idx.expand(lead + (n_layers,))
     if z_groups is None:

@@ -38,13 +38,11 @@ Each kernel launch counts ``LAUNCHES["gather_backward"]``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core.device import take
 from ..core.precision import FTYPE
-from ..splines.reweight import LAUNCHES, _library, _raise_on
+from ..kernels.launch import LAUNCHES, launch, on_card
 
 #: The kernel's limits (``csrc/gather_backward.cu``): a block's shared memory
 #: for its chains' sums (and the product's factors), the widest norm
@@ -57,10 +55,6 @@ MAX_WIDTH = 8
 #: 0.12-0.18 ms for numu_beam's norm product, 0.05-0.09 ms for its gather).
 BLOCK_CHAINS = 8
 PRODUCT_BLOCK_EVENTS, GATHER_BLOCK_EVENTS = 1024, 2048
-
-_C_VOIDP = ctypes.c_void_p
-_C_INT = ctypes.c_int
-_ARGTYPES = [_C_VOIDP] * 4 + [_C_INT] * 7 + [_C_VOIDP]
 
 
 def kernel_blocking(n_slots: int, product: bool) -> tuple[int, int] | None:
@@ -77,10 +71,8 @@ def _takes_kernel(g: torch.Tensor, n_slots: int, dtype: torch.dtype, width: int,
     """The block of the kernel for this call, or None for the plain version:
     every CPU call, and on the card a table too wide for a block (counted).
     Raises on the card for what the kernel does not take."""
-    if g.device.type == "cpu":
+    if not on_card(g):
         return None
-    if g.device.type != "cuda":
-        raise ValueError(f"no kernel for device {g.device}")
     if width > MAX_WIDTH or g.dtype != FTYPE or dtype != FTYPE:
         raise ValueError(f"the gathers' kernel takes f32 tables and at most {MAX_WIDTH} "
                          f"columns, not {dtype} by {width} (cotangent {g.dtype})")
@@ -95,7 +87,6 @@ def _launch(g: torch.Tensor, table: torch.Tensor | None, idx: torch.Tensor, n_sl
     """The kernel's [C, S] f32 sums (its partials summed over event blocks);
     ``table`` [C, S] the product's factors, or None for the plain gather;
     ``idx`` [E] or [E, W] int64."""
-    lib = _library("gather_backward", _ARGTYPES)
     g, idx = g.contiguous(), idx.contiguous()
     c, e = g.shape
     if idx.dtype != torch.long or idx.numel() != e * width:
@@ -105,13 +96,8 @@ def _launch(g: torch.Tensor, table: torch.Tensor | None, idx: torch.Tensor, n_sl
         table = table.contiguous()
     chains, events = blocking
     partial = torch.empty((-(-e // events), c, n_slots), dtype=FTYPE, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = lib.m3_gather_backward(g.data_ptr(), None if table is None else table.data_ptr(),
-                                    idx.data_ptr(), partial.data_ptr(), c, e, n_slots, width,
-                                    int(table is not None), chains, events, stream)
-    _raise_on(lib, rc, "gather_backward")
-    LAUNCHES["gather_backward"] += 1
+    launch("gather_backward", "gather_backward", g.device, g, table, idx, partial, c, e, n_slots,
+           width, table is not None, chains, events)
     return partial.sum(0)
 
 

@@ -37,10 +37,9 @@ MAX_KERNEL_BINS = MAX_SHARED_BINS
 #: Per-chain-bins variants keep one shared-memory histogram per chain tile.
 MAX_PERCHAIN_BINS = MAX_BINS
 #: Past this many spline params the JAX package switches to param-blocked
-#: kernels (K2/K3) with PARAM_TILE-sized coefficient blocks; the route keeps
-#: the mark (``param_tile``), the CUDA kernels loop over any P.
+#: kernels (K2/K3); the CUDA kernels loop over any P, but the per-chain
+#: kernel of the generic route has no blocked form.
 MAX_UNROLL_PARAMS = 16
-PARAM_TILE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +48,6 @@ class KernelRoute:
 
     use_kernel: bool
     variant: str  # "shared" | "shifted" | "generic" | "xla"
-    # Param-blocked formulation (P > MAX_UNROLL_PARAMS); None = unblocked.
-    param_tile: int | None = None
     reason: str = ""
     # The caller's original request, kept so a rebuild can re-route.
     requested: object = "auto"
@@ -78,7 +75,6 @@ def choose_kernel_route(
     p = spline_table.n_spline_params
     if p > MAX_PARAMS:
         return _fallback(requested, f"P={p} > {MAX_PARAMS}")
-    pt = PARAM_TILE if p > MAX_UNROLL_PARAMS else None
     if has_static_bins:
         variant = "shared"
     elif has_kernel_shift:
@@ -89,13 +85,9 @@ def choose_kernel_route(
         variant = "generic"
         if n_bins > MAX_PERCHAIN_BINS:
             return _fallback(requested, f"n_bins={n_bins} > {MAX_PERCHAIN_BINS} (generic)")
-        if pt is not None:
+        if p > MAX_UNROLL_PARAMS:
             return _fallback(requested, f"P={p} > {MAX_UNROLL_PARAMS} (generic, no blocked form)")
-    route = KernelRoute(
-        True, variant, param_tile=pt,
-        reason=f"P={p}, bins={n_bins}" + (f", param_tile={pt}" if pt else ""),
-        requested=requested,
-    )
+    route = KernelRoute(True, variant, reason=f"P={p}, bins={n_bins}", requested=requested)
     _log.info("kernel route: %s — %s", route.variant, route.reason)
     return route
 

@@ -33,7 +33,6 @@ from ..core.precision import ATYPE, FTYPE
 from ..osc.layered import count_fallback, kernel_takes, layered_grids
 from ..osc.prob import (
     OscParams,
-    layer_products,
     probabilities_const_density,
     probabilities_layered,
     z_group_order,
@@ -252,15 +251,9 @@ class AtmoOscConfig(nn.Module):
         the production heights when there are several; shareable between
         samples with equal ``share_signature``. Both from one launch of the
         kernel where ``osc/layered.py``'s ``kernel_takes`` says so, else each
-        from the plain path. Each call counts one ``osc_layered_grids`` in
-        ``tracing.PROGRAM``, and ``osc_layer_products`` the plain path's
-        products (``osc/prob.py``'s ``layer_products``) on either path."""
-        tracing.count("osc_layered_grids")
+        from the plain path."""
         pars = OscParams.from_array(take(thetas, 1, self.osc_param_idx).to(ATYPE))
         if kernel_takes(pars.dm31_sq, self.dtype):
-            tracing.count("osc_layer_products", 2 * pars.dm31_sq.numel() * self.e_grid.numel()
-                          * layer_products(self.layer_lengths.shape[:-1],
-                                           self.layer_lengths.shape[-1], self.z_groups))
             grids = layered_grids(pars, self.e_grid, self.layer_lengths, self.rho_idx,
                                   self.rho_unique).unbind(0)
         else:

@@ -42,28 +42,26 @@ kernel raises. The backward is ``once_differentiable``: second derivatives
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..core.precision import FTYPE
+from ..kernels.launch import launch, on_card
 from .eval import coefficient_rows
 from .plan import EVENT_TILE
 from .reweight import (
     BIN_MAP_BYTES,
     CHAIN_TILE,
-    LAUNCHES,
     MAX_KNOTS,
     MAX_SMEM,
     PerchainBins,
+    _bin_source,
     _check_bin_source,
     _check_plan,
     _check_shapes,
     _check_tensors,
-    _library,
-    _raise_on,
     fused_reweight_histogram,
     fused_reweight_histogram_shared,
     fused_reweight_histogram_shifted,
@@ -71,12 +69,6 @@ from .reweight import (
     tile_core_smem,
 )
 
-_C_VOIDP = ctypes.c_void_p
-_C_INT = ctypes.c_int
-_BACKWARD_ARGTYPES = (
-    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] + [_C_INT] + [_C_VOIDP] * 6
-    + [ctypes.POINTER(_C_INT)] + [_C_VOIDP] * 6 + [_C_INT] * 7 + [_C_VOIDP]
-)
 #: Where the kernel takes an event's bin from (``csrc/reweight_backward.cu``).
 BINS_SHARED, BINS_PER_CHAIN, BINS_MAP = 0, 1, 2
 #: Warps of a block: each keeps 16 chains' sums per listed parameter in
@@ -200,9 +192,8 @@ def backward_smem(coeffs: torch.Tensor, bins=None, need_t: bool = True) -> int:
 
 
 def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, plan_idx,
-                    need_t) -> tuple[int, bool]:
-    """Every argument of :func:`reweight_backward`; returns (bins kind, has
-    a plan)."""
+                    need_t) -> int:
+    """Every argument of :func:`reweight_backward`; returns the bins' kind."""
     named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, gmc=gmc, gw2=gw2)
     shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"), gmc=("C", n_bins),
                   gw2=("C", n_bins))
@@ -213,7 +204,7 @@ def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, pl
         kind = BINS_PER_CHAIN if isinstance(bins, torch.Tensor) and bins.dim() == 2 else BINS_SHARED
         named["bins"] = bins
         shapes["bins"] = ("C", "E") if kind == BINS_PER_CHAIN else ("E",)
-    has_plan = _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
+    _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
     _check_tensors(named, None, None)
     _check_shapes(named, shapes, coeffs, base_w, None, None)
     if n_bins < 1:
@@ -223,7 +214,7 @@ def _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, pl
     smem = backward_smem(coeffs, bins, need_t)
     if smem > MAX_SMEM:
         raise ValueError(f"a block needs {smem} bytes of shared memory > {MAX_SMEM}")
-    return kind, has_plan
+    return kind
 
 
 def reweight_backward(
@@ -248,38 +239,20 @@ def reweight_backward(
     gmc, gw2 = (g.to(FTYPE).contiguous() for g in (gmc, gw2))
     if isinstance(bins, ShiftedBins):
         bins = bins.bin_map()
-    kind, has_plan = _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr,
-                                     plan_idx, need_t)
-    dev = seg.device
-    if dev.type == "cpu":
+    kind = _check_backward(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins, plan_ptr, plan_idx,
+                           need_t)
+    if not on_card(seg):
         return reweight_backward_ref(seg, t, coeffs, base_w, bins, gmc, gw2, n_bins=n_bins,
                                      need_t=need_t)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    lib = _library("reweight_backward", _BACKWARD_ARGTYPES)
     c, p = seg.shape
     k4, e = coeffs.shape[1], coeffs.shape[2]
-    gbase = torch.empty((c, e), dtype=FTYPE, device=dev)
-    partial = (torch.empty((-(-e // EVENT_TILE), c, p), dtype=FTYPE, device=dev)
+    gbase = torch.empty((c, e), dtype=FTYPE, device=seg.device)
+    partial = (torch.empty((-(-e // EVENT_TILE), c, p), dtype=FTYPE, device=seg.device)
                if need_t else None)
-    if kind == BINS_MAP:
-        cells = bins.cell_to_bin
-        source = (None, bins.kin.data_ptr(), bins.shift_vals.data_ptr(),
-                  bins.static_base.data_ptr(), bins.edges.data_ptr(),
-                  None if cells is None else cells.data_ptr(), bins.descriptor())
-    else:
-        source = (bins.data_ptr(),) + (None,) * 6
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.m3_reweight_backward(
-            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(), int(coeffs.dtype == torch.bfloat16),
-            base_w.data_ptr(), kind, *source, gmc.data_ptr(), gw2.data_ptr(),
-            plan_ptr.data_ptr() if has_plan else None, plan_idx.data_ptr() if has_plan else None,
-            gbase.data_ptr(), None if partial is None else partial.data_ptr(),
-            c, p, k4, e, n_bins, EVENT_TILE, CHAIN_TILE, stream,
-        )
-    _raise_on(lib, rc, "reweight_backward")
-    LAUNCHES["reweight_backward"] += 1
+    launch("reweight_backward", "reweight_backward", seg.device,
+           seg, t, coeffs, coeffs.dtype == torch.bfloat16, base_w, kind, *_bin_source(bins),
+           gmc, gw2, plan_ptr, plan_idx, gbase, partial,
+           c, p, k4, e, n_bins, EVENT_TILE, CHAIN_TILE)
     return (partial.sum(0) if need_t else None), gbase
 
 

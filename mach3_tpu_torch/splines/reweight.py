@@ -28,10 +28,10 @@ They serve the sampling path (norm product in the kernels) and, with the
 norm left out, the forward of the differentiable path, whose backward kernel
 (K6a and K6b fused) lives in ``splines/grad.py``.
 
-On a CUDA tensor a wrapper launches its hand-written kernel (built at first
-use by ``kernels/build.py``); on a CPU tensor it runs the plain PyTorch
-version beside it (``*_ref``). There is no fallback: a CUDA call that cannot
-build or launch the kernel raises.
+On a CUDA tensor a wrapper launches its hand-written kernel (through
+``kernels/launch.py``, built at first use by ``kernels/build.py``); on a CPU
+tensor it runs the plain PyTorch version beside it (``*_ref``). There is no
+fallback: a CUDA call that cannot build or launch the kernel raises.
 
 Differences from the JAX production route, by design:
 * spline responses are evaluated in f32 from ``(seg, t)`` — four coefficient
@@ -47,8 +47,8 @@ import dataclasses
 
 import torch
 
-from ..core import tracing
 from ..core.precision import FTYPE
+from ..kernels.launch import launch, on_card
 from ..samples.binning import count_edges_le, histogram
 from .eval import spline_product
 from .plan import EVENT_TILE
@@ -94,19 +94,6 @@ ROW_ALIGN = 16
 MAX_SMEM = 232448
 BIN_MAP_BYTES = 116
 
-#: Launches of each CUDA kernel since its count was last set to 0, the
-#: backwards of ``splines/grad.py`` and ``samples/gather.py`` and the layered
-#: oscillation of ``osc/layered.py`` included (an entry of the tracing
-#: registry, ``core.tracing.counters``). Only a CUDA launch adds to a count;
-#: the plain versions do not, but for ``gather_backward_fallback`` (the
-#: gathers' backwards on the card that took ``index_add`` by their shape) and
-#: ``osc_layered_fallback`` (layered grids on the card that took the plain
-#: path: a gradient or float64 call).
-LAUNCHES = tracing.counters("launches", ("reweight_shifted", "reweight_shared",
-                                         "reweight_perchain", "reweight_perchain_blockdiag",
-                                         "reweight_backward", "gather_backward",
-                                         "gather_backward_fallback", "osc_layered",
-                                         "osc_layered_fallback"))
 #: Histogram forms of ``fused_reweight_histogram``.
 HIST_FORMS = ("maskreduce", "blockdiag")
 #: Event tiles a block of the per-chain kernel walks: the atomics form
@@ -115,9 +102,6 @@ HIST_FORMS = ("maskreduce", "blockdiag")
 #: stay few).
 PERCHAIN_TILES = 2
 PERCHAIN_DET_TILES = 8
-
-_C_VOIDP = ctypes.c_void_p
-_C_INT = ctypes.c_int
 
 
 def norm_weight(norm_ext: torch.Tensor, norm_s: torch.Tensor) -> torch.Tensor:
@@ -197,7 +181,7 @@ class PerchainBins:
         desc = [len(self.axes), len(self.shifts), self.edges.shape[1], n_cells]
         desc += [v for ax in self.axes for v in ax]
         desc += [v for a, kind in self.shifts for v in (a, SHIFT_KINDS[kind][0])]
-        return (_C_INT * len(desc))(*desc)
+        return (ctypes.c_int * len(desc))(*desc)
 
     def smem_floats(self) -> int:
         """Floats of shared memory the map takes in a block of the forward
@@ -333,26 +317,25 @@ def _check_row_alignment(coeffs: torch.Tensor) -> None:
             f"of {ROW_ALIGN}; lay the sample out (splines/plan.py pads E to {EVENT_TILE})")
 
 
-def _check_plan(named: dict, plan_ptr, plan_idx, n_events: int) -> bool:
-    """Adds an activity plan to ``named`` and checks its shape; False when
-    there is none."""
+def _check_plan(named: dict, plan_ptr, plan_idx, n_events: int) -> None:
+    """Adds an activity plan to ``named`` and checks its shape, if there is
+    one."""
     if (plan_ptr is None) != (plan_idx is None):
         raise ValueError("plan_ptr and plan_idx come together or not at all")
     if plan_ptr is None:
-        return False
+        return
     named.update(plan_ptr=plan_ptr, plan_idx=plan_idx)
     n_tiles = -(-n_events // EVENT_TILE)
     if tuple(plan_ptr.shape) != (n_tiles + 1,) or plan_idx.dim() != 1:
         raise ValueError(f"plan_ptr must be [{n_tiles + 1}] and plan_idx 1-D, got "
                          f"{tuple(plan_ptr.shape)} and {tuple(plan_idx.shape)}")
-    return True
 
 
 def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
-           n_bins, shift_kind, n_axis_j, plan_ptr, plan_idx, norm_ext, norm_s) -> bool:
+           n_bins, shift_kind, n_axis_j, plan_ptr, plan_idx, norm_ext, norm_s) -> None:
     named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w, shift_vals=shift_vals,
                  x_nom=x_nom, static_base=static_base, edges=edges)
-    has_plan = _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
+    _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
     _check_tensors(named, norm_ext, norm_s)
     shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"), shift_vals=("C",),
                   x_nom=("E",), static_base=("E",), edges=(n_axis_j + 1,))
@@ -366,42 +349,6 @@ def _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
     _check_tile_core(coeffs, norm_s, BIN_MAP_BYTES
                      + 4 * (CHAIN_TILE * (2 * n_bins + 2) + edges.shape[0] + 2 * EVENT_TILE),
                      perchain=True)
-    return has_plan
-
-
-def _library(stem: str, argtypes: list, entry: str | None = None):
-    """The library of ``csrc/<stem>.cu`` with the argument types of its entry
-    ``m3_<entry>`` (default ``m3_<stem>``) set."""
-    from ..kernels.build import load_library
-
-    lib = load_library(stem)
-    fn = getattr(lib, f"m3_{entry or stem}")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = _C_INT
-        lib.m3_error_string.argtypes = [_C_INT]
-        lib.m3_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-_SHIFTED_ARGTYPES = (
-    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 5 + [_C_INT] + [_C_VOIDP] * 4
-    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 10 + [_C_VOIDP]
-)
-_PERCHAIN_HEAD = ([_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 7 + [ctypes.POINTER(_C_INT)]
-                  + [_C_VOIDP] * 4 + [_C_INT] * 9 + [_C_VOIDP])
-_PERCHAIN_ARGTYPES = _PERCHAIN_HEAD + [_C_VOIDP] * 2
-_PERCHAIN_DET_ARGTYPES = _PERCHAIN_HEAD + [_C_VOIDP]
-_SHARED_ARGTYPES = (
-    [_C_VOIDP] * 3 + [_C_INT] + [_C_VOIDP] * 6 + [_C_INT] + [_C_VOIDP] * 2
-    + [_C_INT] + [_C_VOIDP] * 2 + [_C_INT] * 7 + [_C_VOIDP]
-)
-
-
-def _raise_on(lib, rc: int, stem: str) -> None:
-    if rc != 0:
-        msg = lib.m3_error_string(rc).decode()
-        raise RuntimeError(f"{stem} kernel launch failed: {msg} ({rc})")
 
 
 def fused_reweight_histogram_shifted(
@@ -428,42 +375,25 @@ def fused_reweight_histogram_shifted(
     plan (``plan.shifted_layout``) must list every parameter that is not the
     identity on some event of a tile; without one the kernel reads every
     parameter on every tile."""
-    has_plan = _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
-                      n_bins, shift_kind, n_axis_j, plan_ptr, plan_idx, norm_ext, norm_s)
+    _check(seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges,
+           n_bins, shift_kind, n_axis_j, plan_ptr, plan_idx, norm_ext, norm_s)
     kwargs = dict(n_bins=n_bins, shift_kind=shift_kind, stride_j=stride_j,
                   n_axis_j=n_axis_j, norm_ext=norm_ext, norm_s=norm_s)
-    dev = seg.device
-    if dev.type == "cpu":
+    if not on_card(seg):
         return fused_reweight_histogram_shifted_ref(
             seg, t, coeffs, base_w, shift_vals, x_nom, static_base, edges, **kwargs
         )
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
     _check_row_alignment(coeffs)
-    lib = _library("reweight_shifted", _SHIFTED_ARGTYPES)
     c, p = seg.shape
     k4, e = coeffs.shape[1], coeffs.shape[2]
-    mc = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
-    w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
-    has_norm = norm_ext is not None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.m3_reweight_shifted(
-            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(),
-            int(coeffs.dtype == torch.bfloat16),
-            base_w.data_ptr(), shift_vals.data_ptr(), x_nom.data_ptr(),
-            static_base.data_ptr(), edges.data_ptr(), edges.shape[0],
-            plan_ptr.data_ptr() if has_plan else None,
-            plan_idx.data_ptr() if has_plan else None,
-            norm_ext.data_ptr() if has_norm else None,
-            norm_s.data_ptr() if has_norm else None,
-            norm_s.shape[0] if has_norm else 0,
-            mc.data_ptr(), w2.data_ptr(),
-            c, p, k4, e, n_bins, stride_j, n_axis_j,
-            SHIFT_KINDS[shift_kind][0], EVENT_TILE, CHAIN_TILE, stream,
-        )
-    _raise_on(lib, rc, "reweight_shifted")
-    LAUNCHES["reweight_shifted"] += 1
+    mc = torch.zeros((c, n_bins), dtype=FTYPE, device=seg.device)
+    w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=seg.device)
+    launch("reweight_shifted", "reweight_shifted", seg.device,
+           seg, t, coeffs, coeffs.dtype == torch.bfloat16, base_w, shift_vals, x_nom,
+           static_base, edges, edges.shape[0], plan_ptr, plan_idx, norm_ext, norm_s,
+           0 if norm_s is None else norm_s.shape[0], mc, w2,
+           c, p, k4, e, n_bins, stride_j, n_axis_j,
+           SHIFT_KINDS[shift_kind][0], EVENT_TILE, CHAIN_TILE)
     return mc, w2
 
 
@@ -529,35 +459,20 @@ def fused_reweight_histogram_shared(
     bins the kernel sums in shared memory."""
     _check_shared(seg, t, coeffs, base_w, bins, n_bins, tile_start, tile_width, plan_ptr,
                   plan_idx, nbl, norm_ext, norm_s)
-    dev = seg.device
-    if dev.type == "cpu":
+    if not on_card(seg):
         return fused_reweight_histogram_shared_ref(
             seg, t, coeffs, base_w, bins, n_bins=n_bins, norm_ext=norm_ext, norm_s=norm_s
         )
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
     _check_row_alignment(coeffs)
-    lib = _library("reweight_shared", _SHARED_ARGTYPES)
     c, p = seg.shape
     k4, e = coeffs.shape[1], coeffs.shape[2]
-    mc = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
-    w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
-    has_norm = norm_ext is not None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.m3_reweight_shared(
-            seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(),
-            int(coeffs.dtype == torch.bfloat16),
-            base_w.data_ptr(), bins.data_ptr(), tile_start.data_ptr(),
-            tile_width.data_ptr(), plan_ptr.data_ptr(), plan_idx.data_ptr(), nbl,
-            norm_ext.data_ptr() if has_norm else None,
-            norm_s.data_ptr() if has_norm else None,
-            norm_s.shape[0] if has_norm else 0,
-            mc.data_ptr(), w2.data_ptr(),
-            c, p, k4, e, n_bins, EVENT_TILE, CHAIN_TILE, stream,
-        )
-    _raise_on(lib, rc, "reweight_shared")
-    LAUNCHES["reweight_shared"] += 1
+    mc = torch.zeros((c, n_bins), dtype=FTYPE, device=seg.device)
+    w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=seg.device)
+    launch("reweight_shared", "reweight_shared", seg.device,
+           seg, t, coeffs, coeffs.dtype == torch.bfloat16, base_w, bins, tile_start,
+           tile_width, plan_ptr, plan_idx, nbl, norm_ext, norm_s,
+           0 if norm_s is None else norm_s.shape[0], mc, w2,
+           c, p, k4, e, n_bins, EVENT_TILE, CHAIN_TILE)
     return mc, w2
 
 
@@ -607,6 +522,16 @@ def _check_bin_source(named: dict, shapes: dict, bins) -> int:
     return bins.smem_floats()
 
 
+def _bin_source(bins) -> tuple:
+    """The kernels' bin arguments (bins, kin, shift_vals, static_base,
+    edges, cells, desc): bins given as [C, E], or a :class:`PerchainBins`
+    map and its host descriptor."""
+    if not isinstance(bins, PerchainBins):
+        return (bins,) + (None,) * 6
+    return (None, bins.kin, bins.shift_vals, bins.static_base, bins.edges, bins.cell_to_bin,
+            bins.descriptor())
+
+
 def perchain_smem_bytes(n_bins: int, map_floats: int, given: bool, det: bool) -> int:
     """Shared memory a block of the per-chain kernel takes besides its tile
     core (``tile_core_smem``): the [16][2·B + 1] histogram, a bin map's
@@ -642,7 +567,7 @@ def fused_reweight_histogram(
     named = dict(seg=seg, t=t, coeffs=coeffs, base_w=base_w)
     shapes = dict(seg=("C", "P"), t=("C", "P"), base_w=("C", "E"))
     map_floats = _check_bin_source(named, shapes, bins)
-    has_plan = _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
+    _check_plan(named, plan_ptr, plan_idx, base_w.shape[-1])
     _check_tensors(named, norm_ext, norm_s)
     c, p, e = _check_shapes(named, shapes, coeffs, base_w, norm_ext, norm_s)
     if not 1 <= n_bins <= MAX_BINS:
@@ -652,46 +577,22 @@ def fused_reweight_histogram(
     by_map, det = isinstance(bins, PerchainBins), hist == "blockdiag"
     _check_tile_core(coeffs, norm_s, perchain_smem_bytes(n_bins, map_floats, not by_map, det),
                      perchain=True)
-    dev = seg.device
-    if dev.type == "cpu":
+    if not on_card(seg):
         return fused_reweight_histogram_ref(seg, t, coeffs, base_w, bins, n_bins=n_bins,
                                             hist=hist, norm_ext=norm_ext, norm_s=norm_s)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    if by_map:
-        cells = bins.cell_to_bin
-        source = (None, bins.kin.data_ptr(), bins.shift_vals.data_ptr(),
-                  bins.static_base.data_ptr(), bins.edges.data_ptr(),
-                  None if cells is None else cells.data_ptr(), bins.descriptor())
-    else:
-        source = (bins.data_ptr(),) + (None,) * 6
-    has_norm = norm_ext is not None
-    entry = "reweight_perchain_det" if det else "reweight_perchain"
-    lib = _library("reweight_shifted", _PERCHAIN_DET_ARGTYPES if det else _PERCHAIN_ARGTYPES,
-                   entry=entry)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        head = (seg.data_ptr(), t.data_ptr(), coeffs.data_ptr(),
-                int(coeffs.dtype == torch.bfloat16), base_w.data_ptr(), *source,
-                plan_ptr.data_ptr() if has_plan else None,
-                plan_idx.data_ptr() if has_plan else None,
-                norm_ext.data_ptr() if has_norm else None,
-                norm_s.data_ptr() if has_norm else None,
-                norm_s.shape[0] if has_norm else 0,
-                c, p, coeffs.shape[1], e, n_bins, EVENT_TILE, CHAIN_TILE,
-                PERCHAIN_DET_TILES if det else PERCHAIN_TILES, stream)
-        if det:
-            n_blocks = -(-(-(-e // EVENT_TILE)) // PERCHAIN_DET_TILES)
-            partial = torch.empty((n_blocks, 2, c, n_bins), dtype=FTYPE, device=dev)
-            rc = lib.m3_reweight_perchain_det(*head, partial.data_ptr())
-        else:
-            mc = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
-            w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=dev)
-            rc = lib.m3_reweight_perchain(*head, mc.data_ptr(), w2.data_ptr())
-    _raise_on(lib, rc, entry)
+    head = (seg, t, coeffs, coeffs.dtype == torch.bfloat16, base_w,
+            *_bin_source(bins), plan_ptr, plan_idx, norm_ext, norm_s,
+            0 if norm_s is None else norm_s.shape[0],
+            c, p, coeffs.shape[1], e, n_bins, EVENT_TILE, CHAIN_TILE,
+            PERCHAIN_DET_TILES if det else PERCHAIN_TILES)
     if not det:
-        LAUNCHES["reweight_perchain"] += 1
+        mc = torch.zeros((c, n_bins), dtype=FTYPE, device=seg.device)
+        w2 = torch.zeros((c, n_bins), dtype=FTYPE, device=seg.device)
+        launch("reweight_shifted", "reweight_perchain", seg.device, *head, mc, w2)
         return mc, w2
-    LAUNCHES["reweight_perchain_blockdiag"] += 1
+    n_blocks = -(-(-(-e // EVENT_TILE)) // PERCHAIN_DET_TILES)
+    partial = torch.empty((n_blocks, 2, c, n_bins), dtype=FTYPE, device=seg.device)
+    launch("reweight_shifted", "reweight_perchain_det", seg.device, *head, partial,
+           count="reweight_perchain_blockdiag")
     mc, w2 = partial.sum(0)
     return mc, w2

@@ -14,8 +14,8 @@ import torch
 
 from mach3_tpu_torch.diagnostics import autocorr
 from mach3_tpu_torch.diagnostics.predictive import run_predictive
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.samples.teststats import get_test_stat_fn
-from mach3_tpu_torch.splines import reweight
 from mach3_tpu_torch.tutorial.toy import build_toy
 
 K_RTOL, K_ATOL_FRAC, NLL_ATOL = 2e-5, 1e-6, 1e-4
@@ -59,11 +59,11 @@ def test_predictive_kernel_route_vs_plain(cuda_device, chunk):
     kw = dict(n_events=20_000, seed=3, e_grid_size=60, device=cuda_device)
     toy, plain = build_toy(**kw), build_toy(**kw, use_kernel=False)
     toys = _toys(toy.model, 1000)
-    for k in reweight.LAUNCHES:
-        reweight.LAUNCHES[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
     res = run_predictive(toy.model, toys, seed=2, chunk=chunk, categories=toy.event_modes)
     n_chunks = -(-1000 // res.chunk)
-    assert reweight.LAUNCHES["reweight_shifted"] == 2 * n_chunks
+    assert LAUNCHES["reweight_shifted"] == 2 * n_chunks
     ref = run_predictive(plain.model, toys, seed=2, chunk=chunk, categories=plain.event_modes,
                          draws=res.fluctuated)
     for got, want in zip(res.spectra, ref.spectra):

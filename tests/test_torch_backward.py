@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.samples.binning import histogram
 from mach3_tpu_torch.splines import grad, plan, reweight
 from mach3_tpu_torch.splines.eval import find_segments, spline_product
@@ -206,12 +207,12 @@ def test_shifted_route_under_its_plan_matches_jax(interpret, kind):
     sb = x.bins
     t = x.t.clone().requires_grad_(True)
     base = x.base.clone().requires_grad_(True)
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     mc, w2 = grad.fused_reweight_diff_shifted(
         t, base, x.seg, x.coeffs, sb.shift_vals, sb.x_nom, sb.static_base, sb.edges,
         n_bins=x.n_bins, shift_kind=kind, stride_j=1, n_axis_j=N_AXIS, **x.plan)
     g_t, g_base = torch.autograd.grad((x.gmc * mc).sum() + (x.gw2 * w2).sum(), (t, base))
-    assert reweight.LAUNCHES == before  # the plain versions are not launches
+    assert LAUNCHES == before  # the plain versions are not launches
     bins = sb.bins(x.n_bins)
     scale = _term_scale(x, bins).numpy()
     # the port's own plain route, by autograd
@@ -357,11 +358,11 @@ def test_cuda_backward_matches_plain_passes(cuda_device, case):
         x.gw2 = torch.zeros_like(x.gw2)
     args = (x.seg, x.t, x.coeffs, x.base, x.bins, x.gmc, x.gw2)
     kw = dict(n_bins=x.n_bins, **x.plan)
-    before = reweight.LAUNCHES["reweight_backward"]
+    before = LAUNCHES["reweight_backward"]
     need_t = case != "need_t_false"
     got = grad.reweight_backward(*args, need_t=need_t, **kw)
     torch.cuda.synchronize()
-    assert reweight.LAUNCHES["reweight_backward"] == before + 1
+    assert LAUNCHES["reweight_backward"] == before + 1
     ref = grad.reweight_backward_ref(*args, need_t=need_t, **kw)
     _hold(x, got, ref, case)
     if case == "shifted_plan":

@@ -19,7 +19,7 @@ from mach3_tpu_torch.distributed.mesh import sharded_total_nll
 from mach3_tpu_torch.distributed.multihost import initialise
 from mach3_tpu_torch.distributed.shard_step import ShardedMR2T2
 from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
-from mach3_tpu_torch.splines import reweight
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.tutorial.toy import build_toy
 
 N_CHAINS = 32
@@ -76,10 +76,10 @@ def test_graph_captures_the_all_reduces(mesh):
     for graph in (True, False):
         fit = ShardedMR2T2(mesh, CONFIG, shard, _copy(state), graph=graph)
         assert fit.graph == graph
-        for k in reweight.LAUNCHES:
-            reweight.LAUNCHES[k] = 0
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
         out = fit.run(n_steps=30)
-        assert reweight.LAUNCHES["reweight_shifted"] == 2 * (30 + (1 if graph else 0))
+        assert LAUNCHES["reweight_shifted"] == 2 * (30 + (1 if graph else 0))
         runs[graph] = (fit, out)
     (fg, g), (fe, e) = runs[True], runs[False]
     assert torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state())

@@ -122,7 +122,6 @@ def test_same_routes_names_and_bins(jexp, texp):
     assert [s.kernel_route.variant for s in jexp.samples] == ROUTES
     assert [s.kernel_route.variant for s in texp.samples] == ROUTES
     assert jexp.samples[2].kernel_route.param_tile is None
-    assert texp.samples[2].kernel_route.param_tile is None
     assert [ps.names for ps in texp.param_sets] == [ps.names for ps in jexp.param_sets]
     assert texp.model.n_params == jexp.model.n_params == 19
     assert [s.n_bins for s in texp.samples] == [s.n_bins for s in jexp.samples] == [240, 20, 30]

@@ -16,7 +16,7 @@ import torch
 from mach3_tpu_torch.fitters.ensemble import EnsembleConfig, EnsembleSampler
 from mach3_tpu_torch.fitters.pso import PSOConfig, run_pso
 from mach3_tpu_torch.fitters.tempering import ParallelTempering, PTConfig
-from mach3_tpu_torch.splines import reweight
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.tutorial.toy import build_octant_toy, build_toy
 
 
@@ -54,9 +54,9 @@ def test_pt_graph_matches_eager(cuda_device, beta_zero):
     runs = {}
     for graph in (True, False):
         fit = ParallelTempering(model, cfg, init, seed=4, graph=graph)
-        for k in reweight.LAUNCHES:
-            reweight.LAUNCHES[k] = 0
-        runs[graph] = (fit, fit.run(n_steps=n_s), dict(reweight.LAUNCHES))
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        runs[graph] = (fit, fit.run(n_steps=n_s), dict(LAUNCHES))
     (fg, g, lg), (fe, e, le) = runs[True], runs[False]
     assert fg._graph is not None and fe._graph is None
     assert le["reweight_shifted"] == 2 * n_s and lg["reweight_shifted"] == 2 * (n_s + 1)

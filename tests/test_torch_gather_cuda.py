@@ -18,13 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.samples.gather import (
     event_gather,
     event_gather_backward_ref,
     norm_product,
     norm_product_backward_ref,
 )
-from mach3_tpu_torch.splines import reweight
 
 CHAINS = 128
 # (events, norm columns, norm slots, oscillation slots, runs of equal
@@ -88,7 +88,7 @@ def _check_both(dev, chains, norm_idx, flat_idx, s_norm, s_osc, seed=1, nan_chai
         ext[nan_chain, 1] = float("nan")
     g = torch.randn(chains, norm_idx.shape[0], device=dev, generator=gen)
     norm_idx, flat_idx = norm_idx.to(dev), flat_idx.to(dev)
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
 
     x = ext.clone().requires_grad_(True)
     (got,) = torch.autograd.grad(norm_product(x, norm_idx), x, g)
@@ -109,7 +109,7 @@ def _check_both(dev, chains, norm_idx, flat_idx, s_norm, s_osc, seed=1, nan_chai
     scale = event_gather_backward_ref(g.double().abs(), table.shape, torch.float64, flat_idx)
     assert _rel_err(got, want, scale) <= SUM_TOL
     torch.cuda.synchronize()
-    return {k: reweight.LAUNCHES[k] - before[k]
+    return {k: LAUNCHES[k] - before[k]
             for k in ("gather_backward", "gather_backward_fallback")}
 
 
@@ -158,19 +158,19 @@ def test_atmospheric_table_takes_index_add(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     table = torch.rand(16, ATMO_SLOTS, device=dev, generator=gen).requires_grad_(True)
     g = torch.randn(16, e, device=dev, generator=gen)
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     (got,) = torch.autograd.grad(event_gather(table, flat_idx), table, g)
     (want,) = torch.autograd.grad(table.index_select(1, flat_idx), table, g)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert reweight.LAUNCHES["gather_backward"] == before["gather_backward"]
-    assert reweight.LAUNCHES["gather_backward_fallback"] == before["gather_backward_fallback"] + 1
+    assert LAUNCHES["gather_backward"] == before["gather_backward"]
+    assert LAUNCHES["gather_backward_fallback"] == before["gather_backward_fallback"] + 1
     small = table[:, :320].detach().requires_grad_(True)
     idx = flat_idx % 320
     gq = g.clone().requires_grad_(True)
     (gr,) = torch.autograd.grad(event_gather(small, idx), small, gq, create_graph=True)
     assert gr.requires_grad
-    assert reweight.LAUNCHES["gather_backward"] == before["gather_backward"]
-    assert reweight.LAUNCHES["gather_backward_fallback"] == before["gather_backward_fallback"] + 2
+    assert LAUNCHES["gather_backward"] == before["gather_backward"]
+    assert LAUNCHES["gather_backward_fallback"] == before["gather_backward_fallback"] + 2
 
 
 @pytest.mark.cuda
@@ -232,12 +232,12 @@ def test_beam1det_gradient_launches(dev):
     theta = model.prefit_vector().to(dev).expand(CHAINS, -1).clone()
     theta = theta + 1e-3 * torch.randn(theta.shape, dtype=theta.dtype, device=dev,
                                         generator=torch.Generator(device=dev).manual_seed(5))
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     th = theta.requires_grad_(True)
     (grad,) = torch.autograd.grad(model.log_posterior_batch(th).sum(), th)
     torch.cuda.synchronize()
     assert torch.isfinite(grad).all()
-    got = {k: reweight.LAUNCHES[k] - before[k] for k in before}
+    got = {k: LAUNCHES[k] - before[k] for k in before}
     assert got["gather_backward"] == 4
     assert got["gather_backward_fallback"] == 0
     assert got["reweight_backward"] == 2

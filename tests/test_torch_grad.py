@@ -40,8 +40,9 @@ import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.samples.binning import SampleBinning, histogram
-from mach3_tpu_torch.splines import grad, plan, reweight
+from mach3_tpu_torch.splines import grad, plan
 from mach3_tpu_torch.splines.eval import coefficient_rows, find_segments, spline_product
 from mach3_tpu_torch.splines.monolith import (
     DenseSplineTable,
@@ -322,7 +323,7 @@ def _shared_case(d):
 
 @pytest.mark.parametrize("route", ["shared", "shifted"])
 def test_autograd_functions_match_plain_route(route):
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     if route == "shared":
         d = _inputs(n_params=8, n_events=900, n_bins=40, seed=5, modes=True)
         d.bins = np.clip(d.bins, 0, d.n_bins)
@@ -357,7 +358,7 @@ def test_autograd_functions_match_plain_route(route):
     p = x.coeffs.shape[0]
     _close_t(g_t.numpy(), own_t.numpy(), scale.numpy(), SELF_RTOL * p)
     _close_base(g_base.numpy(), own_base.numpy(), SELF_RTOL * p)
-    assert reweight.LAUNCHES == before  # the plain versions are not launches
+    assert LAUNCHES == before  # the plain versions are not launches
 
 
 def test_backward_is_first_order_only():
@@ -739,10 +740,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case):
     xc = _to(x, cuda_device)
     plan_c = {k: v.to(cuda_device) for k, v in plan_kw.items()}
     a = (xc.seg, xc.t, xc.coeffs, xc.base, xc.bins, xc.gmc, xc.gw2)
-    before = reweight.LAUNCHES["reweight_backward"]
+    before = LAUNCHES["reweight_backward"]
     got_t, got_base = grad.reweight_backward(*a, n_bins=d.n_bins, **plan_c)
     torch.cuda.synchronize()
-    assert reweight.LAUNCHES["reweight_backward"] == before + 1
+    assert LAUNCHES["reweight_backward"] == before + 1
     ref_a = grad.grad_pass_a_ref(*a, n_bins=d.n_bins, **plan_c)
     ref_t = grad.grad_pass_b_ref(xc.seg, xc.t, xc.coeffs, *ref_a[1:])
     p = x.coeffs.shape[0]

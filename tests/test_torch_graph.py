@@ -18,7 +18,7 @@ import torch
 from mach3_tpu_torch.fitters import mcmc
 from mach3_tpu_torch.fitters.delayed import DelayedConfig, DelayedMR2T2
 from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
-from mach3_tpu_torch.splines import reweight
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.tutorial.toy import build_toy
 
 N_CHAINS = 32
@@ -153,15 +153,15 @@ def test_graph_launches_count_replays(toy):
             (MR2T2, MCMCConfig(**CONFIG), 2),
             (DelayedMR2T2, DelayedConfig(**CONFIG, max_rejections=1), 4)):
         fit = make(toy.model, cfg, init, seed=1)
-        before = reweight.LAUNCHES["reweight_shifted"]
+        before = LAUNCHES["reweight_shifted"]
         fit.run(n_steps=10, collect=False)
         # The warm-up before the capture is one real step.
-        assert reweight.LAUNCHES["reweight_shifted"] - before == 11 * per_step
+        assert LAUNCHES["reweight_shifted"] - before == 11 * per_step
         assert fit._graph.launches == {"reweight_shifted": per_step}
-        before = reweight.LAUNCHES["reweight_shifted"]
+        before = LAUNCHES["reweight_shifted"]
         fit.run(n_steps=25, collect=False)
         torch.cuda.synchronize()
-        assert reweight.LAUNCHES["reweight_shifted"] - before == 25 * per_step
+        assert LAUNCHES["reweight_shifted"] - before == 25 * per_step
 
 
 @pytest.mark.cuda

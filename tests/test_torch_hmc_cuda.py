@@ -23,7 +23,7 @@ import torch
 
 from mach3_tpu_torch.fitters.hmc import HMC, HMCConfig, SegmentedStep
 from mach3_tpu_torch.fitters.mcmc import GraphChunk
-from mach3_tpu_torch.splines import reweight
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.tutorial.toy import build_toy
 
 N_CHAINS = 32
@@ -126,10 +126,10 @@ def test_graph_launches_evaluations_and_reads(toy, mode):
     init, _ = _init(toy.model, 8)
     cfg = HMCConfig(**BASE, **MODES[mode])
     fit = HMC(toy.model, cfg, init, seed=1)
-    launches0 = dict(reweight.LAUNCHES)
+    launches0 = dict(LAUNCHES)
     fit.run(n_steps=5, collect=False)
     n_grad = fit.n_grad_evals
-    assert {k: reweight.LAUNCHES[k] - launches0[k] for k in PER_EVAL} == {
+    assert {k: LAUNCHES[k] - launches0[k] for k in PER_EVAL} == {
         k: v * n_grad for k, v in PER_EVAL.items()}
     iters = fit._iterations
     if mode == "chees":
@@ -137,12 +137,12 @@ def test_graph_launches_evaluations_and_reads(toy, mode):
     else:
         assert n_grad == 6 * iters
         assert fit._graph.launches == {k: v * iters for k, v in PER_EVAL.items()}
-    launches0, grads0 = dict(reweight.LAUNCHES), fit.n_grad_evals
+    launches0, grads0 = dict(LAUNCHES), fit.n_grad_evals
     out = fit.run(n_steps=8)
     torch.cuda.synchronize()
     n_grad = fit.n_grad_evals - grads0
     assert n_grad == ((out["n_leapfrog"][:, 0] + 1).sum() if mode == "chees" else 8 * iters)
-    assert {k: reweight.LAUNCHES[k] - launches0[k] for k in PER_EVAL} == {
+    assert {k: LAUNCHES[k] - launches0[k] for k in PER_EVAL} == {
         k: v * n_grad for k, v in PER_EVAL.items()}
     assert _host_reads(fit, 8) == 1 + (8 if mode == "chees" else 0)
 

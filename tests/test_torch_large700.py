@@ -181,6 +181,7 @@ def cuda_device():
 def test_cuda_kernels_at_large700_widths(cuda_device, i):
     """Each route's forward kernel and the backward kernel at large700's P
     (~94) against their plain versions (the smoke's tolerances)."""
+    from mach3_tpu_torch.kernels.launch import LAUNCHES
     from mach3_tpu_torch.splines import reweight
 
     model = build_large700(**SIZE, device="cpu").model
@@ -190,7 +191,7 @@ def test_cuda_kernels_at_large700_widths(cuda_device, i):
     s = model.samples[i]
     tables = model._shared_osc_tables(th)
     name = f"reweight_{s.kernel_route.variant}"
-    before = reweight.LAUNCHES[name]
+    before = LAUNCHES[name]
     with torch.no_grad():
         if s.kernel_route.variant == "shared":
             args, kw = s.shared_kernel_args(th, tables[i])
@@ -200,7 +201,7 @@ def test_cuda_kernels_at_large700_widths(cuda_device, i):
             args, kw = s.shifted_kernel_args(th, tables[i])
             got = reweight.fused_reweight_histogram_shifted(*args, **kw)
             ref = reweight.fused_reweight_histogram_shifted_ref(*args, **kw)
-    assert reweight.LAUNCHES[name] == before + 1
+    assert LAUNCHES[name] == before + 1
     for x, y in zip(got, ref):
         tol = 2e-5 * y.abs() + 1e-6 * y.abs().max()
         assert bool(((x - y).abs() <= tol).all())

@@ -6,10 +6,9 @@ On the CPU: the layer arrays the kernel reads (the configuration's
 lengths and density indices [(H,) NZ, NL]) against the benchmark
 reference's ``prem_paths``, on large700's zenith grid and on chords whose
 impact parameter lies 1e-6 km inside and outside each shell, from one
-production height and from three; ``osc_layer_products`` against the
-products the plain path makes; a CPU call takes the plain path and counts
-neither a launch nor a fallback; the wrapper raises on what the kernel does
-not take.
+production height and from three; a CPU call takes the plain path and
+counts neither a launch nor a fallback; the wrapper raises on what the
+kernel does not take.
 
 On the card (``cuda``; skipped without one): the kernel against the plain
 path on the card and against ``m3bench/reference``'s ``layered``
@@ -31,10 +30,9 @@ import torch
 from m3bench.fixtures import osc_tree
 from m3bench.reference import osc as ref_osc
 from m3bench.reference.params import read
-from mach3_tpu_torch.core import tracing
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.osc import layered, prem, prob
 from mach3_tpu_torch.samples.events import EventData, build_atmo_osc_config
-from mach3_tpu_torch.splines import reweight
 
 torch.set_num_threads(1)
 
@@ -109,11 +107,11 @@ def _reference(th, heights):
 
 
 def _launches():
-    return {k: reweight.LAUNCHES[k] for k in KEYS}
+    return {k: LAUNCHES[k] for k in KEYS}
 
 
 def _seen(before):
-    return {k: reweight.LAUNCHES[k] - before[k] for k in KEYS}
+    return {k: LAUNCHES[k] - before[k] for k in KEYS}
 
 
 # On the CPU -------------------------------------------------------------------
@@ -148,27 +146,6 @@ def test_the_kernels_paths_equal_the_reference(heights):
             counts.append((h, z, n))
     grid_layers = {n for h, z, n in counts if h == n_h // 2 and z < len(GRID)}
     assert grid_layers == GRID_LAYERS  # 15 km: large700's paths
-
-
-@pytest.mark.parametrize("heights", [None, HEIGHTS], ids=["15km", "three_heights"])
-def test_layer_products_equal_the_plain_paths_count(heights):
-    """Both paths count ``osc_layer_products`` as the plain path multiplies:
-    per chain, energy, neutrino or antineutrino and production height, one
-    product a layer after the first of the zenith's group, whose layer count
-    is the zenith's most over the heights (from the reference's paths)."""
-    cfg = _config(heights)
-    hs = (prem.PRODUCTION_HEIGHT_KM,) if heights is None else heights
-    n_layers = np.max([[sum(x > 0 for x in want_l) for want_l, _ in ref_osc.prem_paths(ZENITHS, h)]
-                       for h in hs], 0)
-    products = len(hs) * int((np.maximum(n_layers, 1) - 1).sum())
-    th = torch.from_numpy(_thetas(3))
-    before = dict(tracing.PROGRAM)
-    cfg.prob_grids(th)
-    seen = {k: tracing.PROGRAM.get(k, 0) - before.get(k, 0) for k in tracing.DEVICE_WORK}
-    assert seen == {"osc_layered_grids": 1,
-                    "osc_layer_products": 2 * 3 * len(ENERGIES) * products}
-    assert prob.layer_products(cfg.layer_lengths.shape[:-1], cfg.layer_lengths.shape[-1],
-                               cfg.z_groups) == products
 
 
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])

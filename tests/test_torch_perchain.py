@@ -48,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.samples.events import EventData, build_sample_model
 from mach3_tpu_torch.samples.sample import SampleModel, ShiftSpec
 from mach3_tpu_torch.splines import plan, reweight
@@ -242,10 +243,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         call(*args, n_bins=reweight.MAX_BINS + 1)
     with pytest.raises(ValueError):
         call(*args, **kwargs, hist="radix")
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     for hist in reweight.HIST_FORMS:
         call(*args, **kwargs, hist=hist)
-    assert reweight.LAUNCHES == before  # the plain version is not a launch
+    assert LAUNCHES == before  # the plain version is not a launch
 
 
 # ------------------------------------------------ the bin map (generic route)
@@ -569,10 +570,10 @@ _COUNTER = {"maskreduce": "reweight_perchain", "blockdiag": "reweight_perchain_b
 def test_cuda_kernels_match_plain_version(cuda_device, case, hist):
     d = _edge_case(case)
     args, kwargs = _port_args(d, cuda_device)
-    before = reweight.LAUNCHES[_COUNTER[hist]]
+    before = LAUNCHES[_COUNTER[hist]]
     mc, w2 = reweight.fused_reweight_histogram(*args, **kwargs, hist=hist)
     torch.cuda.synchronize()
-    assert reweight.LAUNCHES[_COUNTER[hist]] == before + 1
+    assert LAUNCHES[_COUNTER[hist]] == before + 1
     mc_p, w2_p = reweight.fused_reweight_histogram_ref(*args, **kwargs)
     if case == "all_out_of_range":
         assert float(mc.abs().sum()) == 0.0 and float(w2.abs().sum()) == 0.0
@@ -669,10 +670,10 @@ def test_cuda_bin_map_matches_plain_version(cuda_device, case, hist):
     d = _map_case(case)
     planned = case.startswith("plan")
     args, kwargs = _map_args(d, cuda_device, layout=planned, norm=planned)
-    before = reweight.LAUNCHES[_COUNTER[hist]]
+    before = LAUNCHES[_COUNTER[hist]]
     mc, w2 = reweight.fused_reweight_histogram(*args, **kwargs, hist=hist)
     torch.cuda.synchronize()
-    assert reweight.LAUNCHES[_COUNTER[hist]] == before + 1
+    assert LAUNCHES[_COUNTER[hist]] == before + 1
     mc_p, w2_p = reweight.fused_reweight_histogram_ref(*args, **kwargs)
     _close(mc.cpu().numpy(), mc_p.cpu().numpy(), 2e-5, ATOL_FRAC)
     _close(w2.cpu().numpy(), w2_p.cpu().numpy(), 2e-5, ATOL_FRAC)

@@ -19,9 +19,8 @@ paths lose the innermost shell's exit on the way up, which the port repairs
   ``large700`` (the benchmark's inputs at 1,500 atmospheric events a
   sample) against the reference's on its own paths, at 16 seeded points
   near the prefit point.
-* The layered oscillation's counters on that copy, ``osc_layered_grids``
-  and ``osc_layer_products`` of ``tracing.PROGRAM``, against their formula
-  from the reference's paths.
+* Sharing: the copy's three atmospheric samples compute one layered grid a
+  likelihood.
 """
 import json
 from pathlib import Path
@@ -30,13 +29,12 @@ import numpy as np
 import pytest
 import torch
 
-from m3bench import osc_counts
 from m3bench.fixtures import osc_tree
 from m3bench.reference import osc as ref_osc
 from m3bench.reference.params import read
-from mach3_tpu_torch.core import tracing
 from mach3_tpu_torch.osc import prem, prob
 from mach3_tpu_torch.samples.events import EventData, build_atmo_osc_config
+from mach3_tpu_torch.samples.sample import AtmoOscConfig
 
 torch.set_num_threads(1)
 
@@ -175,22 +173,19 @@ def test_sample_nlls_equal_the_reference(large700):
     assert max(gaps.values()) < NLL_ATOL, gaps
 
 
-def _layer_counts(inputs, n_chains):
-    """(layered grids, 3x3 complex operator products) one likelihood of
-    ``n_chains`` points needs: the benchmark's distinct atmospheric grids
-    (``osc_counts.layered_grids``, on the reference's paths), and per
-    zenith, energy, chain and neutrino or antineutrino one product per
-    layer after the first."""
-    grids = osc_counts.layered_grids(inputs)
-    return len(grids), sum(2 * n_chains * n_e * (n - 1) for n_e, layers in grids for n in layers)
+def test_atmospheric_samples_share_one_layered_grid(large700, monkeypatch):
+    """The three atmospheric samples of the copy share one oscillation
+    configuration: a likelihood computes its layered grids once."""
+    _, params, model, _ = large700
+    calls = []
+    prob_grids = AtmoOscConfig.prob_grids
 
+    def counted(self, thetas):
+        calls.append(self)
+        return prob_grids(self, thetas)
 
-def test_layered_counters_follow_the_formula(large700):
-    inputs, params, model, _ = large700
+    monkeypatch.setattr(AtmoOscConfig, "prob_grids", counted)
     th = torch.as_tensor(np.tile(params.prefit, (5, 1)))
-    before = dict(tracing.PROGRAM)
     with torch.no_grad():
         model.total_nll_batch_parts(th)
-    seen = {k: tracing.PROGRAM.get(k, 0) - before.get(k, 0) for k in tracing.DEVICE_WORK}
-    assert (seen["osc_layered_grids"], seen["osc_layer_products"]) == _layer_counts(inputs, 5)
-    assert seen["osc_layered_grids"] == 1  # three atmospheric samples share one grid
+    assert len(calls) == 1

@@ -70,7 +70,7 @@ def test_routing_variants(static, shift, p, bins, variant):
     route = routing.choose_kernel_route(bins, _table(p), static, shift)
     assert route.variant == variant
     assert route.use_kernel == (variant != "xla")
-    assert (route.param_tile is not None) == (p > routing.MAX_UNROLL_PARAMS and variant != "xla")
+    assert (route.reason == f"P={p}, bins={bins}") == route.use_kernel
     assert routing.choose_kernel_route(bins, _table(p), static, shift, requested=False).variant == "xla"
     assert routing.choose_kernel_route(bins, None, static, shift).variant == "xla"
 

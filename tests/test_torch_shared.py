@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.samples.binning import SampleBinning
 from mach3_tpu_torch.splines import plan, reweight
 from mach3_tpu_torch.splines.eval import find_segments
@@ -380,9 +381,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         call(*args, **{**kwargs, "n_bins": reweight.MAX_SHARED_BINS + 1})
     with pytest.raises(ValueError):
         call(*args, **{**kwargs, "norm_s": None})
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     call(*args, **kwargs)
-    assert reweight.LAUNCHES == before  # the plain version is not a launch
+    assert LAUNCHES == before  # the plain version is not a launch
 
 
 # ---------------------------------------------------------------- the card
@@ -438,10 +439,10 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
     if case == "all_inactive_tile":
         ptr = kwargs["plan_ptr"].cpu().numpy()
         assert (np.diff(ptr) == 0).any()
-    before = reweight.LAUNCHES["reweight_shared"]
+    before = LAUNCHES["reweight_shared"]
     mc, w2 = reweight.fused_reweight_histogram_shared(*args, **kwargs)
     torch.cuda.synchronize()
-    assert reweight.LAUNCHES["reweight_shared"] == before + 1
+    assert LAUNCHES["reweight_shared"] == before + 1
     mc_p, w2_p = reweight.fused_reweight_histogram_shared_ref(*args, **kwargs)
     _close(mc.cpu().numpy(), mc_p.cpu().numpy(), ORACLE_RTOL)
     _close(w2.cpu().numpy(), w2_p.cpu().numpy(), ORACLE_RTOL)

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.samples.binning import SampleBinning
 from mach3_tpu_torch.splines import plan, reweight
 from mach3_tpu_torch.splines.eval import find_segments
@@ -230,9 +231,9 @@ def test_wrapper_checks_the_plan():
     with pytest.raises(ValueError, match="knots"):
         call(args[0][:, :2].contiguous(), args[1][:, :2].contiguous(), wide, *args[3:],
              **dict(real, plan_ptr=None, plan_idx=None))
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     call(*args, **real)
-    assert reweight.LAUNCHES == before  # the plain version is not a launch
+    assert LAUNCHES == before  # the plain version is not a launch
     assert reweight.tile_core_smem(args[2], 4) < reweight.MAX_SMEM
 
 
@@ -475,13 +476,13 @@ def test_cuda_shifted_kernel_under_real_and_trivial_plan(cuda_device, case):
     args, real, trivial, _ = _shifted_args(_inputs(**kw), cuda_device, kind, pad_tile)
     call = reweight.fused_reweight_histogram_shifted
     want = reweight.fused_reweight_histogram_shifted_ref(*args, **real)
-    before = reweight.LAUNCHES["reweight_shifted"]
+    before = LAUNCHES["reweight_shifted"]
     for what, kwargs in (("plan", real), ("trivial plan", trivial),
                          ("no plan", dict(real, plan_ptr=None, plan_idx=None))):
         got = call(*args, **kwargs)
         torch.cuda.synchronize()
         _close_on_card(got, want, f"{case} {what}")
-    assert reweight.LAUNCHES["reweight_shifted"] == before + 3
+    assert LAUNCHES["reweight_shifted"] == before + 3
 
 
 SHARED_CARD_CASES = {
@@ -545,7 +546,7 @@ def test_cuda_rows_off_16_bytes_raise(cuda_device, kernel):
     seg, t = find_segments(table.knots_x, table.n_knots,
                            torch.as_tensor(d.params, device=cuda_device)[:, table.param_index])
     dev = cuda_device
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     with pytest.raises(ValueError, match="multiples of 16"):
         if kernel == "shifted":
             reweight.fused_reweight_histogram_shifted(
@@ -558,4 +559,4 @@ def test_cuda_rows_off_16_bytes_raise(cuda_device, kernel):
                 seg, t, table.coeffs, _dev(d.base, dev), _dev(d.bins, dev), n_bins=40,
                 tile_start=_dev(starts, dev), tile_width=_dev(widths, dev),
                 plan_ptr=_dev(ptr, dev), plan_idx=_dev(idx, dev), nbl=nbl)
-    assert reweight.LAUNCHES == before
+    assert LAUNCHES == before

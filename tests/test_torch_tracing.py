@@ -1,7 +1,7 @@
 """The program's tracing (``mach3_tpu_torch/core/tracing.py``) on the CPU:
 spans and their parents and chunk ids in the eager loop, the counter
-registry and the capture's replay accounting (the program's own counts:
-its device work alone), the layered oscillation's stamp after every
+registry and the capture's replay accounting (none of the program's own
+counts), the layered oscillation's stamp after every
 constant-density grid, chains that tracing leaves
 bit for bit as they were, no ``record_function`` and no host read while it
 is off, and the model build's set-up spans (``--profile``'s ``spans.json``
@@ -15,7 +15,7 @@ import torch
 from mach3_tpu_torch.core import tracing
 from mach3_tpu_torch.fitters.hmc import HMC, HMCConfig
 from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
-from mach3_tpu_torch.splines import reweight
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.tutorial.toy import build_toy
 
 torch.set_num_threads(1)
@@ -78,39 +78,21 @@ def test_capture_counts_are_replayed():
     """What every registry entry counts during a capture is taken back out
     and added again by each replay; the program's own counts are not."""
     entry = tracing.counters("test.entry", ("a",))
-    before = dict(reweight.LAUNCHES)
+    before = dict(LAUNCHES)
     reads = tracing.PROGRAM.get("host_reads", 0)
     seen = tracing.CaptureCounts()
     entry["a"] += 2
-    reweight.LAUNCHES["reweight_shifted"] += 1
+    LAUNCHES["reweight_shifted"] += 1
     tracing.count("host_reads")
     seen.close()
-    assert entry["a"] == 0 and dict(reweight.LAUNCHES) == before
+    assert entry["a"] == 0 and dict(LAUNCHES) == before
     assert tracing.PROGRAM["host_reads"] == reads + 1
-    assert seen.of(entry) == {"a": 2} and seen.of(reweight.LAUNCHES) == {"reweight_shifted": 1}
+    assert seen.of(entry) == {"a": 2} and seen.of(LAUNCHES) == {"reweight_shifted": 1}
     for _ in range(3):
         seen.replay()
-    assert entry["a"] == 6 and reweight.LAUNCHES["reweight_shifted"] == before[
+    assert entry["a"] == 6 and LAUNCHES["reweight_shifted"] == before[
         "reweight_shifted"] + 3
     assert seen.of(tracing.PROGRAM) == {}
-
-
-def test_capture_replays_the_programs_device_work():
-    """Of the program's own counts a capture takes back out, and each
-    replay adds again, only the layered oscillation's work."""
-    before = dict(tracing.PROGRAM)
-    seen = tracing.CaptureCounts()
-    tracing.count("osc_layered_grids")
-    tracing.count("osc_layer_products", 40)
-    tracing.count("graph_replays")
-    seen.close()
-    after = {k: tracing.PROGRAM.get(k, 0) - before.get(k, 0) for k in tracing.PROGRAM}
-    assert {k: v for k, v in after.items() if v} == {"graph_replays": 1}
-    assert seen.of(tracing.PROGRAM) == {"osc_layered_grids": 1, "osc_layer_products": 40}
-    for _ in range(3):
-        seen.replay()
-    assert tracing.PROGRAM["osc_layer_products"] == before.get("osc_layer_products", 0) + 120
-    assert tracing.PROGRAM["osc_layered_grids"] == before.get("osc_layered_grids", 0) + 3
 
 
 def test_layered_grids_follow_the_constant_density_ones(monkeypatch):
@@ -143,10 +125,10 @@ def test_layered_grids_follow_the_constant_density_ones(monkeypatch):
 def test_registry_holds_the_launches_and_a_samplers_evaluations(toy):
     fit = HMC(toy.model, CHEES, _init(toy.model), seed=1, graph=False)
     names = tracing.snapshot()
-    assert names["launches"] == dict(reweight.LAUNCHES)
+    assert names["launches"] == dict(LAUNCHES)
     assert any(n.startswith("hmc.evals") and v == {"logp": 1, "grad": 0}
                for n, v in names.items())
-    assert isinstance(reweight.LAUNCHES, dict) and fit.n_logp_evals == 1
+    assert isinstance(LAUNCHES, dict) and fit.n_logp_evals == 1
 
 
 @pytest.mark.parametrize("kind", ["mr2t2", "chees"])

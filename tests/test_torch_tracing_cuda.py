@@ -19,7 +19,7 @@ import torch
 from mach3_tpu_torch.core import tracing
 from mach3_tpu_torch.fitters.hmc import HMC, HMCConfig
 from mach3_tpu_torch.fitters.mcmc import MR2T2, MCMCConfig
-from mach3_tpu_torch.splines import reweight
+from mach3_tpu_torch.kernels.launch import LAUNCHES
 from mach3_tpu_torch.tutorial.toy import build_toy
 
 N_CHAINS = 32
@@ -87,13 +87,13 @@ def test_stamped_graph_step_equals_an_unstamped_eager_step(toy):
     flipped = 0
     for _ in range(12):
         fe.state = _snapshot(fg.state)
-        before = dict(reweight.LAUNCHES)
+        before = dict(LAUNCHES)
         g = fg.run(n_steps=1)
-        on_graph = {k: reweight.LAUNCHES[k] - before[k] for k in before}
-        before = dict(reweight.LAUNCHES)
+        on_graph = {k: LAUNCHES[k] - before[k] for k in before}
+        before = dict(LAUNCHES)
         e = fe.run(n_steps=1)
         assert fe._eager_stamps is None
-        assert on_graph == {k: reweight.LAUNCHES[k] - before[k] for k in before}
+        assert on_graph == {k: LAUNCHES[k] - before[k] for k in before}
         assert torch.equal(fg.state.generator.get_state(), fe.state.generator.get_state())
         flips = g["accepted"][0] != e["accepted"][0]
         flipped += int(flips.sum())
